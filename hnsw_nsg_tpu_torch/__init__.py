@@ -2,11 +2,17 @@
 
 The layout and function names follow the JAX package (``ops/``,
 ``models/``, ``utils/``), so each function's counterpart is found under
-the same path there. This slice holds the CNNS flat search path:
-``models.cnns.build_cnns`` and ``CNNSIndex.search``, with the grouped
-cluster scan as a hand-written CUDA kernel for Hopper
-(``csrc/grouped_scan.cu``, bound in ``ops/cluster_scan.py``).
+the same path there. Ported so far:
 
-Importing the package loads no GPU library; the kernel is compiled at
-its first launch on a CUDA tensor.
+  * the CNNS flat search path: ``models.cnns.build_cnns`` and
+    ``CNNSIndex.search``, on the grouped cluster scan
+    (``csrc/grouped_scan.cu``, bound in ``ops/cluster_scan.py``);
+  * the graph path: ``models.knn_ivf.knn_graph_ivf`` (the cluster join,
+    ``csrc/cluster_join.cu``), ``models.nsg.build_nsg`` and
+    ``NSGIndex.search`` over the lockstep beam of ``models.beam``, whose
+    every hop runs the fused merge+select (``csrc/merge_select.cu``,
+    bound in ``ops/merge_select.py``).
+
+Importing the package loads no GPU library; the kernels are compiled at
+the first launch on a CUDA tensor.
 """

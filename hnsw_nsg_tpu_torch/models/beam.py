@@ -1,0 +1,185 @@
+"""Batched graph traversal: the lockstep best-first beam
+(counterpart of hnsw_nsg_tpu/models/beam.py).
+
+Q queries advance together. Each hop gathers the frontier nodes'
+padded adjacency rows, computes the gathered distances (f32 products,
+TF32 off) and merges them into per-query sorted retsets with
+``fused_merge_select`` (``ops/merge_select.py``): the CUDA kernel on a
+card, its plain composition on the CPU. A sorted top-L retset only
+improves its L-th distance, so an evicted node never re-enters, and the
+expanded flags keep each occupant from being expanded twice: retset
+dedup replaces the reference's visited list (NSG ``Search``,
+CNNS/src/nsg/index_nsg.cpp:506-568; hnswlib ``searchBaseLayerST``).
+
+Hops run in chunks of ``chunk_hops`` with one host convergence check
+per chunk, as in the JAX package. ``beam_search_chunked`` compacts
+converged queries out between chunks and scatters their results back;
+it compacts to exactly the live rows, where the TPU padded the batch to
+a power of two to bound recompiles (no result depends on it). The
+while-loop variants, ``greedy_descent`` and ``beam_search_filtered`` are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.distance import PAD_ID, gathered_dists
+from ..ops.merge_select import fused_merge_select
+from ..ops.topk import init_retset
+
+
+class BeamResult(NamedTuple):
+    dists: torch.Tensor   # [Q, L] ascending (FastL2 values for metric="l2")
+    ids: torch.Tensor     # [Q, L] PAD_ID-padded
+    hops: torch.Tensor    # [Q] int32: frontier expansions performed
+    evals: torch.Tensor   # [Q] int32: distance computations performed
+
+
+def _select_frontier(ids, expanded, expand: int):
+    """Pick the first `expand` unexpanded slots per query (the retset is
+    sorted, so these are the closest unexpanded candidates). Returns
+    (sel_ids [Q, expand] with PAD_ID where invalid, sel_valid, the new
+    expanded flags)."""
+    width = ids.shape[1]
+    unexp = ~expanded
+    slot = torch.arange(width, dtype=torch.int32, device=ids.device)
+    key = torch.where(unexp, slot, width)
+    # smallest keys first, ties (the invalid picks) in slot order
+    idxs = torch.sort(key, dim=1, stable=True).indices[:, :expand]
+    sel_valid = torch.gather(unexp, 1, idxs)
+    sel_ids = torch.where(sel_valid, torch.gather(ids, 1, idxs), PAD_ID)
+    new_expanded = expanded.scatter(
+        1, idxs, torch.gather(expanded, 1, idxs) | sel_valid)
+    return sel_ids, sel_valid, new_expanded
+
+
+def _expand(adj, sel_ids, sel_valid):
+    """Neighbor ids of the frontier, [Q, expand * R], PAD where invalid."""
+    nbrs = adj[sel_ids.clamp(min=0).long()]
+    nbrs = torch.where(sel_valid[:, :, None], nbrs, PAD_ID)
+    return nbrs.reshape(sel_ids.shape[0], -1)
+
+
+def _hop_counts(hops, evals, sel_valid, nbrs):
+    hops += sel_valid.sum(1, dtype=torch.int32)
+    evals += (nbrs >= 0).sum(1, dtype=torch.int32)
+
+
+def _start(q, data, norms, init_ids, width, metric, expand):
+    init_d = gathered_dists(q, data, init_ids, metric, norms)
+    r_d, r_i, r_e = init_retset(init_d, init_ids, width)
+    qn = q.shape[0]
+    hops = torch.zeros(qn, dtype=torch.int32, device=q.device)
+    evals = (init_ids >= 0).sum(1, dtype=torch.int32)
+    sel_ids, sel_valid, r_e = _select_frontier(r_i, r_e, expand)
+    return init_d, r_d, r_i, r_e, sel_ids, sel_valid, hops, evals
+
+
+def beam_search_chunked(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    init_ids: torch.Tensor,
+    width: int,
+    metric: str = "l2",
+    max_hops: int = 512,
+    expand: int = 1,
+    chunk_hops: int = 32,
+    min_compact: int = 256,
+) -> BeamResult:
+    """Lockstep best-first search over a padded-adjacency graph.
+
+    queries [Q, d]; data [N, d]; norms [N] (l2); adj [N, R] int32
+    PAD_ID-padded; init_ids [Q, I] int32; width = retset width L. All on
+    one device. Returns distances in FastL2 form for metric="l2" (exact =
+    + ||q||^2). Converged queries leave the batch between chunks once the
+    live count (at least ``min_compact``) is at most half the batch."""
+    q = queries
+    qn = q.shape[0]
+    init_ids = init_ids.to(torch.int32)
+    (_, r_d, r_i, r_e, sel_ids, sel_valid, hops,
+     evals) = _start(q, data, norms, init_ids, width, metric, expand)
+    final = None
+    orig = torch.arange(qn, device=q.device)
+    cur_q = qn
+    hops_left = max_hops
+    while hops_left > 0:
+        n_hops = min(chunk_hops, hops_left)
+        for _ in range(n_hops):
+            nbrs = _expand(adj, sel_ids, sel_valid)
+            cd = gathered_dists(q, data, nbrs, metric, norms)
+            _hop_counts(hops, evals, sel_valid, nbrs)
+            r_d, r_i, r_e, sel_ids, sel_valid = fused_merge_select(
+                r_d, r_i, r_e, cd, nbrs, expand)
+        hops_left -= n_hops
+        act = sel_valid.any(1)
+        n_act = int(act.sum())
+        if n_act == 0:
+            break
+        if max(min_compact, n_act) <= cur_q // 2 and hops_left > 0:
+            if final is None:
+                final = (torch.zeros((qn, width), device=q.device),
+                         torch.full((qn, width), PAD_ID, dtype=torch.int32,
+                                    device=q.device),
+                         torch.zeros(qn, dtype=torch.int32, device=q.device),
+                         torch.zeros(qn, dtype=torch.int32, device=q.device))
+            for buf, val in zip(final, (r_d, r_i, hops, evals)):
+                buf[orig] = val
+            keep = act.nonzero()[:, 0]
+            q, r_d, r_i, r_e, sel_ids, sel_valid, hops, evals, orig = (
+                t[keep] for t in (q, r_d, r_i, r_e, sel_ids, sel_valid,
+                                  hops, evals, orig))
+            cur_q = n_act
+    if final is None:
+        return BeamResult(r_d, r_i, hops, evals)
+    for buf, val in zip(final, (r_d, r_i, hops, evals)):
+        buf[orig] = val
+    return BeamResult(*final)
+
+
+def beam_search_collect_chunked(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    init_ids: torch.Tensor,
+    width: int,
+    collect: int,
+    metric: str = "l2",
+    max_hops: int = 512,
+    expand: int = 1,
+    chunk_hops: int = 32,
+):
+    """beam_search_chunked that also keeps the closest ``collect``
+    evaluated (id, dist) pairs: the reference's ``get_neighbors`` fullset
+    feeding ``sync_prune`` (index_nsg.cpp:150-285), bounded to a sorted
+    top-``collect`` pool. The pool folds every hop's candidates with the
+    same fused merge and a throwaway selection (its expanded flags are
+    reset to False every hop). No compaction: build-time only.
+
+    Returns (BeamResult, pool_ids [Q, collect], pool_dists [Q, collect])."""
+    q = queries
+    init_ids = init_ids.to(torch.int32)
+    (init_d, r_d, r_i, r_e, sel_ids, sel_valid, hops,
+     evals) = _start(q, data, norms, init_ids, width, metric, expand)
+    p_d, p_i, _ = init_retset(init_d, init_ids, collect)
+    p_e0 = torch.zeros(p_d.shape, dtype=torch.bool, device=q.device)
+    hops_left = max_hops
+    while hops_left > 0:
+        n_hops = min(chunk_hops, hops_left)
+        for _ in range(n_hops):
+            nbrs = _expand(adj, sel_ids, sel_valid)
+            cd = gathered_dists(q, data, nbrs, metric, norms)
+            _hop_counts(hops, evals, sel_valid, nbrs)
+            p_d, p_i, _, _, _ = fused_merge_select(p_d, p_i, p_e0, cd, nbrs,
+                                                   1)
+            r_d, r_i, r_e, sel_ids, sel_valid = fused_merge_select(
+                r_d, r_i, r_e, cd, nbrs, expand)
+        hops_left -= n_hops
+        if not bool(sel_valid.any()):
+            break
+    return BeamResult(r_d, r_i, hops, evals), p_i, p_d

@@ -1,10 +1,12 @@
 """Lloyd's k-means on tensors (counterpart of hnsw_nsg_tpu/models/kmeans.py).
 
 Assignment = argmin of a [chunk, k] pairwise-distance block (bf16-rounded
-operands, f32 products and sums); update = ``index_add_`` of the points
-into f32 centroid sums. Empty clusters are re-seeded from the points
-currently farthest from their centroid (cluster i takes the i-th
-farthest), as in the JAX package.
+operands, f32 products and sums); update = f32 centroid sums taken as a
+one-hot product per chunk of points, in a fixed order, so that the same
+seed gives the same centroids and assignments on every run (float
+atomics, as ``index_add_`` uses on a card, sum in no fixed order). Empty
+clusters are re-seeded from the points currently farthest from their
+centroid (cluster i takes the i-th farthest), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.distance import pairwise_dists, squared_norms
+from ..ops.distance import exact_f32_matmul, pairwise_dists, squared_norms
 
 
 def _assign(data, centroids, c_norms, chunk: int = 65536):
@@ -33,13 +35,27 @@ def _assign(data, centroids, c_norms, chunk: int = 65536):
     return torch.cat(assign), torch.cat(dmin)
 
 
+def _cluster_sums(data, assign, k: int, chunk: int):
+    """[k, d] f32 sums of the points of each cluster: per chunk of points
+    a one-hot [k, chunk] x [chunk, d] product (exact 0/1 products, f32
+    sums, TF32 off), chunks added in order. Deterministic on every
+    device."""
+    exact_f32_matmul()
+    sums = torch.zeros((k, data.shape[1]), dtype=torch.float32,
+                       device=data.device)
+    rows = torch.arange(k, device=data.device)[:, None]
+    for s in range(0, data.shape[0], chunk):
+        onehot = (assign[None, s : s + chunk] == rows).float()
+        sums += onehot @ data[s : s + chunk].float()
+    return sums
+
+
 def _step(data, centroids, chunk: int):
-    """One full Lloyd's iteration: assign -> index_add_ update -> re-seed
+    """One full Lloyd's iteration: assign -> order-fixed update -> re-seed
     empty clusters from the k worst-assigned points."""
     k, d = centroids.shape
     assign, dmin = _assign(data, centroids, squared_norms(centroids), chunk)
-    sums = torch.zeros((k, d), dtype=torch.float32, device=data.device)
-    sums.index_add_(0, assign, data.float())
+    sums = _cluster_sums(data, assign, k, chunk)
     counts = torch.bincount(assign, minlength=k).float()
     new_c = sums / counts.clamp(min=1.0)[:, None]
     # k farthest points, ties in index order (jax.lax.top_k)

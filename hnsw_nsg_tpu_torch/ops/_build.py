@@ -3,7 +3,9 @@
 The sources under ``hnsw_nsg_tpu_torch/csrc/`` are compiled with ``nvcc``
 at first use into ``hnsw_nsg_tpu_torch/_build/``, one shared library
 named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. Nothing here runs at import time.
+and an unchanged one loads at once. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -64,24 +66,53 @@ def load_library() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{so.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in _sources():
+            obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.grouped_scan.argtypes = [
         vp, vp, vp, vp, vp, vp,          # qc, qidx, slabs, bias, vals, idx
         ci, ci, ci, ci, ci, ci,          # C, cap, qn, d, maxc, k
-        ctypes.c_float, ci, ci, vp,      # scale, q dtype, slab dtype, stream
+        cf, ci, ci, vp,                  # scale, q dtype, slab dtype, stream
     ]
     lib.grouped_scan.restype = ci
+    lib.merge_select.argtypes = [
+        vp, vp, vp, vp, vp,              # r_d, r_i, r_e, c_d, c_i
+        vp, vp, vp, vp, vp,              # o_d, o_i, o_e, sel_i, sel_v
+        ci, ci, ci, ci, vp,              # Q, L, C, expand, stream
+    ]
+    lib.merge_select.restype = ci
+    lib.cluster_join.argtypes = [
+        vp, vp, vp, vp, vp,              # qv, stacks, bias, vals, idx
+        ci, ci, ci, ci, ci, ci,          # C, maxc, d, mm, k, group
+        cf, ci, vp,                      # scale, dtype, stream
+    ]
+    lib.cluster_join.restype = ci
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

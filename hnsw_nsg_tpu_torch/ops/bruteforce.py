@@ -1,5 +1,6 @@
 """Exact top-k search: one GEMM + running top-k per database tile
-(counterpart of hnsw_nsg_tpu/ops/bruteforce.py:brute_force_topk, recall).
+(counterpart of hnsw_nsg_tpu/ops/bruteforce.py: brute_force_topk,
+knn_graph_exact, recall).
 
 It is the recall oracle of the port: f32 products with TF32 off.
 """
@@ -62,6 +63,27 @@ def brute_force_topk(
         out_d.append(best_d)
         out_i.append(best_i)
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def knn_graph_exact(x: torch.Tensor, k: int, metric: str = "l2",
+                    tile: int = 65536, query_block: int = 4096):
+    """Exact kNN graph (self edge removed) as a padded adjacency int32
+    [N, k] on the device of ``x``: the oracle for graph quality."""
+    n = x.shape[0]
+    rows = []
+    for s in range(0, n, query_block):
+        q = x[s : s + query_block]
+        _, ids = brute_force_topk(q, x, min(k + 1, n), metric=metric,
+                                  tile=tile)
+        self_col = torch.arange(s, s + q.shape[0], device=x.device)[:, None]
+        not_self = ids != self_col
+        # stable-compact the non-self entries to the left, keep k
+        order = torch.sort((~not_self).to(torch.uint8), dim=1,
+                           stable=True).indices
+        ids = torch.gather(ids, 1, order)[:, :k]
+        keep = torch.gather(not_self, 1, order)[:, :k]
+        rows.append(torch.where(keep, ids, PAD_ID).to(torch.int32))
+    return torch.cat(rows)
 
 
 def recall(found_ids, gt_ids, k: int | None = None) -> float:

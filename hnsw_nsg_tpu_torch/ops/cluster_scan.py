@@ -18,6 +18,14 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. ``launches`` counts kernel launches.
+
+The cluster join of the kNN-graph builder lives here too, as in the JAX
+package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
+member row of each cluster against the cluster's stacked candidate slabs
+and returns the k smallest per-bucket minima (``csrc/cluster_join.cu``;
+``join_launches`` counts its launches). The TPU's row-chunk shrink for
+scoped VMEM (pallas_scan.py:197-200) is not carried over; the bucket
+rule (``join_group``) is, because it decides which slots can come back.
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import torch
 
 from .distance import f32_dots
 
-# kernel launches made by the wrappers of this module (CUDA tensors only)
+# kernel launches made by the wrappers of this module (CUDA tensors only):
+# the grouped scan, and the cluster join
 launches = 0
+join_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (query dtype, slab dtype) pairs of pallas_scan.py:_dots
@@ -193,3 +203,103 @@ def grouped_cluster_topk(qv, slabs, bias, k: int, scale: float):
                         device=qv.device).reshape(c, cap)
     _check(qc, qidx, slabs, bias, k)
     return _launch(qc, qidx, slabs, bias, k, scale)
+
+
+# ---- cluster join (kNN-graph build) ----------------------------------------
+
+MAX_JOIN_K = 64
+_JOIN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def join_group(mm: int, k: int) -> int:
+    """The bucket width of the join (pallas_scan.py:189-193): the largest
+    group <= 8 dividing mm that leaves >= 25 k buckets, which caps the
+    expected loss from two top-k slots sharing a bucket at ~2% of k."""
+    group = 1
+    while group < 8 and mm // (group * 2) >= 25 * k and mm % (group * 2) == 0:
+        group *= 2
+    return group
+
+
+def _check_join(qv, stacks, bias, k):
+    if qv.dtype != stacks.dtype or qv.dtype not in _JOIN_DTYPE_CODE:
+        raise TypeError(f"qv/stacks must both be float32 or bfloat16, got "
+                        f"({qv.dtype}, {stacks.dtype})")
+    if qv.ndim != 3 or stacks.ndim != 3 or bias.ndim != 2:
+        raise ValueError("expected qv [C, maxc, d], stacks [C, mm, d], "
+                         "bias [C, mm]")
+    c, _, d = qv.shape
+    mm = stacks.shape[1]
+    if (stacks.shape[0] != c or stacks.shape[2] != d
+            or tuple(bias.shape) != (c, mm)):
+        raise ValueError(f"shape mismatch: qv {tuple(qv.shape)}, stacks "
+                         f"{tuple(stacks.shape)}, bias {tuple(bias.shape)}")
+    if bias.dtype != torch.float32:
+        raise TypeError("bias must be float32")
+    g = mm // join_group(mm, k)
+    if not 1 <= k <= min(MAX_JOIN_K, g):
+        raise ValueError(f"k={k} outside [1, min({MAX_JOIN_K}, buckets={g})]")
+
+
+def cluster_join_topk_reference(qv, stacks, bias, k: int, scale: float,
+                                cluster_chunk: int | None = None):
+    """Plain version of cluster_join_topk: f32 products, per-bucket minima
+    (``min`` returns the first, i.e. lowest e, on ties), stable sort of the
+    bucket minima. Runs ``cluster_chunk`` clusters at a time (default: a
+    ~512 MB f32 distance block), since the whole [C, maxc, mm] block does
+    not fit at build shapes."""
+    _check_join(qv, stacks, bias, k)
+    c, maxc, _ = qv.shape
+    mm = stacks.shape[1]
+    group = join_group(mm, k)
+    g = mm // group
+    chunk = cluster_chunk or max(1, (512 << 20) // (4 * maxc * mm))
+    vals = torch.empty((c, maxc, k), dtype=torch.float32, device=qv.device)
+    idx = torch.empty((c, maxc, k), dtype=torch.int32, device=qv.device)
+    for s in range(0, c, chunk):
+        e = min(s + chunk, c)
+        dist = bias[s:e, None, :] - scale * f32_dots(qv[s:e], stacks[s:e])
+        bmin, be = dist.view(e - s, maxc, group, g).min(dim=2)
+        v, b = torch.sort(bmin, dim=-1, stable=True)
+        b = b[..., :k]
+        vals[s:e] = v[..., :k]
+        idx[s:e] = (torch.gather(be, -1, b) * g + b).to(torch.int32)
+    return vals, idx
+
+
+def _launch_join(qv, stacks, bias, k: int, scale: float):
+    global join_launches
+    from ._build import load_library
+
+    for name, t in (("qv", qv), ("stacks", stacks), ("bias", bias)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    c, maxc, d = qv.shape
+    mm = stacks.shape[1]
+    vals = torch.empty((c, maxc, k), dtype=torch.float32, device=qv.device)
+    idx = torch.empty((c, maxc, k), dtype=torch.int32, device=qv.device)
+    if c == 0 or maxc == 0:
+        return vals, idx
+    lib = load_library()
+    rc = lib.cluster_join(
+        qv.data_ptr(), stacks.data_ptr(), bias.data_ptr(), vals.data_ptr(),
+        idx.data_ptr(), c, maxc, d, mm, k, join_group(mm, k), float(scale),
+        _JOIN_DTYPE_CODE[qv.dtype],
+        torch.cuda.current_stream(qv.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"cluster_join kernel launch failed: CUDA error {rc}")
+    join_launches += 1
+    return vals, idx
+
+
+def cluster_join_topk(qv, stacks, bias, k: int, scale: float):
+    """qv [C, maxc, d] member rows, stacks [C, mm, d] stacked candidate
+    slabs (same dtype, f32 or bf16), bias [C, mm] f32 (+inf on pads) ->
+    (vals, idx) [C, maxc, k]: per row, the k smallest of the per-bucket
+    minima of ``bias - scale * <row, slot>``, ascending, idx = the slot.
+    Entries past the finite buckets are +inf with an unspecified idx."""
+    if _on_cpu(qv, stacks, bias):
+        return cluster_join_topk_reference(qv, stacks, bias, k, scale)
+    _check_join(qv, stacks, bias, k)
+    return _launch_join(qv, stacks, bias, k, scale)

@@ -90,3 +90,48 @@ def pairwise_dists(
     if exact:
         d = d + squared_norms(q)[:, None]
     return d
+
+
+def gathered_dists(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    ids: torch.Tensor,
+    metric: str = "l2",
+    x_norms: torch.Tensor | None = None,
+    exact: bool = False,
+) -> torch.Tensor:
+    """Per-query gathered-neighbor distances, the frontier-expansion op of
+    every graph hop. q: [Q, d]; x: [N, d]; ids: [Q, K] with PAD_ID for
+    padding. Returns [Q, K] f32; padded slots get PAD_DIST."""
+    if metric not in VALID_METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    valid = ids >= 0
+    safe = torch.where(valid, ids, 0).long()
+    vecs = x[safe]                                        # [Q, K, d]
+    dots = f32_dots(vecs, q[:, None, :])[..., 0]
+    if metric in ("ip", "cosine"):
+        d = 1.0 - dots
+    else:
+        nrm = squared_norms(vecs) if x_norms is None else x_norms[safe]
+        d = nrm - 2.0 * dots
+        if exact:
+            d = d + squared_norms(q)[:, None]
+    return torch.where(valid, d, PAD_DIST)
+
+
+def exact_from_fast(fast_d: torch.Tensor, q: torch.Tensor,
+                    metric: str) -> torch.Tensor:
+    """Recover exact metric values from FastL2 internal distances."""
+    if metric == "l2":
+        return fast_d + squared_norms(q)[..., None]
+    return fast_d
+
+
+def point_dists(a: torch.Tensor, b: torch.Tensor,
+                metric: str = "l2") -> torch.Tensor:
+    """Elementwise row-to-row distance, [B, d] x [B, d] -> [B]. Exact."""
+    af, bf = a.float(), b.float()
+    if metric in ("ip", "cosine"):
+        return 1.0 - (af * bf).sum(-1)
+    diff = af - bf
+    return (diff * diff).sum(-1)

@@ -1,0 +1,94 @@
+"""Fused retset merge + frontier select, the graph hop's kernel
+(counterpart of hnsw_nsg_tpu/ops/merge_select.py).
+
+``fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand)`` is, bit for bit::
+
+    r_d, r_i, r_e = merge_into_retset(r_d, r_i, r_e, c_d, c_i)
+    sel_ids, sel_valid, r_e = _select_frontier(r_i, r_e, expand)
+
+including the tie order (retset before candidates, then position), the
+PAD_DIST/PAD_ID handling and PAD_ID in invalid select slots. CPU tensors
+take that composition (``merge_select_reference``); CUDA tensors launch
+the hand-written kernel ``csrc/merge_select.cu``, or the wrapper raises.
+``launches`` counts kernel launches.
+
+Not carried over from the TPU wrapper, none of which changes a result:
+the power-of-two padding of L + C and the 16-bit position/expanded
+packing that its bitonic network needed, the scoped-VMEM block budget,
+and the padding of Q to a block multiple (the kernel masks its ragged
+last block).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cluster_scan import _on_cpu
+from .topk import merge_into_retset
+
+# kernel launches made by fused_merge_select (CUDA tensors only)
+launches = 0
+
+
+def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
+    """The plain composition the kernel replaces (CPU path and oracle)."""
+    from ..models.beam import _select_frontier
+
+    r_d, r_i, r_e = merge_into_retset(r_d, r_i, r_e, c_d, c_i)
+    sel_ids, sel_valid, r_e = _select_frontier(r_i, r_e, expand)
+    return r_d, r_i, r_e, sel_ids, sel_valid
+
+
+def _check(r_d, r_i, r_e, c_d, c_i, expand: int):
+    want = ((r_d, torch.float32), (r_i, torch.int32), (r_e, torch.bool),
+            (c_d, torch.float32), (c_i, torch.int32))
+    for name, (t, dt) in zip(("r_d", "r_i", "r_e", "c_d", "c_i"), want):
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.ndim != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-d tensor")
+    q, l = r_d.shape
+    if r_i.shape != (q, l) or r_e.shape != (q, l):
+        raise ValueError("r_d, r_i, r_e must share one [Q, L] shape")
+    if c_d.shape != c_i.shape or c_d.shape[0] != q:
+        raise ValueError("c_d, c_i must share one [Q, C] shape")
+    if not 1 <= expand <= l:
+        raise ValueError(f"expand={expand} outside [1, L={l}]")
+
+
+def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
+    global launches
+    from ._build import load_library
+
+    q, l = r_d.shape
+    dev = r_d.device
+    o_d = torch.empty((q, l), dtype=torch.float32, device=dev)
+    o_i = torch.empty((q, l), dtype=torch.int32, device=dev)
+    o_e = torch.empty((q, l), dtype=torch.bool, device=dev)
+    sel_i = torch.empty((q, expand), dtype=torch.int32, device=dev)
+    sel_v = torch.empty((q, expand), dtype=torch.bool, device=dev)
+    if q == 0:
+        return o_d, o_i, o_e, sel_i, sel_v
+    lib = load_library()
+    rc = lib.merge_select(
+        r_d.data_ptr(), r_i.data_ptr(), r_e.data_ptr(), c_d.data_ptr(),
+        c_i.data_ptr(), o_d.data_ptr(), o_i.data_ptr(), o_e.data_ptr(),
+        sel_i.data_ptr(), sel_v.data_ptr(), q, l, c_d.shape[1], expand,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"merge_select kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return o_d, o_i, o_e, sel_i, sel_v
+
+
+def fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand: int):
+    """Merge candidates into the sorted retset and select the next frontier.
+
+    r_d/r_i/r_e: [Q, L] retset (f32 ascending, int32 PAD-padded, bool
+    expanded). c_d/c_i: [Q, C] candidates (PAD_ID and duplicates allowed).
+    Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand])."""
+    if _on_cpu(r_d, r_i, r_e, c_d, c_i):
+        return merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand)
+    _check(r_d, r_i, r_e, c_d, c_i, expand)
+    return _launch(r_d, r_i, r_e, c_d, c_i, expand)

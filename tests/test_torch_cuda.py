@@ -1,4 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions, and the paths that run them (CNNS search, kNN graph, NSG).
 
 Every test here is marked ``cuda`` and skips where no card is visible.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -14,9 +15,14 @@ import torch
 torch.set_num_threads(1)
 
 from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
+from hnsw_nsg_tpu_torch.models.kmeans import kmeans  # noqa: E402
+from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
+from hnsw_nsg_tpu_torch.models.nsg import build_nsg  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import cluster_scan as cs  # noqa: E402
-from hnsw_nsg_tpu_torch.ops import recall  # noqa: E402
-from hnsw_nsg_tpu_torch.utils.params import CNNSConfig  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import merge_select as ms  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
+from hnsw_nsg_tpu_torch.ops.topk import init_retset  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig  # noqa: E402,E501
 from hnsw_nsg_tpu_torch.utils.synth import make_data  # noqa: E402
 
 PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -156,3 +162,112 @@ def test_build_on_card_keeps_every_point(card):
     ids = idx.ids_c.cpu().numpy()
     members = np.concatenate([row[:s] for row, s in zip(ids, idx.sizes)])
     np.testing.assert_array_equal(np.sort(members), np.arange(len(x)))
+
+
+def _merge_state(seed, q, l, c, n_ids=500, fill=0.7):
+    """tests/test_merge_select.py:_random_state, made with numpy: a sorted
+    partly expanded retset and candidates with repeats, PADs and ties."""
+    rng = np.random.default_rng(seed)
+    ni = int(rng.integers(4, int(l * fill) + 4))
+    ids = torch.from_numpy(rng.choice(n_ids, (q, ni)).astype(np.int32))
+    d = torch.from_numpy(rng.random((q, ni)).astype(np.float32))
+    r_d, r_i, r_e = init_retset(d, ids, l)
+    r_e = r_e | torch.from_numpy(rng.random((q, l)) < 0.5)
+    c_i = rng.choice(n_ids, (q, c)).astype(np.int32)
+    c_i[rng.random((q, c)) < 0.15] = -1
+    c_d = rng.random((q, c)).astype(np.float32)
+    c_d[:, : c // 4] = 0.5
+    return [r_d, r_i, r_e, torch.from_numpy(c_d), torch.from_numpy(c_i)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l,c,expand", [
+    (64, 128, 30, 1), (64, 128, 120, 4), (37, 64, 30, 2), (16, 256, 60, 8),
+    (40, 500, 50, 1), (29, 24, 50, 1), (8, 1024, 400, 3)])
+def test_merge_select_kernel_bit_identical(card, q, l, c, expand):
+    state = _merge_state(q * 7 + l + c, q, l, c)
+    want = ms.merge_select_reference(*state, expand)
+    before = ms.launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_merge_select_kernel_all_pad_and_converged(card):
+    r_d, r_i, r_e, c_d, c_i = _merge_state(3, 8, 64, 16)
+    c_d.fill_(3.4e37)
+    c_i.fill_(-1)
+    for flags in (r_e, torch.ones_like(r_e)):
+        state = [r_d, r_i, flags, c_d, c_i]
+        want = ms.merge_select_reference(*state, 4)
+        got = ms.fused_merge_select(*(t.to(card) for t in state), 4)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+    assert not got[4].any() and bool((got[3] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mm,k,metric", [(128, 4, "l2"), (1024, 4, "l2"),
+                                         (4224, 52, "l2"), (512, 6, "ip")])
+def test_cluster_join_kernel_matches_plain(card, dtype, mm, k, metric):
+    """vals allclose (f32 sums of exact products in another order); ids
+    equal where finite, or a near-tie whose slot scores the same."""
+    rng = np.random.default_rng(mm + k)
+    c, maxc, d = 5, 70, 48
+    qv = torch.from_numpy(rng.standard_normal((c, maxc, d)).astype(
+        np.float32)).to(dtype)
+    st = torch.from_numpy(rng.standard_normal((c, mm, d)).astype(
+        np.float32)).to(dtype)
+    valid = torch.from_numpy(rng.random((c, mm)) < 0.8)
+    valid[-1, k // 2:] = False          # fewer finite buckets than k
+    if metric == "l2":
+        base, scale = (st.float() ** 2).sum(-1), 2.0
+    else:
+        base, scale = torch.ones((c, mm)), 1.0
+    bias = torch.where(valid, base, float("inf"))
+    rv, ri = cs.cluster_join_topk(qv, st, bias, k, scale)
+    before = cs.join_launches
+    kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
+                                  k, scale)
+    torch.cuda.synchronize()
+    assert cs.join_launches == before + 1
+    kv, ki = kv.cpu(), ki.cpu()
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(kv), fin)
+    tol = dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - scale * cs.f32_dots(qv, st)
+    own = torch.gather(full, 2, ki.long())
+    torch.testing.assert_close(own[fin], rv[fin], **tol)
+    assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_kmeans_on_card_is_deterministic(card):
+    x, _ = make_data(60000, 32, 8, "l2", seed=4)
+    xd = torch.from_numpy(x).to(card)
+    c1, a1 = kmeans(xd, 64, iters=5, seed=0)
+    c2, a2 = kmeans(xd, 64, iters=5, seed=0)
+    assert torch.equal(a1, a2) and torch.equal(c1, c2)
+
+
+@pytest.mark.cuda
+def test_nsg_build_and_search_on_card(card):
+    """kNN graph, NSG build and search on the card, launching both new
+    kernels; the graph is connected and recall@10 is high."""
+    x, q = make_data(20000, 32, 256, "l2", seed=3)
+    xd, qd = torch.from_numpy(x).to(card), torch.from_numpy(q).to(card)
+    j0, m0 = cs.join_launches, ms.launches
+    adj = knn_graph_ivf(xd, 24, n_clusters=20, probes=6, as_device=True)
+    assert adj.device.type == "cuda" and cs.join_launches > j0
+    idx = build_nsg(xd, adj, NSGBuildConfig(L=24, R=16, C=120))
+    assert idx.adj.device.type == "cuda" and ms.launches > m0
+    m1 = ms.launches
+    _, ids = idx.search(qd, k=10, l_search=64)
+    assert ms.launches > m1
+    _, gt = brute_force_topk(qd, xd, 10)
+    assert recall(ids, gt) >= 0.9

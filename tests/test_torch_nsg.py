@@ -1,0 +1,179 @@
+"""NSG of the PyTorch port vs the JAX package: build both from the same
+numpy data and kNN graph, cross-load the JAX graph and its files into
+the port, and check that the port's modules import without JAX."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from hnsw_nsg_tpu.models import nsg as jnsg  # noqa: E402
+from hnsw_nsg_tpu.ops import brute_force_topk as j_bf  # noqa: E402
+from hnsw_nsg_tpu.ops import knn_graph_exact as j_knn_exact  # noqa: E402
+from hnsw_nsg_tpu.utils import io as jio  # noqa: E402
+from hnsw_nsg_tpu_torch.models import nsg as tnsg  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import merge_select as tms  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import recall  # noqa: E402
+from hnsw_nsg_tpu_torch.utils import io as tio  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.params import NSGBuildConfig  # noqa: E402
+
+CFG = NSGBuildConfig(L=24, R=16, C=120)
+
+
+@pytest.fixture(scope="module")
+def built():
+    """tests/test_nsg.py's fixture, built by both packages from the same
+    numpy data and the same (JAX) exact 24-NN graph."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((3000, 32)).astype(np.float32)
+    q = rng.standard_normal((64, 32)).astype(np.float32)
+    knn = np.array(j_knn_exact(jnp.asarray(x), 24, query_block=1024))
+    jidx = jnsg.build_nsg(x, knn, CFG, block=1024)
+    stages = {}
+    tidx = tnsg.build_nsg(x, knn, CFG, block=1024, stage_seconds=stages)
+    _, gt = j_bf(jnp.asarray(q), jnp.asarray(x), 10)
+    return x, q, knn, jidx, tidx, np.asarray(gt), stages
+
+
+def _connected(adj, ep):
+    visited = np.zeros(len(adj), bool)
+    frontier = np.array([ep])
+    visited[ep] = True
+    while len(frontier):
+        nxt = adj[frontier].reshape(-1)
+        nxt = np.unique(nxt[nxt >= 0])
+        nxt = nxt[~visited[nxt]]
+        visited[nxt] = True
+        frontier = nxt
+    return visited.all()
+
+
+def test_build_matches_jax(built):
+    """Mean per-row edge overlap >= 0.9 (measured: 0.9998, with 99.4% of
+    rows identical). f32 sums in another order can flip a near-tied
+    occlusion test, and a flip can cascade within its row."""
+    _, _, _, jidx, tidx, _, stages = built
+    ja, ta = np.asarray(jidx.adj), tidx.adj.numpy()
+    assert tidx.ep == jidx.ep
+    overlap = [len(set(a[a >= 0]) & set(b[b >= 0])) / max(1, (a >= 0).sum())
+               for a, b in zip(ja, ta)]
+    assert np.mean(overlap) >= 0.9, np.mean(overlap)
+    assert set(stages) == {"collect_prune", "interinsert", "tree_grow"}
+
+
+@pytest.mark.parametrize("which", ["jax", "port"])
+def test_degree_bound_no_self_edges_connected(built, which):
+    _, _, _, jidx, tidx, _, _ = built
+    adj = np.asarray(jidx.adj) if which == "jax" else tidx.adj.numpy()
+    ep = jidx.ep if which == "jax" else tidx.ep
+    assert adj.shape[1] == CFG.R
+    assert (adj != np.arange(len(adj))[:, None]).all()
+    assert _connected(adj, ep)
+
+
+def test_port_build_search_recall(built):
+    x, q, _, _, tidx, gt, _ = built
+    before = tms.launches
+    d, i = tidx.search(q, k=10, l_search=64)
+    assert tms.launches == before             # CPU: the plain version
+    assert recall(i, gt) >= 0.95
+    true_d = ((q[0] - x[int(i[0, 0])]) ** 2).sum()
+    np.testing.assert_allclose(float(d[0, 0]), true_d, rtol=1e-3)
+
+
+def test_cross_loaded_jax_graph_recall(built, tmp_path):
+    """The JAX graph, loaded into the port from the JAX .npz: recall@10
+    within 0.01 of the JAX search (the random fills differ)."""
+    x, q, _, jidx, _, gt, _ = built
+    p = str(tmp_path / "j.npz")
+    jidx.save(p)
+    idx = tnsg.NSGIndex.load(p, x)
+    np.testing.assert_array_equal(idx.adj.numpy(), np.asarray(jidx.adj))
+    assert idx.ep == jidx.ep and idx.metric == jidx.metric
+    _, ji = jidx.search(q, k=10, l_search=64)
+    _, ti = idx.search(q, k=10, l_search=64)
+    rj, rt = recall(np.asarray(ji), gt), recall(ti, gt)
+    assert abs(rt - rj) <= 0.01, (rt, rj)
+    entries = np.zeros(len(q), np.int32)
+    _, ei = idx.search_from_enterpoint(q, entries, k=10, l_search=64)
+    assert recall(ei, gt) >= 0.9
+
+
+def test_reference_format_files_byte_equal(built, tmp_path):
+    x, q, _, jidx, _, _, _ = built
+    pj, pt = tmp_path / "j.nsg", tmp_path / "t.nsg"
+    jidx.save_reference_format(str(pj))
+    idx = tnsg.NSGIndex.load_reference_format(str(pj), x)
+    assert idx.ep == jidx.ep
+    np.testing.assert_array_equal(idx.adj.numpy(), np.asarray(jidx.adj))
+    idx.save_reference_format(str(pt))
+    assert pj.read_bytes() == pt.read_bytes()
+
+
+def test_knn_graph_file_cross_read(built, tmp_path):
+    _, _, knn, _, _, _, _ = built
+    pj, pt = tmp_path / "j.knn", tmp_path / "t.knn"
+    jio.write_knn_graph(str(pj), knn)
+    np.testing.assert_array_equal(tio.read_knn_graph(str(pj)), knn)
+    tio.write_knn_graph(str(pt), knn)
+    assert pj.read_bytes() == pt.read_bytes()
+
+
+def test_save_load_roundtrip(built, tmp_path):
+    x, q, _, _, tidx, _, _ = built
+    p = str(tmp_path / "t.npz")
+    tidx.save(p)
+    idx = tnsg.NSGIndex.load(p, torch.from_numpy(x))
+    _, i1 = tidx.search(q[:8], k=5, l_search=32)
+    _, i2 = idx.search(q[:8], k=5, l_search=32)
+    assert torch.equal(i1, i2)
+
+
+def test_tree_grow_never_cuts_off_an_attached_node():
+    """Two in-edge-less nodes whose closest reachable node is full: the
+    JAX package overwrites that node's last edge twice, so the first node
+    it attached is cut off again. The port attaches to the closest
+    reachable node with room, and the graph ends connected."""
+    x = np.array([[0, 0], [1, 0], [2, 0], [2.1, 0], [2.2, 0], [5, 0]],
+                 np.float32)
+    adj = np.array([[1, 5], [2, 0], [1, 0], [-1, -1], [-1, -1], [0, -1]],
+                   np.int32)
+    xt = torch.from_numpy(x)
+    out = tnsg._tree_grow(xt, (xt ** 2).sum(1), adj.copy(), 0,
+                          NSGBuildConfig(L=4, R=2, C=8), "l2")
+    assert _connected(out, 0)
+
+
+def test_medoid_matches_jax(rng):
+    x = rng.standard_normal((500, 8)).astype(np.float32)
+    assert tnsg.find_medoid(x) == jnsg.find_medoid(x)
+
+
+def test_build_accel_names_the_records_slice(built):
+    with pytest.raises(NotImplementedError, match="records"):
+        built[4].build_accel()
+
+
+PORT_MODULES = [
+    "hnsw_nsg_tpu_torch.utils.io", "hnsw_nsg_tpu_torch.ops.merge_select",
+    "hnsw_nsg_tpu_torch.ops.cluster_scan", "hnsw_nsg_tpu_torch.models.beam",
+    "hnsw_nsg_tpu_torch.models.prune", "hnsw_nsg_tpu_torch.models.knn_ivf",
+    "hnsw_nsg_tpu_torch.models.nsg",
+]
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_port_module_imports_without_jax(module):
+    code = ("import sys; sys.modules['jax'] = None; "
+            f"import importlib; importlib.import_module({module!r})")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=root)
+    assert res.returncode == 0, res.stderr
