@@ -17,8 +17,10 @@ Phases, each of which fails the run (non-zero exit) on its own:
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) at the search, collect-pool and wide-expand shapes,
      a ragged Q, all-PAD candidates and a converged retset; and the
-     cluster-join kernel versus its plain version at small shapes (l2
-     group 1, ip, an inf tail);
+     cluster-join kernel versus its plain version at small shapes (f32:
+     l2 group 1, an inf tail; bf16 on tensor cores: ip group 4, group 8
+     with a ragged bucket tile, d=960, d=100, maxc=200, k=64, a sparse
+     last cluster);
   5. the NSG path at ``NSG_N`` = 1M points: ``knn_graph_ivf`` (k=50,
      probes=8), ``build_nsg`` (L=40, R=50, C=500) with each stage's wall
      time, the kNN graph's recall on a 10k sample, the mean degree, a BFS
@@ -27,10 +29,15 @@ Phases, each of which fails the run (non-zero exit) on its own:
      ``search_from_enterpoint`` from sampled entries; both kernels'
      launch counts read around it;
   6. the cluster-join kernel versus its plain version at the build shape
-     (C from phase 5, maxc 2112, M=8, d=128, bf16, k=52);
+     (C from phase 5, maxc 2112, M=8, d=128, bf16, k=52): both times,
+     the id mismatches at near-ties, the bound (the products of the
+     finite-bias slots only) and the kernel's share of it;
   7. the recall gate: phase 5 again at ``NSG_GATE_N`` = 250k points,
      failing unless recall@10 >= 0.95 at some l_search <= 256;
-  8. the kernels line, and the last line: ``{"ok": true, "device": ...}``.
+  8. the kernels line (times, launches, errors and each kernel's bound:
+     the larger of its bytes over 3.35 TB/s and its operations over the
+     989 TFLOP/s bf16 peak), and the last line:
+     ``{"ok": true, "device": ...}``.
 Imports nothing of JAX.
 """
 
@@ -58,6 +65,30 @@ NSG_N = 1_000_000
 # 250k (100 components) the same code passes. See PERF.md §6.
 NSG_GATE_N = 250_000
 L_SWEEP = (16, 24, 32, 48, 64, 96, 128, 192, 256)
+# published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# the peak of each (query, slab) product type: exact f32 runs on CUDA
+# cores (no TF32); int8 x int8 on int8 tensor cores; an int8 slab with a
+# bf16 query as bf16
+PEAK_OPS = {(torch.float32, torch.float32): 67e12,
+            (torch.bfloat16, torch.bfloat16): PEAK_BF16_FLOPS,
+            (torch.int8, torch.int8): 1979e12,
+            (torch.bfloat16, torch.int8): PEAK_BF16_FLOPS}
+
+
+def bound(n_bytes: float, flops: float = 0.0,
+          peak_flops: float = PEAK_BF16_FLOPS):
+    """The least time in ms the card could take for the work: the larger
+    of the bytes over the memory rate and the operations over the peak
+    rate of their type. Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def card_line() -> str:
@@ -167,7 +198,7 @@ def phase_kernels(gen):
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
     ]
-    bench_err = ms = plain_ms = None
+    bench_err = ms = plain_ms = bench_bound = None
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
          atol) in cases:
         qc, qidx, slabs, bias, scale = make_case(
@@ -182,10 +213,15 @@ def phase_kernels(gen):
         k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args), reps=10)
         p_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq_reference(*args),
                        reps=3)
+        # live query rows only: pad rows need no work
+        flops = 2.0 * int((qidx >= 0).sum()) * maxc * d
+        b_case = bound(nbytes(qc, qidx, slabs, bias, *got), flops,
+                       PEAK_OPS[(qdt, sdt)])
         print(f"    kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
-              f"(median)")
+              f"(median); bound {b_case[0]:.4f} ms ({b_case[1]}), kernel "
+              f"at {b_case[0] / k_ms:.1%} of it")
         if name == "bench bf16 l2":
-            bench_err, ms, plain_ms = err, k_ms, p_ms
+            bench_err, ms, plain_ms, bench_bound = err, k_ms, p_ms, b_case
             # the d-blocked and pre-gathered entry points, same inputs
             got = cs.grouped_cluster_topk_gq_dblk(*args)
             check_scan("gq_dblk wrapper", got, want, full, qidx >= 0,
@@ -198,12 +234,14 @@ def phase_kernels(gen):
                 qv, slabs, bias, k, scale), reps=10)
             pg_plain = cuda_ms(lambda: cs.grouped_cluster_topk_reference(
                 qv, slabs, bias, k, scale), reps=3)
+            pg_bound = bound(nbytes(qv, slabs, bias, *got), flops)
             print(f"    pre-gathered: kernel {pg_ms:.4f} ms, plain PyTorch "
-                  f"{pg_plain:.4f} ms (median)")
+                  f"{pg_plain:.4f} ms (median); bound {pg_bound[0]:.4f} ms "
+                  f"({pg_bound[1]})")
             del qv
         del qc, qidx, slabs, bias, got, want, full, args
         torch.cuda.empty_cache()
-    return bench_err, ms, plain_ms
+    return bench_err, ms, plain_ms, bench_bound
 
 
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
@@ -359,9 +397,11 @@ def phase_merge_select():
                            reps=20)
             p_ms = cuda_ms(lambda: ms.merge_select_reference(*state, expand),
                            reps=5)
-            times[name] = (k_ms, p_ms)
+            # a merge moves data and compares: the bytes bound it
+            b_ms, b_by = bound(nbytes(*state, *got))
+            times[name] = (k_ms, p_ms, b_ms, b_by)
             line += (f"; kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
-                     f"(median)")
+                     f"(median), bound {b_ms:.4f} ms ({b_by})")
         print(line)
         del state, got, want
     torch.cuda.empty_cache()
@@ -435,34 +475,70 @@ def check_join(name, qv, st, bias, k, scale, rtol, atol, time_it=False):
 
 
 def phase_join_small():
-    """Kernel B vs plain at small shapes: f32 l2 with group 1, ip (group
-    4), and k above the finite buckets of a sparse cluster. f32 sums of d
-    exact products in another order: atol covers a few ulps of |bias|."""
+    """Kernel B vs plain at small shapes. f32 (the CUDA-core kernel): l2
+    with group 1, an inf tail. bf16 (the tensor-core kernel): ip group 4;
+    l2 group 8 with g = 200, not a multiple of the bucket tile; d = 960
+    (the query streams); d = 100 (padded to 104); maxc = 200, not a
+    multiple of the 128-row tile; k = 64 (MAX_JOIN_K); a sparse last
+    cluster whose finite buckets are fewer than k. f32 sums of d exact
+    products in another order: atol covers a few ulps of |bias| (~2d)."""
     f32, bf = torch.float32, torch.bfloat16
     worst = 0.0
-    for name, args, tol in [
-        ("f32 l2 group 1", (1, 16, 100, 128, 64, f32, "l2"), (1e-5, 1e-3)),
-        ("bf16 ip group 4", (2, 32, 256, 2048, 128, bf, "ip"), (1e-5, 1e-4)),
-        ("f32 l2 inf tail", (3, 8, 64, 512, 32, f32, "l2", 3), (1e-5, 1e-3)),
+    # (name, join_case args (seed, c, maxc, mm, d, dtype, metric[,
+    # sparse_last]), k, (rtol, atol))
+    for name, args, k, tol in [
+        ("f32 l2 group 1", (1, 16, 100, 128, 64, f32, "l2"), 10,
+         (1e-5, 1e-3)),
+        ("f32 l2 inf tail", (3, 8, 64, 512, 32, f32, "l2", 3), 10,
+         (1e-5, 1e-3)),
+        ("bf16 ip group 4", (2, 32, 256, 2048, 128, bf, "ip"), 20,
+         (1e-5, 1e-4)),
+        ("bf16 l2 group 8 g=200", (5, 3, 150, 1600, 128, bf, "l2"), 8,
+         (1e-5, 1e-3)),
+        ("bf16 l2 d=960", (6, 2, 130, 1024, 960, bf, "l2"), 10,
+         (1e-5, 5e-3)),
+        ("bf16 l2 d=100", (7, 3, 96, 512, 100, bf, "l2"), 10,
+         (1e-5, 1e-3)),
+        ("bf16 l2 maxc=200", (8, 3, 200, 2048, 64, bf, "l2"), 16,
+         (1e-5, 1e-3)),
+        ("bf16 l2 k=64", (9, 2, 128, 8192, 128, bf, "l2"), 64,
+         (1e-5, 1e-3)),
+        ("bf16 l2 sparse last cluster", (10, 3, 64, 512, 128, bf, "l2", 5),
+         20, (1e-5, 1e-3)),
     ]:
         qv, st, bias, scale = join_case(*args)
-        k = 20 if "ip" in name else 10
         err, _, _ = check_join(name, qv, st, bias, k, scale, *tol)
         worst = max(worst, err)
     return worst
 
 
-def phase_join_build(n_slabs, maxc=2112, probes=8, d=128, k=52):
+def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52):
     """Kernel B vs plain at the build shape of phase 5 (the plain version
-    runs chunked over clusters: the whole f32 block would be ~140 GB)."""
+    runs chunked over clusters: the whole f32 block would be ~140 GB).
+    Returns (max |vals error|, kernel ms, plain ms, (bound ms, bound by))."""
     qv, st, bias, scale = join_case(4, n_slabs, maxc, probes * maxc, d,
                                     torch.bfloat16, "l2")
     name = (f"build shape (C={n_slabs} maxc={maxc} M={probes} d={d} bf16 "
             f"k={k})")
-    out = check_join(name, qv, st, bias, k, scale, 1e-5, 1e-3, time_it=True)
+    err, k_ms, p_ms = check_join(name, qv, st, bias, k, scale, 1e-5, 1e-3,
+                                 time_it=True)
+    # a slot with +inf bias scores +inf whatever its product: only the
+    # finite slots need their stack rows read and their products made
+    # (every member row of join_case is live)
+    finite = int(torch.isfinite(bias).sum())
+    out_bytes = n_slabs * maxc * k * 8          # vals f32 + idx int32
+    flops = 2.0 * maxc * d * finite
+    b = bound(nbytes(qv, bias) + finite * d * st.element_size() + out_bytes,
+              flops)
+    done = 2.0 * n_slabs * maxc * probes * maxc * d
+    print(f"  cluster_join at the build shape: kernel {k_ms:.4f} ms, plain "
+          f"{p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e12:.3f} "
+          f"TFLOP needed, {finite}/{bias.numel()} slots finite), kernel at "
+          f"{b[0] / k_ms:.2%} of the bound; it computes all "
+          f"{done / 1e12:.3f} TFLOP, {done / k_ms / 1e9:.1f} TFLOP/s [{card}]")
     del qv, st, bias
     torch.cuda.empty_cache()
-    return out
+    return err, k_ms, p_ms, b
 
 
 def exact_knn_recall(x_dev, adj, sample: int = 10_000, seed: int = 0):
@@ -643,7 +719,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     print("grouped scan kernel vs plain PyTorch version:")
-    max_err, ms, plain_ms = phase_kernels(gen)
+    max_err, ms, plain_ms, scan_bound = phase_kernels(gen)
 
     launches = phase_main_path(card)
 
@@ -652,27 +728,34 @@ def main() -> int:
     join_err = phase_join_small()
 
     j_launches, m_launches, n_slabs = phase_nsg(card)
-    build_err, join_ms, join_plain_ms = phase_join_build(n_slabs)
+    build_err, join_ms, join_plain_ms, join_bound = phase_join_build(
+        card, n_slabs)
     phase_nsg(card, n=NSG_GATE_N, gate=True)
 
+    # no single PyTorch call computes any of the three functions, so none
+    # has a library time
+    ms_ms, ms_plain, ms_bound, ms_by = ms_times["search shape"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": scan_bound[0],
+        "bound_by": scan_bound[1], "library_ms": None,
     }, {
         "name": "fused_merge_select", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
         "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
         "launches": m_launches, "max_abs_err": ms_err,
-        "ms": ms_times["search shape"][0],
-        "plain_ms": ms_times["search shape"][1],
+        "ms": ms_ms, "plain_ms": ms_plain, "bound_ms": ms_bound,
+        "bound_by": ms_by, "library_ms": None,
     }, {
         "name": "cluster_join_topk", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
         "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
         "launches": j_launches, "max_abs_err": max(join_err, build_err),
         "ms": join_ms, "plain_ms": join_plain_ms,
+        "bound_ms": join_bound[0], "bound_by": join_bound[1],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,28 +16,60 @@
 // come back. Entries past the finite buckets are +inf with idx 0; the
 // caller masks them.
 //
-// Operand types: bf16 x bf16 or f32 x f32, exact products summed in f32
-// with FMAs (no TF32).
+// Two kernels, one per operand type, both exact products summed in f32
+// as pallas_scan.py:_dots specifies:
 //
-// Design. The TPU materialized a [rows, mm] distance tile in VMEM and
-// folded its `group` contiguous column slices. Here a block takes one
-// cluster and 32 member rows (8 warps x 4 rows) and walks the buckets in
-// tiles of 128: for each bucket tile it streams the `group` stack row
-// ranges {e * g + b0 .. + 128} through shared memory in [128 x 32] chunks
-// of d, forms a 4 x 4 register tile of dot products per thread, and
-// folds each e into per-bucket running minima in registers. No [rows, g]
-// bucket state ever exists, so shared memory holds only the two operand
-// tiles. The finished bucket minima of a tile are merged into each row's
-// running sorted k-list (k <= 64; lane j holds entries j and j + 32) by k
-// warp-wide (min, lowest bucket) passes, skipped when no bucket of the
-// tile beats the current k-th. Buckets arrive in increasing b, so a tie
-// with the k-th always loses, as it must.
+// bf16 x bf16 (the build path), join_mma_kernel: tensor cores.
+//   A block takes one cluster and 128 member rows and walks the buckets in
+//   tiles of 64. Eight product warps (4 x 2, each a 32-row x 32-bucket
+//   tile) compute, for each bucket tile and each e, the products with the
+//   stack rows e * g + b0 .. + 63, which stream through a 3-stage cp.async
+//   ring (rows padded by 16 bytes, so ldmatrix reads hit distinct banks).
+//   When d <= 128 a ring step is the whole of d and each product warp
+//   keeps its 32 query rows as mma fragments in registers for the whole
+//   run (setmaxnreg moves registers from the heap warps to the product
+//   warps); above that (d = 960, gist) the query streams beside the stack
+//   in 64-wide d chunks. Products are mma.sync m16n8k16 bf16 -> f32, B
+//   (and a streamed A) from ldmatrix, into one of two accumulator sets.
+//   The other set, the previous e, is folded meanwhile into per-(row,
+//   bucket) running minima and their e, in registers and in the
+//   accumulator's own layout (C fragment: row lane / 4 (+ 8), columns
+//   2 (lane % 4) + {0, 1}), so no [rows, g] state exists and the fold runs
+//   while the tensor cores work. When a bucket tile is done, only the
+//   minima that beat their row's current k-th are staged, and four heap
+//   warps, one thread a row, push them into per-row 4-ary max-heaps of
+//   packed (value, b, e) keys in shared memory while the product warps go
+//   on with the next tile. A row takes ~k (1 + ln(g / k)) pushes in all
+//   (~240 at the build shape, for data in random order), not k per
+//   tile. Buckets arrive in increasing b, so a candidate tying the k-th
+//   loses, as it must.
 //
-// What bounds it on the H100: the FMAs on CUDA cores. At the 1M build
-// shape (maxc = 2112, M = 8, mm = 16,896, d = 128) a cluster costs
-// 2 * maxc * mm * d = 9.1 GFLOP, ~9 TFLOP for the ~1000 clusters, while
-// each block reads its cluster's stack (4.3 MB in bf16) once from L2, so
-// the tensor cores (wgmma on bf16 tiles) are the way to a faster version.
+//   What bounds it on the H100: the tensor-core products. Only slots with
+//   a finite bias need one: a +inf slot scores +inf whatever its dot. At
+//   the 1M build shape (C = 1091, maxc = 2112, M = 8, mm = 16,896,
+//   d = 128, k = 52) every slot is 2 * C * maxc * mm * d = 9.97 TFLOP;
+//   chip_smoke.py phase 6 leaves about 3/4 of the slots finite, so the
+//   join needs ~7.5 TFLOP, ~7.6 ms at the 989 TFLOP/s bf16 peak (its
+//   input and output take ~1.9 ms at 3.35 TB/s). Measured there
+//   (chip_smoke.py phase 6, H100 80GB HBM3 at 700 W): ~59 ms, ~13% of
+//   the bound, against ~860 ms for the plain version. The kernel makes
+//   every product, pad slots included, at ~170 TFLOP/s: mma.sync from 8
+//   warps of 32 x 32 tiles, fed by ldmatrix, stays far below the peak.
+//   What is left for a later step, largest first on the real build path:
+//   in a 1M build the slabs are ~43% full (1M rows in 1091 slabs of
+//   2112), so skipping the bucket tiles past a stack's fullest slab, and
+//   the all-pad row tiles (which needs each cluster's member count),
+//   would cut most of the products; then warpgroup wgmma fed by TMA; larger row tiles to
+//   cut the L2 traffic (each block reads its cluster's stack once per
+//   128 rows, ~80 GB at that shape); and a cheaper top-k, whose heap
+//   warps take issue slots from the product warps.
+//
+// f32 x f32, join_fma_kernel: exact f32 FMAs on CUDA cores (no TF32, no
+//   3xTF32: F-H1). A block takes one cluster and 32 member rows and walks
+//   128-bucket tiles through shared memory in 32-wide d chunks, folds a
+//   4 x 4 register tile of dots into per-bucket minima, and merges each
+//   tile into each row's k-list (two entries per lane) by k warp-wide
+//   (value, bucket) passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,31 +79,43 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kRows = 32;       // member rows per block: 4 per warp
-constexpr int kTileB = 128;     // buckets per tile: 4 per lane
-constexpr int kDC = 32;         // d elements per shared-memory chunk
-constexpr int kMaxK = 64;       // running list: 2 entries per lane
+constexpr int kMaxK = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // (value, bucket) order: the lower bucket wins a tie
 __device__ __forceinline__ bool before(float av, int ab, float bv, int bb) {
   return av < bv || (av == bv && ab < bb);
 }
 
-template <typename T>
+// (value, p) as one unsigned key in the same order: the float's bits made
+// monotonic (-0 taken as +0) above p >= 0. kNoKey (all ones) is an empty
+// entry, after every real key.
+using Key = unsigned long long;
+constexpr Key kNoKey = ~0ull;
+__device__ __forceinline__ Key make_key(float v, int p) {
+  const unsigned u = __float_as_uint(v + 0.0f);
+  const unsigned o = u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+  return (static_cast<Key>(o) << 32) | static_cast<unsigned>(p);
+}
+__device__ __forceinline__ float key_value(Key key) {
+  const unsigned o = static_cast<unsigned>(key >> 32);
+  return __uint_as_float(o ^ ((o >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// ---- f32 x f32: CUDA-core FMAs ---------------------------------------------
+
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kRows = 32;       // member rows per block: 4 per warp
+constexpr int kTileB = 128;     // buckets per tile: 4 per lane
+constexpr int kDC = 32;         // d elements per shared-memory chunk
+
 __global__ void __launch_bounds__(kThreads)
-cluster_join_kernel(const T* __restrict__ qv, const T* __restrict__ stacks,
-                    const float* __restrict__ bias, float* __restrict__ vals,
-                    int* __restrict__ idx, int maxc, int d, int mm, int k,
-                    int group, float scale) {
+join_fma_kernel(const float* __restrict__ qv, const float* __restrict__ stacks,
+                const float* __restrict__ bias, float* __restrict__ vals,
+                int* __restrict__ idx, int maxc, int d, int mm, int k,
+                int group, float scale) {
   __shared__ float q_s[kRows][kDC + 1];
   __shared__ float s_s[kTileB][kDC + 1];
 
@@ -123,8 +167,7 @@ cluster_join_kernel(const T* __restrict__ qv, const T* __restrict__ stacks,
           const int row = el / kDC, col = el % kDC;
           const int r = r0 + row;
           float v = 0.f;
-          if (r < maxc && d0 + col < d)
-            v = to_f32(qv[(q_row0 + r) * d + d0 + col]);
+          if (r < maxc && d0 + col < d) v = qv[(q_row0 + r) * d + d0 + col];
           q_s[row][col] = v;
         }
 #pragma unroll
@@ -134,8 +177,8 @@ cluster_join_kernel(const T* __restrict__ qv, const T* __restrict__ stacks,
           const int b = b0 + row;
           float v = 0.f;
           if (b < g && d0 + col < d)
-            v = to_f32(stacks[(s_row0 + static_cast<long long>(e) * g + b)
-                              * d + d0 + col]);
+            v = stacks[(s_row0 + static_cast<long long>(e) * g + b) * d + d0
+                       + col];
           s_s[row][col] = v;
         }
         __syncthreads();
@@ -249,15 +292,517 @@ cluster_join_kernel(const T* __restrict__ qv, const T* __restrict__ stacks,
   }
 }
 
-template <typename T>
-void launch(const void* qv, const void* stacks, const void* bias, void* vals,
-            void* idx, int n_clusters, int maxc, int d, int mm, int k,
-            int group, float scale, cudaStream_t st) {
-  const dim3 grid((maxc + kRows - 1) / kRows, n_clusters);
-  cluster_join_kernel<T><<<grid, kThreads, 0, st>>>(
-      static_cast<const T*>(qv), static_cast<const T*>(stacks),
+// ---- bf16 x bf16: mma.sync tensor cores -------------------------------------
+
+constexpr int kMT = 256;          // 8 product warps: 4 rows x 2 buckets
+constexpr int kHeapT = 128;       // 4 heap warps: one thread a row
+constexpr int kMRows = 128;       // member rows per block
+constexpr int kMTB = 64;          // buckets per tile
+constexpr int kStages = 3;
+constexpr int kBiasVals = kMTB * 2;     // the tile's f32 bias, in bf16 units
+
+// Shapes of a d chunk of kDC values: 128 when d <= 128 (one chunk, the
+// query tile resident), else 64 (the query chunk streams with the stack).
+template <int kDC>
+struct Chunk {
+  static constexpr int kLd = kDC + 8;          // padded smem row (bf16)
+  static constexpr int kSegs = kDC / 8;        // 16-byte copies a row
+  static constexpr int kQ = kMRows * kLd;      // bf16 in a query chunk
+  static constexpr int kS = kMTB * kLd;        // bf16 in a stack chunk
+  static constexpr bool kResident = kDC == 128;
+  static constexpr int kStage = kS + (kResident ? 0 : kQ) + kBiasVals;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes 0 fills the destination with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b, the first product of a sum (no accumulator to clear)
+__device__ __forceinline__ void mma_bf16_first(float (&c)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  const float z = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(z));
+}
+
+// acc (+)= the product of one d chunk: the warp's 32 rows x 32 buckets as
+// 2 x 4 m16n8k16 tiles, kDC / 16 k-steps
+template <int kDC>
+__device__ __forceinline__ void mma_chunk(float (&acc)[2][4][4],
+                                          uint32_t a_base, uint32_t b_base,
+                                          bool first) {
+  constexpr int kLd = Chunk<kDC>::kLd;
+#pragma unroll
+  for (int kk = 0; kk < kDC / 16; ++kk) {
+    uint32_t a[2][4], b[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldmatrix_x4(a[mi], a_base + (mi * 16 * kLd + kk * 16) * 2);
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+      ldmatrix_x4(b[nj], b_base + (nj * 16 * kLd + kk * 16) * 2);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const uint32_t b0 = b[ni >> 1][(ni & 1) * 2];
+        const uint32_t b1 = b[ni >> 1][(ni & 1) * 2 + 1];
+        if (kk == 0 && first) mma_bf16_first(acc[mi][ni], a[mi], b0, b1);
+        else mma_bf16(acc[mi][ni], a[mi], b0, b1);
+      }
+  }
+}
+
+// acc = the product over the whole of d <= 128, with the A fragments (the
+// resident query) in registers
+__device__ __forceinline__ void mma_chunk_areg(float (&acc)[2][4][4],
+                                               const uint32_t (&af)[8][2][4],
+                                               uint32_t b_base) {
+  constexpr int kLd = Chunk<128>::kLd;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t b[2][4];
+#pragma unroll
+    for (int nj = 0; nj < 2; ++nj)
+      ldmatrix_x4(b[nj], b_base + (nj * 16 * kLd + kk * 16) * 2);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const uint32_t b0 = b[ni >> 1][(ni & 1) * 2];
+        const uint32_t b1 = b[ni >> 1][(ni & 1) * 2 + 1];
+        if (kk == 0) mma_bf16_first(acc[mi][ni], af[kk][mi], b0, b1);
+        else mma_bf16(acc[mi][ni], af[kk][mi], b0, b1);
+      }
+  }
+}
+
+// Fold slot e * g + b into bucket b: strict <, so the lowest e wins. One
+// fma: the same value as the plain version's bias - scale * dot whenever
+// scale is a power of two (l2: 2, ip: 1), where the product is exact.
+// Accumulator entry j of tile (mi, ni) is row mi * 16 + (j / 2) * 8 +
+// lane / 4 and bucket ni * 8 + (lane % 4) * 2 + j % 2 of the warp's tile.
+// Entry q = (mi * 4 + ni) * 4 + j keeps the e of its minimum in byte j of
+// be[mi * 4 + ni]; erep is e in all four bytes.
+__device__ __forceinline__ void fold(const float (&acc)[2][4][4],
+                                     float (&bmin)[2][4][4],
+                                     uint32_t (&be)[8],
+                                     const float (&bs)[4][2], uint32_t erep,
+                                     float scale) {
+  constexpr uint32_t kSetByte[4] = {0x3214u, 0x3240u, 0x3410u, 0x4210u};
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float dist = fmaf(-scale, acc[mi][ni][j], bs[ni][j & 1]);
+        if (dist < bmin[mi][ni][j]) {
+          bmin[mi][ni][j] = dist;
+          be[mi * 4 + ni] = __byte_perm(be[mi * 4 + ni], erep, kSetByte[j]);
+        }
+      }
+}
+
+// A finished bucket tile (starting at b0): append the minima that beat
+// their row's k-th (the heap root, +inf until the heap is full) to the
+// row's candidates, one shared atomic per thread and row; reset them.
+__device__ __forceinline__ void stage_tile(
+    float (&bmin)[2][4][4], uint32_t (&be)[8], const Key* heap,
+    const int* heap_n, Key* cand, int* cand_n, int k,
+    int q_valid, int b0, int wm, int wn, int lane) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = wm * 32 + mi * 16 + hr * 8 + (lane >> 2);
+      // the bar: the k-th (the root), or any finite value while the heap
+      // is not full; rows past maxc take nothing
+      const float kth = row >= q_valid ? -INFINITY
+                        : heap_n[row] < k ? INFINITY
+                                          : key_value(heap[row]);
+      unsigned take = 0;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          take |= static_cast<unsigned>(bmin[mi][ni][hr * 2 + h] < kth)
+                  << (ni * 2 + h);
+      int slot = take ? atomicAdd(&cand_n[row], __popc(take)) : 0;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = hr * 2 + h;
+          if (take >> (ni * 2 + h) & 1) {
+            const int b = b0 + wn * 32 + ni * 8 + (lane & 3) * 2 + h;
+            const int e = (be[mi * 4 + ni] >> (8 * j)) & 0xff;
+            cand[slot * kMRows + row] = make_key(bmin[mi][ni][j], b * 8 + e);
+            ++slot;
+          }
+          bmin[mi][ni][j] = INFINITY;
+        }
+    }
+#pragma unroll
+  for (int w = 0; w < 8; ++w) be[w] = 0;
+}
+
+// A row's k best buckets form a 4-ary max-heap of keys (value, p), p =
+// b * 8 + e, with the row's entries kMRows apart in shared memory (entry i
+// of row r at i * kMRows + r), so the threads of a warp, one row each,
+// read distinct banks. The root is the k-th best: the threshold. Four
+// children a node keep the heap 3 levels deep at k = 52, and a level's
+// four loads go out together.
+__device__ __forceinline__ void heap_push(Key* h, int size, Key x) {
+  int i = size;
+  while (i > 0) {
+    const int par = (i - 1) >> 2;
+    const Key pk = h[par * kMRows];
+    if (pk > x) break;   // the parent stays above (keys are unique)
+    h[i * kMRows] = pk;
+    i = par;
+  }
+  h[i * kMRows] = x;
+}
+
+// place x at the root of a heap of `size` entries (of k slots) and sift
+// it down
+__device__ __forceinline__ void heap_sift(Key* h, int size, int k, Key x) {
+  int i = 0;
+  while (true) {
+    const int c0 = 4 * i + 1;
+    if (c0 >= size) break;
+    Key ck[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)   // in-bounds loads, used below size
+      ck[u] = h[min(c0 + u, k - 1) * kMRows];
+    int ch = c0;
+    Key mk = ck[0];
+#pragma unroll
+    for (int u = 1; u < 4; ++u)
+      if (c0 + u < size && ck[u] > mk) {
+        ch = c0 + u;
+        mk = ck[u];
+      }
+    if (x >= mk) break;
+    h[i * kMRows] = mk;
+    i = ch;
+  }
+  h[i * kMRows] = x;
+}
+
+// the product warps' own barrier (named barrier 1), apart from the heap
+// warps; and the hand-over barrier of both roles (named barrier 2)
+__device__ __forceinline__ void mma_warps_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kMT) : "memory");
+}
+__device__ __forceinline__ void hand_over_sync() {
+  asm volatile("bar.sync 2, %0;\n" :: "n"(kMT + kHeapT) : "memory");
+}
+
+template <int kDC>
+size_t mma_smem_bytes(int k) {
+  using Ch = Chunk<kDC>;
+  return (Ch::kResident ? Ch::kQ * 2 : 0) + kStages * Ch::kStage * 2
+         + static_cast<size_t>(kMRows) * k * 8   // the heaps
+         + kMRows * kMTB * 8                     // candidates
+         + kMRows * 8;                           // candidate, heap counts
+}
+
+template <int kDC>
+__global__ void __launch_bounds__(kMT + kHeapT, 1)
+join_mma_kernel(const __nv_bfloat16* __restrict__ qv,
+                const __nv_bfloat16* __restrict__ stacks,
+                const float* __restrict__ bias, float* __restrict__ vals,
+                int* __restrict__ idx, int maxc, int d, int mm, int k,
+                int group, float scale) {
+  using Ch = Chunk<kDC>;
+  constexpr int kLd = Ch::kLd;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // a ring stage: the stack chunk, the query chunk when it streams, and
+  // the bias of the stage's (tile, e)
+  __nv_bfloat16* q_res = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = q_res + (Ch::kResident ? Ch::kQ : 0);
+  Key* heap = reinterpret_cast<Key*>(ring + kStages * Ch::kStage);
+  Key* cand = heap + kMRows * k;
+  int* cand_n = reinterpret_cast<int*>(cand + kMRows * kMTB);
+  int* heap_n = cand_n + kMRows;   // entries in each row's heap
+
+  const int c = blockIdx.y;
+  const int r0 = blockIdx.x * kMRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = mm / group;
+  const int n_tiles = (g + kMTB - 1) / kMTB;
+  const long long q_row0 = static_cast<long long>(c) * maxc + r0;
+  const long long s_row0 = static_cast<long long>(c) * mm;
+  const int q_valid = maxc - r0;
+
+  // each row's heap (see heap_push) starts empty
+  for (int i = tid; i < kMRows * k; i += kMT + kHeapT) heap[i] = kNoKey;
+  for (int i = tid; i < kMRows; i += kMT + kHeapT) cand_n[i] = heap_n[i] = 0;
+  __syncthreads();
+
+  // Two roles, which meet at two block barriers a bucket tile: (A) the
+  // heaps hold every earlier tile, (B) the product warps have staged the
+  // tile's candidates. The heap warps then push them while the product
+  // warps go on with the next tile.
+  if (warp >= kMT / 32) {
+    // the heap warpgroup gives registers to the two product warpgroups:
+    // 128 x 80 + 256 x 208 <= 384 x 168, the launch's allocation
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 80;\n" ::: "memory");
+    // heap warps: one thread a row; each push costs O(log k), and only
+    // candidates ahead of the root get in. A candidate tying the root
+    // loses, as buckets arrive in increasing b (within a tile, (value, p)
+    // order decides).
+    const int row = tid - kMT;
+    Key* h = heap + row;
+    int size = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      hand_over_sync();   // A
+      hand_over_sync();   // B
+      const int n = cand_n[row];
+      for (int q = 0; q < n; ++q) {
+        const Key x = cand[q * kMRows + row];
+        if (size < k) heap_push(h, size++, x);
+        else if (x < h[0]) heap_sift(h, size, k, x);
+      }
+      cand_n[row] = 0;
+      heap_n[row] = size;
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n" ::: "memory");
+    const int wm = warp >> 1;     // rows wm * 32 .. + 31
+    const int wn = warp & 1;      // buckets wn * 32 .. + 31 of the tile
+    const int n_dc = Ch::kResident ? 1 : (d + kDC - 1) / kDC;
+    const int steps = n_tiles * group * n_dc;
+
+    // this thread's 16-byte copies of a chunk: rows c_row + p * kRowStep,
+    // columns c_col .. + 7
+    constexpr int kRowStep = kMT / Ch::kSegs;
+    constexpr int kSCopies = kMTB / kRowStep;
+    constexpr int kQCopies = kMRows / kRowStep;
+    const int c_row = tid / Ch::kSegs, c_col = (tid % Ch::kSegs) * 8;
+    auto load_query = [&](__nv_bfloat16* dst, int d0) {
+#pragma unroll
+      for (int p = 0; p < kQCopies; ++p) {
+        const int row = c_row + p * kRowStep;
+        const bool ok = row < q_valid && d0 + c_col < d;
+        cp_async16(smem_addr(dst + row * kLd + c_col),
+                   ok ? qv + (q_row0 + row) * d + d0 + c_col : qv,
+                   ok ? 16 : 0);
+      }
+    };
+
+    // the next step to load: chunk l_dc of slot range e * g + l_b0 ..
+    int l_dc = 0, l_e = 0, l_b0 = 0, l_stage = 0;
+    auto issue = [&]() {
+      if (l_b0 < g) {
+        __nv_bfloat16* st = ring + l_stage * Ch::kStage;
+        const long long e_row0 = s_row0 + static_cast<long long>(l_e) * g
+                                 + l_b0;
+        const __nv_bfloat16* src = stacks + (e_row0 + c_row) * d
+                                   + l_dc * kDC + c_col;
+        const int valid = g - l_b0;
+        const bool col_ok = l_dc * kDC + c_col < d;
+#pragma unroll
+        for (int p = 0; p < kSCopies; ++p) {
+          const bool ok = col_ok && c_row + p * kRowStep < valid;
+          cp_async16(smem_addr(st + (c_row + p * kRowStep) * kLd + c_col),
+                     ok ? src + p * kRowStep * d : stacks, ok ? 16 : 0);
+        }
+        if (!Ch::kResident) load_query(st + Ch::kS, l_dc * kDC);
+        if (l_dc == n_dc - 1 && tid < kMTB) {   // the fold's bias, 0 past g
+          const bool ok = tid < valid;
+          cp_async4(smem_addr(st + Ch::kS + (Ch::kResident ? 0 : Ch::kQ))
+                        + tid * 4,
+                    ok ? bias + e_row0 + tid : bias, ok ? 4 : 0);
+        }
+        if (++l_dc == n_dc) {
+          l_dc = 0;
+          if (++l_e == group) {
+            l_e = 0;
+            l_b0 += kMTB;
+          }
+        }
+        l_stage = l_stage == kStages - 1 ? 0 : l_stage + 1;
+      }
+      cp_async_commit();
+    };
+
+    if (Ch::kResident) load_query(q_res, 0);
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) issue();
+
+    float acc0[2][4][4], acc1[2][4][4];   // one set fills, one folds
+    uint32_t af[Ch::kResident ? 8 : 1][2][4];   // the resident query
+    float bmin[2][4][4];
+    uint32_t be[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    float fb[4][2];   // the bias of the e-group waiting for its fold
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bmin[mi][ni][j] = INFINITY;
+
+    // ldmatrix lane offsets: A rows lane % 16, columns (lane / 16) * 8;
+    // B rows (lane / 16) * 8 + lane % 8, columns ((lane / 8) % 2) * 8
+    const int a_off = (wm * 32 + (lane & 15)) * kLd + (lane >> 4) * 8;
+    const int b_off = (wn * 32 + ((lane >> 4) << 3) + (lane & 7)) * kLd
+                      + ((lane >> 3) & 1) * 8;
+    auto hand_over = [&](int tb0) {
+      hand_over_sync();   // A
+      stage_tile(bmin, be, heap, heap_n, cand, cand_n, k,
+                 q_valid, tb0, wm, wn, lane);
+      hand_over_sync();   // B
+    };
+
+    // An e-group's fold waits one step, so that it runs while the next
+    // group's products are in the tensor cores.
+    int dc = 0, e = 0, b0 = 0, par = 0, stage = 0, fe = 0;
+    bool fold_due = false;
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kStages - 2>();
+      mma_warps_sync();
+      issue();
+
+      const __nv_bfloat16* st = ring + stage * Ch::kStage;
+      const uint32_t a_base = smem_addr(
+          (Ch::kResident ? q_res : st + Ch::kS) + a_off);
+      const uint32_t b_base = smem_addr(st + b_off);
+      if constexpr (Ch::kResident) {
+        if (s == 0) {   // the query tile landed with the first stage
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              ldmatrix_x4(af[kk][mi],
+                          a_base + (mi * 16 * kLd + kk * 16) * 2);
+        }
+        if (par) mma_chunk_areg(acc1, af, b_base);
+        else mma_chunk_areg(acc0, af, b_base);
+      } else {
+        if (par) mma_chunk<kDC>(acc1, a_base, b_base, dc == 0);
+        else mma_chunk<kDC>(acc0, a_base, b_base, dc == 0);
+      }
+
+      if (fold_due) {   // the previous e-group
+        if (par) fold(acc0, bmin, be, fb, fe * 0x01010101u, scale);
+        else fold(acc1, bmin, be, fb, fe * 0x01010101u, scale);
+        fold_due = false;
+        if (fe == group - 1) hand_over(b0 - kMTB);   // a new tile began
+      }
+      if (dc == n_dc - 1) {   // this e-group's products are all issued
+        const float* bias_s = reinterpret_cast<const float*>(
+            st + Ch::kS + (Ch::kResident ? 0 : Ch::kQ));
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int bt = wn * 32 + ni * 8 + (lane & 3) * 2 + h;
+            fb[ni][h] = b0 + bt < g ? bias_s[bt] : INFINITY;
+          }
+        fe = e;
+        fold_due = true;
+        par ^= 1;
+      }
+      if (++dc == n_dc) {
+        dc = 0;
+        if (++e == group) {
+          e = 0;
+          b0 += kMTB;
+        }
+      }
+      stage = stage == kStages - 1 ? 0 : stage + 1;
+    }
+    cp_async_wait<0>();
+    if (par) fold(acc0, bmin, be, fb, fe * 0x01010101u, scale);
+    else fold(acc1, bmin, be, fb, fe * 0x01010101u, scale);
+    hand_over(b0 - kMTB);
+  }
+  __syncthreads();   // the last tile is in the heaps
+
+  // heap sort each row into ascending (value, b) order; entries past the
+  // finite buckets stay (+inf, empty)
+  if (tid >= kMT) {
+    const int row = tid - kMT;
+    Key* h = heap + row;
+    for (int size = heap_n[row]; size > 1; --size) {
+      const Key top = h[0];
+      heap_sift(h, size - 1, k, h[(size - 1) * kMRows]);
+      h[(size - 1) * kMRows] = top;
+    }
+  }
+  __syncthreads();
+
+  for (int i = tid; i < kMRows * k; i += kMT + kHeapT) {
+    const int row = i / k, j = i - row * k;
+    if (row >= q_valid) continue;
+    const Key key = heap[j * kMRows + row];
+    const int p = static_cast<int>(key & 0xffffffffu);
+    const long long o = (q_row0 + row) * k + j;
+    vals[o] = key == kNoKey ? INFINITY : key_value(key);
+    idx[o] = key == kNoKey ? 0 : (p & 7) * g + (p >> 3);
+  }
+}
+
+template <int kDC>
+int launch_mma(const void* qv, const void* stacks, const void* bias,
+               void* vals, void* idx, int n_clusters, int maxc, int d, int mm,
+               int k, int group, float scale, cudaStream_t st) {
+  const size_t smem = mma_smem_bytes<kDC>(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      join_mma_kernel<kDC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((maxc + kMRows - 1) / kMRows, n_clusters);
+  join_mma_kernel<kDC><<<grid, kMT + kHeapT, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(qv),
+      static_cast<const __nv_bfloat16*>(stacks),
       static_cast<const float*>(bias), static_cast<float*>(vals),
       static_cast<int*>(idx), maxc, d, mm, k, group, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -265,23 +810,35 @@ void launch(const void* qv, const void* stacks, const void* bias, void* vals,
 // Plain C entry point (loaded with ctypes). Pointers are device pointers:
 // qv [C, maxc, d] and stacks [C, mm, d] of one dtype (0 f32, 1 bf16),
 // bias [C, mm] f32; outputs vals [C, maxc, k] f32 and idx [C, maxc, k]
-// int32, allocated by the caller. Launches on `stream` without
-// synchronising and returns cudaGetLastError() (0 on success).
+// int32, allocated by the caller. bf16 needs d % 8 == 0 and 16-byte
+// aligned qv and stacks (the wrapper pads d). Launches on `stream` without
+// synchronising and returns the CUDA error of the launch (0 on success).
 extern "C" int cluster_join(const void* qv, const void* stacks,
                             const void* bias, void* vals, void* idx,
                             int n_clusters, int maxc, int d, int mm, int k,
                             int group, float scale, int dtype, void* stream) {
   if (n_clusters < 1 || n_clusters > 65535 || maxc < 1 || d < 1 || mm < 1 ||
-      k < 1 || k > kMaxK || group < 1 || mm % group != 0 || k > mm / group)
+      k < 1 || k > kMaxK || group < 1 || group > 8 || mm % group != 0 ||
+      k > mm / group)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    launch<float>(qv, stacks, bias, vals, idx, n_clusters, maxc, d, mm, k,
-                  group, scale, st);
-  else if (dtype == kBF16)
-    launch<__nv_bfloat16>(qv, stacks, bias, vals, idx, n_clusters, maxc, d,
-                          mm, k, group, scale, st);
-  else
+  if (dtype == kF32) {
+    const dim3 grid((maxc + kRows - 1) / kRows, n_clusters);
+    join_fma_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(qv), static_cast<const float*>(stacks),
+        static_cast<const float*>(bias), static_cast<float*>(vals),
+        static_cast<int*>(idx), maxc, d, mm, k, group, scale);
+  } else if (dtype == kBF16) {
+    if (d % 8 != 0 || (reinterpret_cast<uintptr_t>(qv) & 15) ||
+        (reinterpret_cast<uintptr_t>(stacks) & 15) ||
+        static_cast<long long>(mm / group) * 8 + 7 > INT_MAX)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return d <= 128 ? launch_mma<128>(qv, stacks, bias, vals, idx, n_clusters,
+                                      maxc, d, mm, k, group, scale, st)
+                    : launch_mma<64>(qv, stacks, bias, vals, idx, n_clusters,
+                                     maxc, d, mm, k, group, scale, st);
+  } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

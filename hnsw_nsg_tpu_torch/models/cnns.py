@@ -43,6 +43,7 @@ from ..ops.distance import (
     squared_norms,
 )
 from ..ops.topk import topk_smallest
+from ..utils.device import resolve_device
 from ..utils.params import CNNSConfig
 from .kmeans import kmeans
 
@@ -455,9 +456,11 @@ class CNNSIndex:
         )
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "CNNSIndex":
+    def load(cls, path: str, device=None) -> "CNNSIndex":
         """Read an index saved by this class or by the JAX package's
-        ``CNNSIndex.save``; all tensors land on ``device``."""
+        ``CNNSIndex.save``; all tensors land on ``device`` (default
+        ``cuda``)."""
+        device = resolve_device(device)
         z = np.load(path, allow_pickle=False)
         d_np = z["data_c"]
         if "slab_dtype" in z and str(z["slab_dtype"]) == "bfloat16":
@@ -595,9 +598,10 @@ def build_cnns(
     seed: int = 0,
     verbose: bool = False,
     slab_dtype=None,
-    device="cpu",
+    device=None,
 ) -> CNNSIndex:
-    """Build the CNNS index with flat local indexes on ``device``.
+    """Build the CNNS index with flat local indexes on ``device`` (default
+    ``cuda``).
 
     slab_dtype: dtype of the probed cluster slabs. float32 (default) gives
     exact scans; bfloat16 halves the bytes the scan reads, ranking then
@@ -607,6 +611,7 @@ def build_cnns(
     initial centroids and representatives as the JAX package."""
     if local_index != "flat":
         raise NotImplementedError(f"local_index={local_index!r} {_NOT_PORTED}")
+    device = resolve_device(device)
     if slab_dtype is None:
         slab_dtype = torch.float32
     if slab_dtype not in _NP_DTYPE:

@@ -22,6 +22,7 @@ import torch
 
 from ..ops.cluster_scan import cluster_join_topk
 from ..ops.distance import PAD_DIST, PAD_ID, pairwise_dists, squared_norms
+from ..utils.device import resolve_device
 from .kmeans import kmeans
 
 
@@ -92,7 +93,7 @@ def knn_graph_ivf(
     """Approximate kNN graph via cluster joins. Returns int32 [N, k]
     (numpy, or the tensor on the data's device when ``as_device``).
 
-    data: numpy [N, d] (moved to ``device``, default the CPU) or a tensor
+    data: numpy [N, d] (moved to ``device``, default ``cuda``) or a tensor
     (used where it lies). probes: slabs joined per slab (own + probes-1
     nearest by centroid), the recall knob, like IVF nprobe. When
     ``stats`` is a dict, the join's shape is written into it (``n_slabs``,
@@ -101,7 +102,7 @@ def knn_graph_ivf(
         data_dev = data.float()
     else:
         data_dev = torch.from_numpy(np.ascontiguousarray(data, np.float32))
-        data_dev = data_dev.to(device or "cpu")
+        data_dev = data_dev.to(resolve_device(device))
     dev = data_dev.device
     n, d = data_dev.shape
     c_target = n_clusters or max(n // 1024, 1)

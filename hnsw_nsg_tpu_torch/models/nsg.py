@@ -38,16 +38,19 @@ import torch
 from ..ops.bruteforce import brute_force_topk
 from ..ops.distance import PAD_DIST, PAD_ID, gathered_dists, squared_norms
 from ..utils import io as io_utils
+from ..utils.device import resolve_device
 from ..utils.params import NSGBuildConfig
 from .beam import beam_search_chunked, beam_search_collect_chunked
 from .prune import occlusion_prune, occlusion_prune_padded
 
 
 def _as_tensor(x, device=None, dtype=None) -> torch.Tensor:
+    """A tensor stays where it lies unless ``device`` is given; numpy goes
+    to ``device``, by default the card."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     t = torch.from_numpy(np.ascontiguousarray(x))
-    return t.to(device=device or "cpu", dtype=dtype)
+    return t.to(device=resolve_device(device), dtype=dtype)
 
 
 def _random_ids(n: int, shape, seed: int, device) -> torch.Tensor:
@@ -144,7 +147,8 @@ class NSGIndex:
 
     @classmethod
     def load(cls, path: str, data, device=None) -> "NSGIndex":
-        """Read a .npz written by either package, given the data."""
+        """Read a .npz written by either package, given the data (numpy
+        data goes to ``device``, by default ``cuda``)."""
         z = np.load(path, allow_pickle=False)
         data = _as_tensor(data, device)
         return cls(data=data, norms=squared_norms(data),
@@ -170,9 +174,9 @@ class NSGIndex:
 # Build
 
 
-def find_medoid(data, metric: str = "l2") -> int:
+def find_medoid(data, metric: str = "l2", device=None) -> int:
     """Exact medoid: the point nearest the centroid (one product)."""
-    x = _as_tensor(data)
+    x = _as_tensor(data, device)
     center = x.float().mean(0, keepdim=True)
     _, ids = brute_force_topk(center, x, 1, metric=metric)
     return int(ids[0, 0])
@@ -341,7 +345,7 @@ def build_nsg(
     """Build an NSG from a dataset and its (approximate) kNN graph.
 
     data [N, d], knn_adj [N, K] int32: numpy (moved to ``device``, default
-    the CPU) or tensors (used where the data lies). Node blocks of at
+    ``cuda``) or tensors (used where the data lies). Node blocks of at
     least ``block`` rows (4096 from N = 2^18) run the collect beam and
     the prune together; no result depends on the block size. When
     ``stage_seconds`` is a dict, the wall time of each stage is written

@@ -22,10 +22,11 @@ the kernel, or the wrapper raises. ``launches`` counts kernel launches.
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
 member row of each cluster against the cluster's stacked candidate slabs
-and returns the k smallest per-bucket minima (``csrc/cluster_join.cu``;
-``join_launches`` counts its launches). The TPU's row-chunk shrink for
-scoped VMEM (pallas_scan.py:197-200) is not carried over; the bucket
-rule (``join_group``) is, because it decides which slots can come back.
+and returns the k smallest per-bucket minima (``csrc/cluster_join.cu``:
+bf16 on tensor cores, f32 in exact FMAs; ``join_launches`` counts its
+launches). The TPU's row-chunk shrink for scoped VMEM
+(pallas_scan.py:197-200) is not carried over; the bucket rule
+(``join_group``) is, because it decides which slots can come back.
 """
 
 from __future__ import annotations
@@ -274,6 +275,15 @@ def _launch_join(qv, stacks, bias, k: int, scale: float):
     for name, t in (("qv", qv), ("stacks", stacks), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if qv.dtype == torch.bfloat16:
+        # the tensor-core kernel copies 16-byte row pieces: pad d to a
+        # multiple of 8 with zeros (no dot changes) and align the bases
+        pad = -qv.shape[2] % 8
+        if pad:
+            qv = torch.nn.functional.pad(qv, (0, pad))
+            stacks = torch.nn.functional.pad(stacks, (0, pad))
+        qv, stacks = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (qv, stacks))
     c, maxc, d = qv.shape
     mm = stacks.shape[1]
     vals = torch.empty((c, maxc, k), dtype=torch.float32, device=qv.device)

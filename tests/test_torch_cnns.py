@@ -74,7 +74,7 @@ def jax_indexes(tmp_path_factory):
         path = str(tmp / f"{name}.npz")
         ji.save(path)
         out[name] = (x, q, ji, jc.CNNSIndex.load(path),
-                     tc.CNNSIndex.load(path))
+                     tc.CNNSIndex.load(path, device="cpu"))
     return out
 
 
@@ -135,7 +135,7 @@ def test_sq8_pad_slots_stay_pad_dist(tmp_path, group):
     ji = jc.build_cnns(x, CNNSConfig(n_clusters=16, m=2, kmeans_iters=4),
                        slab_dtype=jnp.int8)
     ji.save(str(tmp_path / "s.npz"))
-    ti = tc.CNNSIndex.load(str(tmp_path / "s.npz"))
+    ti = tc.CNNSIndex.load(str(tmp_path / "s.npz"), device="cpu")
     assert ti.qscale >= 2.0
     k = 32 if group else 48          # above one cluster's fill
     td, tid = ti.search(torch.from_numpy(q), k=k, nprobe=1, group=group)
@@ -153,7 +153,7 @@ def test_port_build_matches_jax_build(jax_indexes, name):
     metric, sdt, rep, tf = VARIANTS[name]
     x, q, ji, _, _ = jax_indexes[name]
     ti = tc.build_cnns(x, CNNSConfig(replicate=rep, **CFG), metric=metric,
-                       slab_dtype=_TDT[sdt])
+                       slab_dtype=_TDT[sdt], device="cpu")
     assert ti.data_c.shape[0] == ji.data_c.shape[0]
     assert ti.maxc == ji.maxc and ti.n_real > 0
     ids = ti.ids_c.numpy()
@@ -176,7 +176,8 @@ def test_multipass_q3000_matches_per_query():
     rng = np.random.default_rng(5)
     x = rng.standard_normal((1500, 16)).astype(np.float32)
     q = torch.from_numpy(rng.standard_normal((3000, 16)).astype(np.float32))
-    idx = tc.build_cnns(x, CNNSConfig(n_clusters=8, m=2, kmeans_iters=6))
+    idx = tc.build_cnns(x, CNNSConfig(n_clusters=8, m=2, kmeans_iters=6),
+                        device="cpu")
     c = idx.data_c.shape[0]
     nprobe = min(8, idx.n_real)
     assert 2 * q.shape[0] * nprobe > 512 * c
@@ -194,11 +195,11 @@ def test_save_load_round_trips(tmp_path, sdt):
     search results."""
     x, q = _data("l2", None)
     ti = tc.build_cnns(x, CNNSConfig(replicate=True, **CFG),
-                       slab_dtype=_TDT[sdt])
+                       slab_dtype=_TDT[sdt], device="cpu")
     p = str(tmp_path / "t.npz")
     ti.save(p)
     ji = jc.CNNSIndex.load(p)
-    t2 = tc.CNNSIndex.load(p)
+    t2 = tc.CNNSIndex.load(p, device="cpu")
     np.testing.assert_array_equal(np.asarray(ji.data_c, np.float32),
                                   ti.data_c.float().numpy())
     assert torch.equal(t2.data_c, ti.data_c) and t2.replicated
@@ -215,7 +216,7 @@ def test_save_load_round_trips(tmp_path, sdt):
 def test_unported_local_indexes_raise(jax_indexes):
     x, q, _, _, ti = jax_indexes["f32_l2"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.build_cnns(x, CNNSConfig(**CFG), local_index="nsg")
+        tc.build_cnns(x, CNNSConfig(**CFG), local_index="nsg", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ti.search(torch.from_numpy(q), k=10, nprobe=2, router="hnsw")
 

@@ -130,10 +130,10 @@ def test_search_on_card_matches_cpu(card, tmp_path, slab_dtype):
     x, q = make_data(30000, 32, 512, "l2", seed=1)
     cpu_idx = cnns.build_cnns(
         x, CNNSConfig(n_clusters=30, m=4, kmeans_iters=6, replicate=True),
-        slab_dtype=slab_dtype)
+        slab_dtype=slab_dtype, device="cpu")
     cpu_idx.save(str(tmp_path / "i.npz"))
-    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"), device=card)
-    cpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"))
+    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"))
+    cpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"), device="cpu")
     for group in (False, True):
         before = cs.launches
         gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), k=10,
@@ -244,6 +244,66 @@ def test_cluster_join_kernel_matches_plain(card, dtype, mm, k, metric):
     own = torch.gather(full, 2, ki.long())
     torch.testing.assert_close(own[fin], rv[fin], **tol)
     assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,maxc,mm,d,k,metric,sparse_last", [
+    (3, 150, 1600, 128, 8, "l2", None),    # group 8, g = 200: ragged tile
+    (2, 130, 1024, 960, 10, "l2", None),   # d = 960: the query streams
+    (3, 96, 512, 100, 10, "l2", None),     # d padded to 104
+    (3, 200, 2048, 64, 16, "l2", None),    # maxc not a multiple of 128
+    (2, 128, 8192, 128, 64, "l2", None),   # k = MAX_JOIN_K
+    (3, 64, 512, 128, 20, "l2", 5),        # sparse last cluster: inf tail
+    (2, 32, 2048, 128, 20, "ip", None),    # ip, group 4
+])
+def test_cluster_join_bf16_tensor_cores(card, c, maxc, mm, d, k, metric,
+                                        sparse_last):
+    """The tensor-core kernel vs the plain version on the same bf16
+    inputs: vals allclose where finite (f32 sums of exact products in
+    another order; atol 1e-3 at |bias| ~ 2d, 5e-3 at d = 960), the +inf
+    pattern equal, ids equal except at near-ties, whose slot must score
+    the plain value within the tolerance."""
+    rng = np.random.default_rng(c * maxc + mm + d + k)
+    qv = torch.from_numpy(rng.standard_normal((c, maxc, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    st = torch.from_numpy(rng.standard_normal((c, mm, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    sizes = rng.integers(mm // 2, mm + 1, c)
+    if sparse_last is not None:
+        sizes[-1] = sparse_last
+    valid = torch.from_numpy(np.arange(mm)[None, :] < sizes[:, None])
+    if metric == "l2":
+        base, scale = (st.float() ** 2).sum(-1), 2.0
+    else:
+        base, scale = torch.ones((c, mm)), 1.0
+    bias = torch.where(valid, base, float("inf"))
+    rv, ri = cs.cluster_join_topk_reference(qv, st, bias, k, scale)
+    before = cs.join_launches
+    kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
+                                  k, scale)
+    torch.cuda.synchronize()
+    assert cs.join_launches == before + 1
+    kv, ki = kv.cpu(), ki.cpu()
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(kv), fin)
+    tol = dict(rtol=1e-5, atol=5e-3 if d > 512 else 1e-3)
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    mism = (ki != ri) & fin
+    full = bias[:, None, :] - scale * cs.f32_dots(qv, st)
+    own = torch.gather(full, 2, ki.long())
+    torch.testing.assert_close(own[mism], rv[mism], **tol)
+    assert int(mism.sum()) <= max(2, int(fin.sum()) // 100)
+
+
+@pytest.mark.cuda
+def test_knn_graph_on_card_repeats(card):
+    """Two kNN graphs of the same card data are equal (k-means sums in a
+    fixed order; the join's merge order does not depend on timing)."""
+    x, _ = make_data(20000, 32, 8, "l2", seed=5)
+    xd = torch.from_numpy(x).to(card)
+    a1 = knn_graph_ivf(xd, 16, n_clusters=20, probes=4, as_device=True)
+    a2 = knn_graph_ivf(xd, 16, n_clusters=20, probes=4, as_device=True)
+    assert a1.device.type == "cuda" and torch.equal(a1, a2)
 
 
 @pytest.mark.cuda

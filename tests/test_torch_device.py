@@ -1,0 +1,94 @@
+"""The port's entry points put numpy input on the card unless the caller
+asks for the CPU. With a card visible each lands on ``cuda``; on a torch
+without CUDA each raises, and none ever returns CPU tensors."""
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
+from hnsw_nsg_tpu_torch.models import nsg  # noqa: E402
+from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
+from hnsw_nsg_tpu_torch.utils import io as io_utils  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.device import resolve_device  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig  # noqa: E402,E501
+
+
+def _data(n=600, d=8, seed=0):
+    return np.random.default_rng(seed).standard_normal((n, d)).astype(
+        np.float32)
+
+
+def _knn(x, k=8):
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    return np.argsort(d2, axis=1, kind="stable")[:, :k].astype(np.int32)
+
+
+def _build_cnns(tmp_path):
+    idx = cnns.build_cnns(_data(), CNNSConfig(n_clusters=4, m=2,
+                                              kmeans_iters=2))
+    return [idx.data_c, idx.ids_c, idx.reps]
+
+
+def _load_cnns(tmp_path):
+    p = str(tmp_path / "c.npz")
+    cnns.build_cnns(_data(), CNNSConfig(n_clusters=4, m=2, kmeans_iters=2),
+                    device="cpu").save(p)
+    idx = cnns.CNNSIndex.load(p)
+    return [idx.data_c, idx.ids_c, idx.reps]
+
+
+def _knn_graph(tmp_path):
+    return [knn_graph_ivf(_data(), 8, n_clusters=4, probes=2,
+                          as_device=True)]
+
+
+def _build_nsg(tmp_path):
+    x = _data(300)
+    idx = nsg.build_nsg(x, _knn(x), NSGBuildConfig(L=16, R=8, C=40))
+    return [idx.data, idx.adj]
+
+
+def _load_nsg(tmp_path):
+    x = _data(300)
+    p = str(tmp_path / "g.npz")
+    np.savez(p, adj=_knn(x), ep=0, metric="l2")
+    idx = nsg.NSGIndex.load(p, x)
+    return [idx.data, idx.adj]
+
+
+def _load_nsg_reference_format(tmp_path):
+    x = _data(300)
+    p = str(tmp_path / "g.nsg")
+    io_utils.write_nsg(p, _knn(x), 0, 8)
+    idx = nsg.NSGIndex.load_reference_format(p, x)
+    return [idx.data, idx.adj]
+
+
+ENTRY_POINTS = {
+    "build_cnns": _build_cnns,
+    "CNNSIndex.load": _load_cnns,
+    "knn_graph_ivf": _knn_graph,
+    "build_nsg": _build_nsg,
+    "NSGIndex.load": _load_nsg,
+    "NSGIndex.load_reference_format": _load_nsg_reference_format,
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_numpy_input_defaults_to_the_card(tmp_path, entry):
+    call = ENTRY_POINTS[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(tmp_path)
+        return
+    for t in call(tmp_path):
+        assert t.device.type == "cuda", (entry, t.device)
+
+
+def test_resolve_device_keeps_what_is_asked():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")) == torch.device("cpu")

@@ -106,7 +106,7 @@ def test_knn_graph_ivf_quality(clustered):
     """tests/test_knn_ivf.py's quality bar at a fast size: recall >= 0.9
     against the exact graph, no self edges, ids in range."""
     x = clustered
-    adj = knn_graph_ivf(x, 10, n_clusters=8, probes=5, seed=0)
+    adj = knn_graph_ivf(x, 10, n_clusters=8, probes=5, seed=0, device="cpu")
     gt = knn_graph_exact(torch.from_numpy(x), 10, query_block=2048)
     r = recall(adj, gt)
     assert r >= 0.9, f"cluster-join graph recall {r}"

@@ -37,7 +37,8 @@ def built():
     knn = np.array(j_knn_exact(jnp.asarray(x), 24, query_block=1024))
     jidx = jnsg.build_nsg(x, knn, CFG, block=1024)
     stages = {}
-    tidx = tnsg.build_nsg(x, knn, CFG, block=1024, stage_seconds=stages)
+    tidx = tnsg.build_nsg(x, knn, CFG, block=1024, device="cpu",
+                          stage_seconds=stages)
     _, gt = j_bf(jnp.asarray(q), jnp.asarray(x), 10)
     return x, q, knn, jidx, tidx, np.asarray(gt), stages
 
@@ -94,7 +95,7 @@ def test_cross_loaded_jax_graph_recall(built, tmp_path):
     x, q, _, jidx, _, gt, _ = built
     p = str(tmp_path / "j.npz")
     jidx.save(p)
-    idx = tnsg.NSGIndex.load(p, x)
+    idx = tnsg.NSGIndex.load(p, x, device="cpu")
     np.testing.assert_array_equal(idx.adj.numpy(), np.asarray(jidx.adj))
     assert idx.ep == jidx.ep and idx.metric == jidx.metric
     _, ji = jidx.search(q, k=10, l_search=64)
@@ -110,7 +111,7 @@ def test_reference_format_files_byte_equal(built, tmp_path):
     x, q, _, jidx, _, _, _ = built
     pj, pt = tmp_path / "j.nsg", tmp_path / "t.nsg"
     jidx.save_reference_format(str(pj))
-    idx = tnsg.NSGIndex.load_reference_format(str(pj), x)
+    idx = tnsg.NSGIndex.load_reference_format(str(pj), x, device="cpu")
     assert idx.ep == jidx.ep
     np.testing.assert_array_equal(idx.adj.numpy(), np.asarray(jidx.adj))
     idx.save_reference_format(str(pt))
@@ -153,7 +154,7 @@ def test_tree_grow_never_cuts_off_an_attached_node():
 
 def test_medoid_matches_jax(rng):
     x = rng.standard_normal((500, 8)).astype(np.float32)
-    assert tnsg.find_medoid(x) == jnsg.find_medoid(x)
+    assert tnsg.find_medoid(x, device="cpu") == jnsg.find_medoid(x)
 
 
 def test_build_accel_names_the_records_slice(built):
