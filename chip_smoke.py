@@ -7,16 +7,21 @@ Phases, each of which fails the run (non-zero exit) on its own:
      limit, compile the kernels from ``hnsw_nsg_tpu_torch/csrc`` (one nvcc
      per source, in parallel);
   2. the grouped-scan kernel versus its plain PyTorch version on the card,
-     per dtype pair, metric and shape, with the tolerance stated beside
-     each case, and both times at the bench shape;
+     per dtype pair, metric and shape (the bench shape at k=10, the CNNS
+     search's own call at k=20, d=960, cap=80 with k=32, d=100), with the
+     tolerance and the count of near-tie ids stated beside each case, and
+     both times and the bound of each;
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
      ``CNNSIndex.search`` (Q=8192, k=10) until recall@10 >= 0.95, with the
      kernel's launch count read around it;
   4. the merge+select kernel versus its plain version (``torch.equal`` on
-     all five outputs) at the search, collect-pool and wide-expand shapes,
-     a ragged Q, all-PAD candidates and a converged retset; and the
+     all five outputs) on states that a membership test can get wrong
+     (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
+     one id, an all-PAD retset), at the search, collect-pool, build-retset
+     and wide-expand shapes, a ragged Q, all-PAD candidates and a
+     converged retset, with its resident warps per SM; and the
      cluster-join kernel versus its plain version at small shapes (f32:
      l2 group 1, an inf tail; bf16 on tensor cores: ip group 4, group 8
      with a ragged bucket tile, d=960, d=100, maxc=200, k=64, a sparse
@@ -27,7 +32,7 @@ Phases, each of which fails the run (non-zero exit) on its own:
      proving connectivity, an l_search sweep of ``NSGIndex.search``
      (Q=8192, k=10) over 16..256 with its recall reported, and
      ``search_from_enterpoint`` from sampled entries; both kernels'
-     launch counts read around it;
+     launch counts read around it, merge+select's also by shape;
   6. the cluster-join kernel versus its plain version at the build shape
      (C from phase 5, maxc 2112, M=8, d=128, bf16, k=52): both times,
      the id mismatches at near-ties, the bound (the products of the
@@ -100,13 +105,18 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+    """Median device time of fn() in ms, CUDA events around each call.
+    Each call is queued behind ~1 ms of device sleep, so the host has
+    enqueued all of it before the device starts: a kernel of a few tens of
+    microseconds is then timed by the device, not by how fast the host
+    launches it."""
     for _ in range(warmup):
         fn()
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -185,6 +195,9 @@ def phase_kernels(gen):
     cases = [
         ("bench bf16 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
          bf, bf, "l2", b["k"], 1e-5, 1e-3),
+        # the CNNS search's own call: k = 2 * 10 of a replicated index
+        ("main path bf16 l2 k=20", b["c"], b["maxc"], b["d"], b["cap"],
+         b["qn"], bf, bf, "l2", 20, 1e-5, 1e-3),
         ("bench f32 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
          f32, f32, "l2", b["k"], 1e-5, 1e-3),
         ("bench f32 ip", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
@@ -197,8 +210,12 @@ def phase_kernels(gen):
          1e-5, 5e-3),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
+        # rows that start off 16 bytes (8-byte copies), d padded to 112
+        ("d=100 bf16 l2", 256, 1000, 100, 32, 2048, bf, bf, "l2", 10,
+         1e-5, 1e-3),
     ]
-    bench_err = ms = plain_ms = bench_bound = None
+    bench_err = None
+    main = None   # (kernel ms, plain ms, bound) at the main path's k = 20
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
          atol) in cases:
         qc, qidx, slabs, bias, scale = make_case(
@@ -220,8 +237,11 @@ def phase_kernels(gen):
         print(f"    kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
               f"(median); bound {b_case[0]:.4f} ms ({b_case[1]}), kernel "
               f"at {b_case[0] / k_ms:.1%} of it")
+        if name.startswith("main path"):
+            bench_err = max(bench_err, err)
+            main = (k_ms, p_ms, b_case)
         if name == "bench bf16 l2":
-            bench_err, ms, plain_ms, bench_bound = err, k_ms, p_ms, b_case
+            bench_err = err
             # the d-blocked and pre-gathered entry points, same inputs
             got = cs.grouped_cluster_topk_gq_dblk(*args)
             check_scan("gq_dblk wrapper", got, want, full, qidx >= 0,
@@ -241,7 +261,7 @@ def phase_kernels(gen):
             del qv
         del qc, qidx, slabs, bias, got, want, full, args
         torch.cuda.empty_cache()
-    return bench_err, ms, plain_ms, bench_bound
+    return (bench_err, *main)
 
 
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
@@ -360,9 +380,37 @@ def phase_merge_select():
     plain ms at the search and collect shapes)."""
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
 
+    from hnsw_nsg_tpu_torch.utils.synth import (MERGE_STATE_KINDS,
+                                                 adversarial_merge_state)
+
+    names = ("dists", "ids", "expanded", "sel_ids", "sel_valid")
+    # states a hash table can get wrong: colliding ids, id 0 and ids near
+    # 2**31 - 1, candidates all one retset id or one new id, a PAD retset
+    n_adv = 0
+    for kind in MERGE_STATE_KINDS:
+        for l, c, expand in ((40, 50, 1), (100, 50, 4), (500, 50, 1),
+                             (500, 120, 4), (102, 50, 2)):
+            state = [torch.from_numpy(a).cuda() for a in
+                     adversarial_merge_state(kind, l + c + expand, 515, l, c)]
+            got = ms.fused_merge_select(*state, expand)
+            torch.cuda.synchronize()
+            want = ms.merge_select_reference(*state, expand)
+            for nm, a, b in zip(names, got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"merge_select adversarial {kind} L={l} C={c} "
+                        f"expand={expand}: {nm} differs from the plain version")
+            n_adv += 1
+    print(f"  merge_select adversarial states ({', '.join(MERGE_STATE_KINDS)}"
+          f"): {n_adv} cases, all five outputs equal")
+    print("  merge_select resident queries (warps) per SM: "
+          + ", ".join(f"L={l} C={c}: {ms.occupancy(l, c)}"
+                      for l, c in ((100, 50), (500, 50), (40, 50))))
+
     cases = [  # (name, Q, L, C, expand, mutation)
         ("search shape", 8192, 100, 50, 1, None),
         ("collect pool", 4096, 500, 50, 1, None),
+        ("build retset", 4096, 40, 50, 1, None),
         ("wide expand", 8192, 64, 120, 4, None),
         ("ragged Q", 8195, 100, 50, 2, None),
         ("all-PAD candidates", 1000, 100, 50, 1, "pad"),
@@ -382,7 +430,6 @@ def phase_merge_select():
         got = ms.fused_merge_select(*state, expand)
         torch.cuda.synchronize()
         want = ms.merge_select_reference(*state, expand)
-        names = ("dists", "ids", "expanded", "sel_ids", "sel_valid")
         for nm, a, b in zip(names, got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"merge_select {name}: {nm} differs "
@@ -392,16 +439,17 @@ def phase_merge_select():
             raise AssertionError("a converged retset selected a frontier")
         line = f"  merge_select {name} (Q={q} L={l} C={c} expand={expand}): "
         line += "all five outputs equal"
-        if i < 2:
+        if i < 3:
             k_ms = cuda_ms(lambda: ms.fused_merge_select(*state, expand),
-                           reps=20)
+                           reps=50, warmup=5)
             p_ms = cuda_ms(lambda: ms.merge_select_reference(*state, expand),
                            reps=5)
             # a merge moves data and compares: the bytes bound it
             b_ms, b_by = bound(nbytes(*state, *got))
             times[name] = (k_ms, p_ms, b_ms, b_by)
             line += (f"; kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
-                     f"(median), bound {b_ms:.4f} ms ({b_by})")
+                     f"(median), bound {b_ms:.4f} ms ({b_by}), kernel at "
+                     f"{b_ms / k_ms:.1%} of it")
         print(line)
         del state, got, want
     torch.cuda.empty_cache()
@@ -610,6 +658,7 @@ def phase_nsg(card, n=NSG_N, nq=8192, gate=False):
 
     cs.join_launches = 0
     ms.launches = 0
+    ms.launches_by_shape.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     knn_k = cfg.L + 10    # hybrid.py:60
@@ -673,6 +722,19 @@ def phase_nsg(card, n=NSG_N, nq=8192, gate=False):
     j_launches, m_launches = cs.join_launches, ms.launches
     print(f"kernel launches during the NSG path: cluster_join {j_launches}, "
           f"merge_select {m_launches}")
+    # the same count by shape: the build's collect beam launches twice a
+    # hop (the C-wide pool and the L-wide retset), a search once, on a
+    # batch that shrinks as queries converge
+    split = {}
+    for (q_, l_, c_, e_), cnt in ms.launches_by_shape.items():
+        ent = split.setdefault((l_, c_, e_), [0, q_, q_])
+        ent[0] += cnt
+        ent[1], ent[2] = min(ent[1], q_), max(ent[2], q_)
+    for (l_, c_, e_), (cnt, q_lo, q_hi) in sorted(split.items()):
+        print(f"  merge_select launches at L={l_} C={c_} expand={e_}: {cnt} "
+              f"(Q {q_lo}..{q_hi})")
+    if sum(v[0] for v in split.values()) != m_launches:
+        raise AssertionError("the launch split does not add up")
     if j_launches <= 0 or m_launches <= 0:
         raise AssertionError("the NSG path did not launch both kernels")
     if gate and reached is None:
@@ -733,7 +795,8 @@ def main() -> int:
     phase_nsg(card, n=NSG_GATE_N, gate=True)
 
     # no single PyTorch call computes any of the three functions, so none
-    # has a library time
+    # has a library time; the grouped scan's times are at the call the
+    # main path makes (k = 20)
     ms_ms, ms_plain, ms_bound, ms_by = ms_times["search shape"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",

@@ -77,6 +77,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_helpers.cuh"
+
 namespace {
 
 constexpr int kMaxK = 64;
@@ -87,21 +89,6 @@ enum DType { kF32 = 0, kBF16 = 1 };
 // (value, bucket) order: the lower bucket wins a tie
 __device__ __forceinline__ bool before(float av, int ab, float bv, int bb) {
   return av < bv || (av == bv && ab < bb);
-}
-
-// (value, p) as one unsigned key in the same order: the float's bits made
-// monotonic (-0 taken as +0) above p >= 0. kNoKey (all ones) is an empty
-// entry, after every real key.
-using Key = unsigned long long;
-constexpr Key kNoKey = ~0ull;
-__device__ __forceinline__ Key make_key(float v, int p) {
-  const unsigned u = __float_as_uint(v + 0.0f);
-  const unsigned o = u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
-  return (static_cast<Key>(o) << 32) | static_cast<unsigned>(p);
-}
-__device__ __forceinline__ float key_value(Key key) {
-  const unsigned o = static_cast<unsigned>(key >> 32);
-  return __uint_as_float(o ^ ((o >> 31) ? 0x80000000u : 0xffffffffu));
 }
 
 // ---- f32 x f32: CUDA-core FMAs ---------------------------------------------
@@ -313,57 +300,6 @@ struct Chunk {
   static constexpr int kStage = kS + (kResident ? 0 : kQ) + kBiasVals;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a * b, the first product of a sum (no accumulator to clear)
-__device__ __forceinline__ void mma_bf16_first(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  const float z = 0.f;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(z));
-}
-
 // acc (+)= the product of one d chunk: the warp's 32 rows x 32 buckets as
 // 2 x 4 m16n8k16 tiles, kDC / 16 k-steps
 template <int kDC>
@@ -486,50 +422,6 @@ __device__ __forceinline__ void stage_tile(
   for (int w = 0; w < 8; ++w) be[w] = 0;
 }
 
-// A row's k best buckets form a 4-ary max-heap of keys (value, p), p =
-// b * 8 + e, with the row's entries kMRows apart in shared memory (entry i
-// of row r at i * kMRows + r), so the threads of a warp, one row each,
-// read distinct banks. The root is the k-th best: the threshold. Four
-// children a node keep the heap 3 levels deep at k = 52, and a level's
-// four loads go out together.
-__device__ __forceinline__ void heap_push(Key* h, int size, Key x) {
-  int i = size;
-  while (i > 0) {
-    const int par = (i - 1) >> 2;
-    const Key pk = h[par * kMRows];
-    if (pk > x) break;   // the parent stays above (keys are unique)
-    h[i * kMRows] = pk;
-    i = par;
-  }
-  h[i * kMRows] = x;
-}
-
-// place x at the root of a heap of `size` entries (of k slots) and sift
-// it down
-__device__ __forceinline__ void heap_sift(Key* h, int size, int k, Key x) {
-  int i = 0;
-  while (true) {
-    const int c0 = 4 * i + 1;
-    if (c0 >= size) break;
-    Key ck[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)   // in-bounds loads, used below size
-      ck[u] = h[min(c0 + u, k - 1) * kMRows];
-    int ch = c0;
-    Key mk = ck[0];
-#pragma unroll
-    for (int u = 1; u < 4; ++u)
-      if (c0 + u < size && ck[u] > mk) {
-        ch = c0 + u;
-        mk = ck[u];
-      }
-    if (x >= mk) break;
-    h[i * kMRows] = mk;
-    i = ch;
-  }
-  h[i * kMRows] = x;
-}
-
 // the product warps' own barrier (named barrier 1), apart from the heap
 // warps; and the hand-over barrier of both roles (named barrier 2)
 __device__ __forceinline__ void mma_warps_sync() {
@@ -604,8 +496,8 @@ join_mma_kernel(const __nv_bfloat16* __restrict__ qv,
       const int n = cand_n[row];
       for (int q = 0; q < n; ++q) {
         const Key x = cand[q * kMRows + row];
-        if (size < k) heap_push(h, size++, x);
-        else if (x < h[0]) heap_sift(h, size, k, x);
+        if (size < k) heap_push<kMRows>(h, size++, x);
+        else if (x < h[0]) heap_sift<kMRows>(h, size, k, x);
       }
       cand_n[row] = 0;
       heap_n[row] = size;
@@ -770,7 +662,7 @@ join_mma_kernel(const __nv_bfloat16* __restrict__ qv,
     Key* h = heap + row;
     for (int size = heap_n[row]; size > 1; --size) {
       const Key top = h[0];
-      heap_sift(h, size - 1, k, h[(size - 1) * kMRows]);
+      heap_sift<kMRows>(h, size - 1, k, h[(size - 1) * kMRows]);
       h[(size - 1) * kMRows] = top;
     }
   }

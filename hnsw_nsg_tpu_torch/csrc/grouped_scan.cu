@@ -21,24 +21,60 @@
 // (C x maxc x d elements, ~0.6 GB at the sift1m bench shape in bf16, about
 // 0.2 ms at 3.35 TB/s), while the products (2 x C x cap x maxc x d, ~19
 // GFLOP there) are far under the tensor cores' rate. The bound is memory
-// bandwidth.
+// bandwidth: a design has to keep enough slab bytes in flight on every SM
+// and do the products and the top-k in the shadow of the loads.
 //
-// What this first design does about it: nothing yet. One block of 256
-// threads takes one cluster and up to 32 of its query rows. It streams the
-// slab through shared memory in [128 x 32] tiles (coalesced rows), and
-// each thread forms a 4 x 4 register tile of dot products with CUDA-core
-// FMAs. A warp owns 4 query rows and the 4 x 4 distances its lanes hold,
-// and merges each 128-slot tile into the row's running sorted k-list by k
-// warp-wide (min, lowest-slot argmin) passes, skipping a tile outright when
-// no value beats the current k-th. The slab is read once per 32 query rows.
-// Later work: wgmma products (bf16 and s8) fed by a TMA ring of slab tiles,
-// with the top-k epilogue overlapping the next tile's loads.
+// Two kernels, by operand type.
+//
+// bf16 x bf16 (the CNNS path), scan_mma_kernel. A block takes one cluster
+// and up to 32 of its query rows, so at cap <= 32 a slab is read once.
+//   * The query rows are gathered by pointer into shared memory (zero for
+//     pad slots and past d) and, when d <= 128, kept as mma A fragments in
+//     registers for the whole run.
+//   * The slab streams through a cp.async ring of [64 rows x 128 d] tiles
+//     (rows padded by 16 bytes so that ldmatrix reads hit distinct banks;
+//     16-byte copies when d % 8 == 0, else 8- or 4-byte ones, plain loads
+//     for odd d; the tail of d is zero-filled). When d <= 128 the ring
+//     has 2 stages and three blocks share an SM (~70 KB each), so ~52 KB
+//     of slab are in flight an SM and one block's products and staging
+//     run under the others' loads; above, 4 stages and one block.
+//   * Four product warps take 16 slab rows each: mma.sync m16n8k16 bf16
+//     -> f32 over the 32 query rows, f32 sums of exact products. For
+//     d > 128 the accumulators run over the d chunks of a tile (d = 960:
+//     8 chunks) with the query read from shared memory.
+//   * Top-k follows the survivors, not the tiles. The first tile has no
+//     bar yet, so the product warps sort its 64 keys a row themselves (a
+//     bitonic network in shared memory) and the k smallest become the
+//     row's 4-ary max-heap of (value, slot) keys. From then on, when a
+//     tile's distances are ready, only those below their row's current
+//     k-th, the heap's root (strict <: a tie with the k-th has a later
+//     slot and loses), are staged, and a fifth warp, one thread a query
+//     row, pushes them into the heap while the product warps go on with
+//     the next tile, which they stage into a second buffer: the two
+//     roles meet at one barrier a tile. The keys order by value, then
+//     slot, so neither the order in which a tile's survivors arrive nor
+//     a bar that is one tile old matters. A row sees ~k ln(maxc / 64)
+//     survivors after the first tile. At the end each heap is sorted
+//     into the output.
+//
+// The other three pairs (f32 x f32, which must stay exact FMAs; int8 x
+// int8; an int8 slab with a bf16 query), grouped_scan_kernel: one block of
+// 256 threads takes one cluster and up to 32 of its query rows, streams
+// the slab through shared memory in [128 x 32] tiles, and each thread
+// forms a 4 x 4 register tile of dot products with CUDA-core FMAs. A warp
+// owns 4 query rows and merges each 128-slot tile into the row's sorted
+// k-list by k warp-wide (min, lowest-slot argmin) passes, skipping a tile
+// when no value beats the current k-th. int8 x int8 on s8 tensor cores
+// and the int8-slab pair (upcast to bf16) on the kernel above are the
+// next steps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_helpers.cuh"
 
 namespace {
 
@@ -244,6 +280,408 @@ void launch(const void* qc, const void* qidx, const void* slabs,
       scale);
 }
 
+// ---- bf16 x bf16: mma.sync tensor cores -------------------------------------
+
+constexpr int kPT = 128;         // 4 product warps: 16 slab rows of a tile each
+constexpr int kHT = 32;          // 1 heap warp: one thread a query row
+constexpr int kTN = 64;          // slab rows per ring stage
+constexpr int kTD = 128;         // d elements per ring stage
+constexpr int kLdS = kTD + 8;    // padded shared-memory row (bf16)
+// Ring stages and blocks an SM. d <= 128: 2 stages and a small query tile
+// leave room for 3 blocks, whose phases (wait, products, staging) overlap
+// one another; that measured faster than 2 blocks of 4 stages. Above,
+// the query tile fills the SM's shared memory and the ring is all the
+// overlap there is.
+__host__ __device__ constexpr int ring_stages(bool a_reg) { return a_reg ? 2 : 4; }
+__host__ __device__ constexpr int blocks_per_sm(bool a_reg) { return a_reg ? 3 : 1; }
+// a stage: the slab tile and its f32 bias (in bf16 units)
+constexpr int kStageElems = kTN * kLdS + 2 * kTN;
+constexpr int kMaxChunks = 15;   // d <= 1920: the query tile must fit
+
+// Copy 8 bf16 of a row into shared memory; elements at n_valid and past
+// it (n_valid may be <= 0 or >= 8) become zero. kCB is the copy width in
+// bytes that the row starts allow: 16, 8 or 4 (cp.async), or 2 (plain
+// loads, for odd d).
+template <int kCB>
+__device__ __forceinline__ void copy8(__nv_bfloat16* dst,
+                                      const __nv_bfloat16* src, int n_valid,
+                                      const __nv_bfloat16* safe) {
+  if constexpr (kCB == 2) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      dst[u] = u < n_valid ? src[u] : __float2bfloat16(0.f);
+  } else {
+    constexpr int kE = kCB / 2;   // elements a copy
+#pragma unroll
+    for (int u = 0; u < 8; u += kE) {
+      const int nv = min(max(n_valid - u, 0), kE);
+      const void* from = nv > 0 ? src + u : safe;
+      if constexpr (kCB == 16) cp_async16(smem_addr(dst + u), from, nv * 2);
+      else if constexpr (kCB == 8) cp_async8(smem_addr(dst + u), from, nv * 2);
+      else cp_async4(smem_addr(dst + u), from, nv * 2);
+    }
+  }
+}
+
+__device__ __forceinline__ void product_warps_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kPT) : "memory");
+}
+__device__ __forceinline__ void scan_hand_over_sync() {
+  asm volatile("bar.sync 2, %0;\n" :: "n"(kPT + kHT) : "memory");
+}
+
+size_t scan_mma_smem_bytes(int n_dc, int k, int stages) {
+  return static_cast<size_t>(kRows) * (n_dc * kTD + 8) * 2   // query tile
+         + static_cast<size_t>(stages) * kStageElems * 2     // the ring
+         + static_cast<size_t>(kRows) * k * 8                // the heaps
+         + 2 * kTN * kRows * 5          // two candidate buffers: f32 + u8
+         + kRows * 12;                  // query rows, 2 x candidate counts
+}
+
+// kAReg: d <= 128, the query tile lives in registers as A fragments
+template <int kCB, bool kAReg>
+__global__ void __launch_bounds__(kPT + kHT, blocks_per_sm(kAReg))
+scan_mma_kernel(const __nv_bfloat16* __restrict__ qc,
+                const int* __restrict__ qidx,
+                const __nv_bfloat16* __restrict__ slabs,
+                const float* __restrict__ bias, float* __restrict__ vals,
+                int* __restrict__ idx, int cap, int qn, int d, int maxc,
+                int k, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kRing = ring_stages(kAReg);
+  const int n_dc = (d + kTD - 1) / kTD;
+  const int ldq = n_dc * kTD + 8;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = q_s + kRows * ldq;
+  Key* heap = reinterpret_cast<Key*>(ring + kRing * kStageElems);
+  // survivors of a tile, two buffers: value [2][kTN][kRows] f32 and slot
+  // within the tile [2][kTN][kRows] u8, counts [2][kRows]. Tile 0 sorts
+  // its keys in the same bytes, as [kRows][kTN] keys.
+  float* cand_v = reinterpret_cast<float*>(heap + kRows * k);
+  uint8_t* cand_s = reinterpret_cast<uint8_t*>(cand_v + 2 * kTN * kRows);
+  Key* cand = reinterpret_cast<Key*>(cand_v);
+  int* cand_n = reinterpret_cast<int*>(cand_s + 2 * kTN * kRows);
+  int* qrow_s = cand_n + 2 * kRows;   // the gathered query row, -1 for a pad
+
+  const int c = blockIdx.x;
+  const int r0 = blockIdx.y * kRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_tiles = (maxc + kTN - 1) / kTN;
+  const int q_valid = cap - r0;   // rows of this block that exist
+  const long long slab_row0 = static_cast<long long>(c) * maxc;
+
+  if (tid < kRows) {
+    int qi = -1;
+    if (tid < q_valid) qi = qidx[static_cast<long long>(c) * cap + r0 + tid];
+    qrow_s[tid] = (qi >= 0 && qi < qn) ? qi : -1;
+    cand_n[tid] = cand_n[kRows + tid] = 0;
+  }
+  __syncthreads();
+
+  // Two roles. The product warps sort the first tile themselves and leave
+  // each row's k best in its heap, which is full from then on (with +inf
+  // keys where the tile has fewer finite slots). For every later tile t
+  // the roles meet at one block barrier: the product warps have staged
+  // the tile's survivors into buffer t % 2, and the heap warp has pushed
+  // every tile before t. The heap warp then pushes tile t while the
+  // product warps go on with tile t + 1 and stage it into the other
+  // buffer. The product warps read the heaps' roots while the heap warp
+  // works: a root only falls, so a stale one lets more through, never
+  // less, and the heap compares whole keys.
+  if (warp >= kPT / 32) {
+    const int row = tid - kPT;
+    Key* h = heap + row;
+    scan_hand_over_sync();   // tile 0 is in the heaps
+    for (int t = 1; t < n_tiles; ++t) {
+      scan_hand_over_sync();
+      const int buf = t & 1;
+      const float* cv = cand_v + buf * kTN * kRows;
+      const uint8_t* cs = cand_s + buf * kTN * kRows;
+      const int n = cand_n[buf * kRows + row];
+      for (int u = 0; u < n; ++u) {
+        const Key x = make_key(cv[u * kRows + row],
+                               t * kTN + cs[u * kRows + row]);
+        if (x < h[0]) heap_sift<kRows>(h, k, k, x);
+      }
+      cand_n[buf * kRows + row] = 0;
+    }
+  } else {
+    const int wn = warp;   // slab rows wn * 16 .. + 15 of the tile
+    const int steps = n_tiles * n_dc;
+
+    // the query tile: row r, 8 elements from column 8 * piece
+    const int q_pieces = n_dc * (kTD / 8);
+    for (int i = tid; i < kRows * q_pieces; i += kPT) {
+      const int row = i / q_pieces, col = (i - row * q_pieces) * 8;
+      const int qi = qrow_s[row];
+      copy8<kCB>(q_s + row * ldq + col,
+                 qc + static_cast<long long>(qi < 0 ? 0 : qi) * d + col,
+                 qi < 0 ? 0 : d - col, qc);
+    }
+
+    // this thread's pieces of a slab tile: rows c_row + 8 p, columns c_col
+    // .. + 7 of the stage's d chunk
+    const int c_row = tid >> 4, c_col = (tid & 15) * 8;
+    int l_t = 0, l_dc = 0, l_stage = 0;   // the next step to load
+    auto issue = [&]() {
+      if (l_t < n_tiles) {
+        __nv_bfloat16* st = ring + l_stage * kStageElems;
+        const int m0 = l_t * kTN;
+        const int col = l_dc * kTD + c_col;
+#pragma unroll
+        for (int p = 0; p < kTN / 8; ++p) {
+          const int row = c_row + 8 * p;
+          const bool ok = m0 + row < maxc;
+          copy8<kCB>(st + row * kLdS + c_col,
+                     slabs + (slab_row0 + (ok ? m0 + row : 0)) * d + col,
+                     ok ? d - col : 0, slabs);
+        }
+        if (l_dc == n_dc - 1 && tid < kTN) {   // the tile's bias, 0 past maxc
+          const bool ok = m0 + tid < maxc;
+          cp_async4(smem_addr(st + kTN * kLdS) + tid * 4,
+                    ok ? bias + slab_row0 + m0 + tid : bias, ok ? 4 : 0);
+        }
+        if (++l_dc == n_dc) {
+          l_dc = 0;
+          ++l_t;
+        }
+        l_stage = l_stage == kRing - 1 ? 0 : l_stage + 1;
+      }
+      cp_async_commit();
+    };
+#pragma unroll
+    for (int s = 0; s < kRing - 1; ++s) issue();
+
+    float acc[2][2][4];
+    uint32_t af[kAReg ? 8 : 1][2][4];   // the resident query
+    // ldmatrix lane offsets: A rows lane % 16, columns (lane / 16) * 8;
+    // B rows (lane / 16) * 8 + lane % 8, columns ((lane / 8) % 2) * 8
+    const uint32_t a_base = smem_addr(q_s + (lane & 15) * ldq
+                                      + (lane >> 4) * 8);
+    const int b_off = (wn * 16 + ((lane >> 4) << 3) + (lane & 7)) * kLdS
+                      + ((lane >> 3) & 1) * 8;
+    const int d16 = (d + 15) / 16;   // k-steps in all of d
+
+    int t = 0, dc = 0, stage = 0;
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kRing - 2>();
+      product_warps_sync();
+      issue();
+
+      const __nv_bfloat16* st = ring + stage * kStageElems;
+      const uint32_t b_base = smem_addr(st + b_off);
+      if (dc == 0) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+      }
+      const int ksteps = min(kTD / 16, d16 - dc * (kTD / 16));
+      if constexpr (kAReg) {
+        if (s == 0) {   // the query tile landed with the first stage
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              ldmatrix_x4(af[kk][mi], a_base + (mi * 16 * ldq + kk * 16) * 2);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          if (kk < ksteps) {
+            uint32_t b[4];
+            ldmatrix_x4(b, b_base + kk * 32);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16(acc[mi][0], af[kk][mi], b[0], b[1]);
+              mma_bf16(acc[mi][1], af[kk][mi], b[2], b[3]);
+            }
+          }
+        }
+      } else {
+#pragma unroll 2
+        for (int kk = 0; kk < ksteps; ++kk) {
+          uint32_t a[2][4], b[4];
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            ldmatrix_x4(a[mi], a_base + (mi * 16 * ldq + dc * kTD + kk * 16)
+                                            * 2);
+          ldmatrix_x4(b, b_base + kk * 32);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][0], a[mi], b[0], b[1]);
+            mma_bf16(acc[mi][1], a[mi], b[2], b[3]);
+          }
+        }
+      }
+
+      if (dc == n_dc - 1) {
+        // The tile's distances. Accumulator entry j of tile (mi, ni) is
+        // query row mi * 16 + (j / 2) * 8 + lane / 4 and slab row ni * 8 +
+        // (lane % 4) * 2 + j % 2 of the warp's 16. One fma: the plain
+        // version's bias - scale * dot whenever scale is a power of two
+        // (l2: 2, ip: 1), where the product is exact.
+        const float* bias_s = reinterpret_cast<const float*>(st + kTN * kLdS);
+        const int m0 = t * kTN;
+        float fb[2][2];
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int bt = wn * 16 + ni * 8 + (lane & 3) * 2 + h;
+            fb[ni][h] = m0 + bt < maxc ? bias_s[bt] : INFINITY;
+          }
+        if (t == 0) {
+          // The first tile has no bar yet and every slot would be a
+          // survivor: sort each row's 64 keys here, in parallel (a bitonic
+          // network in shared memory, cand as [kRows][kTN]), and make the k
+          // smallest the row's heap. In descending order they are a heap.
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int row = mi * 16 + hr * 8 + (lane >> 2);
+#pragma unroll
+              for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int bt = wn * 16 + ni * 8 + (lane & 3) * 2 + h;
+                  cand[row * kTN + bt] = make_key(
+                      fmaf(-scale, acc[mi][ni][hr * 2 + h], fb[ni][h]), bt);
+                }
+            }
+          product_warps_sync();
+          for (int span = 2; span <= kTN; span <<= 1)
+            for (int j = span >> 1; j > 0; j >>= 1) {
+              for (int p = tid; p < kRows * (kTN / 2); p += kPT) {
+                const int row = p / (kTN / 2), q = p % (kTN / 2);
+                const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+                Key* at = cand + row * kTN;
+                const Key lo = at[i], hi = at[i | j];
+                if ((lo > hi) == ((i & span) == 0)) {
+                  at[i] = hi;
+                  at[i | j] = lo;
+                }
+              }
+              product_warps_sync();
+            }
+          for (int p = tid; p < kRows * k; p += kPT) {
+            const int row = p / k, j = p - row * k;
+            heap[(k - 1 - j) * kRows + row] = cand[row * kTN + j];
+          }
+          scan_hand_over_sync();   // tile 0 is in the heaps
+        } else {
+          float* cv = cand_v + (t & 1) * kTN * kRows;
+          uint8_t* cs = cand_s + (t & 1) * kTN * kRows;
+          int* cn = cand_n + (t & 1) * kRows;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int row = mi * 16 + hr * 8 + (lane >> 2);
+              // the bar: the k-th, the heap's root; rows past cap take
+              // nothing
+              const float kth =
+                  row >= q_valid
+                      ? -INFINITY
+                      : key_value(*reinterpret_cast<volatile Key*>(heap + row));
+              float dist[2][2];
+              unsigned take = 0;
+#pragma unroll
+              for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  dist[ni][h] = fmaf(-scale, acc[mi][ni][hr * 2 + h],
+                                     fb[ni][h]);
+                  take |= static_cast<unsigned>(dist[ni][h] < kth)
+                          << (ni * 2 + h);
+                }
+              int slot = take ? atomicAdd(&cn[row], __popc(take)) : 0;
+#pragma unroll
+              for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  if (take >> (ni * 2 + h) & 1) {
+                    cv[slot * kRows + row] = dist[ni][h];
+                    cs[slot * kRows + row] = static_cast<uint8_t>(
+                        wn * 16 + ni * 8 + (lane & 3) * 2 + h);
+                    ++slot;
+                  }
+            }
+          scan_hand_over_sync();
+        }
+      }
+      if (++dc == n_dc) {
+        dc = 0;
+        ++t;
+      }
+      stage = stage == kRing - 1 ? 0 : stage + 1;
+    }
+    cp_async_wait<0>();
+  }
+  __syncthreads();   // the last tile is in the heaps
+
+  // heap sort each row into ascending (value, slot) order
+  if (tid >= kPT) {
+    const int row = tid - kPT;
+    Key* h = heap + row;
+    for (int size = k; size > 1; --size) {
+      const Key top = h[0];
+      heap_sift<kRows>(h, size - 1, k, h[(size - 1) * kRows]);
+      h[(size - 1) * kRows] = top;
+    }
+  }
+  __syncthreads();
+
+  // a slot past maxc or with a +inf bias scores +inf: it comes out as
+  // (+inf, 0), as a row with fewer than k finite slots has it
+  for (int i = tid; i < kRows * k; i += kPT + kHT) {
+    const int row = i / k, j = i - row * k;
+    if (row >= q_valid) continue;
+    const Key key = heap[j * kRows + row];
+    const float v = key_value(key);
+    const long long o = (static_cast<long long>(c) * cap + r0 + row) * k + j;
+    vals[o] = v;
+    idx[o] = v == INFINITY ? 0 : static_cast<int>(key & 0xffffffffu);
+  }
+}
+
+template <int kCB, bool kAReg>
+int launch_mma(const void* qc, const void* qidx, const void* slabs,
+               const void* bias, void* vals, void* idx, int n_clusters,
+               int cap, int qn, int d, int maxc, int k, float scale,
+               cudaStream_t st) {
+  const size_t smem = scan_mma_smem_bytes((d + kTD - 1) / kTD, k,
+                                          ring_stages(kAReg));
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_mma_kernel<kCB, kAReg>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(n_clusters, (cap + kRows - 1) / kRows);
+  scan_mma_kernel<kCB, kAReg><<<grid, kPT + kHT, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(qc), static_cast<const int*>(qidx),
+      static_cast<const __nv_bfloat16*>(slabs),
+      static_cast<const float*>(bias), static_cast<float*>(vals),
+      static_cast<int*>(idx), cap, qn, d, maxc, k, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kCB>
+int launch_mma_d(const void* qc, const void* qidx, const void* slabs,
+                 const void* bias, void* vals, void* idx, int n_clusters,
+                 int cap, int qn, int d, int maxc, int k, float scale,
+                 cudaStream_t st) {
+  return d <= kTD ? launch_mma<kCB, true>(qc, qidx, slabs, bias, vals, idx,
+                                          n_clusters, cap, qn, d, maxc, k,
+                                          scale, st)
+                  : launch_mma<kCB, false>(qc, qidx, slabs, bias, vals, idx,
+                                           n_clusters, cap, qn, d, maxc, k,
+                                           scale, st);
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers;
@@ -262,10 +700,25 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
   if (q_dtype == kF32 && s_dtype == kF32)
     launch<float, float, float>(qc, qidx, slabs, bias, vals, idx, n_clusters,
                                 cap, qn, d, maxc, k, scale, st);
-  else if (q_dtype == kBF16 && s_dtype == kBF16)
-    launch<__nv_bfloat16, __nv_bfloat16, float>(qc, qidx, slabs, bias, vals,
-                                                idx, n_clusters, cap, qn, d,
-                                                maxc, k, scale, st);
+  else if (q_dtype == kBF16 && s_dtype == kBF16) {
+    if ((d + kTD - 1) / kTD > kMaxChunks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the widest copy that every row start of qc and slabs allows
+    const uintptr_t at = reinterpret_cast<uintptr_t>(qc) |
+                         reinterpret_cast<uintptr_t>(slabs) |
+                         static_cast<uintptr_t>(d) * 2;
+    if (at % 16 == 0)
+      return launch_mma_d<16>(qc, qidx, slabs, bias, vals, idx, n_clusters,
+                              cap, qn, d, maxc, k, scale, st);
+    if (at % 8 == 0)
+      return launch_mma_d<8>(qc, qidx, slabs, bias, vals, idx, n_clusters,
+                             cap, qn, d, maxc, k, scale, st);
+    if (at % 4 == 0)
+      return launch_mma_d<4>(qc, qidx, slabs, bias, vals, idx, n_clusters,
+                             cap, qn, d, maxc, k, scale, st);
+    return launch_mma_d<2>(qc, qidx, slabs, bias, vals, idx, n_clusters, cap,
+                           qn, d, maxc, k, scale, st);
+  }
   else if (q_dtype == kI8 && s_dtype == kI8)
     launch<int8_t, int8_t, int>(qc, qidx, slabs, bias, vals, idx, n_clusters,
                                 cap, qn, d, maxc, k, scale, st);

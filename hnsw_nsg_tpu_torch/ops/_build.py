@@ -2,8 +2,9 @@
 
 The sources under ``hnsw_nsg_tpu_torch/csrc/`` are compiled with ``nvcc``
 at first use into ``hnsw_nsg_tpu_torch/_build/``, one shared library
-named by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. Each source compiles in its own
+named by a hash of the sources, the headers they share (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds and an unchanged
+tree loads at once. Each source compiles in its own
 ``nvcc`` process, all started together, and one more links them. Nothing
 here runs at import time.
 """
@@ -50,7 +51,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in _sources():
+    for s in [*_sources(), *sorted(SRC_DIR.glob("*.cuh"))]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libhnsw_nsg_kernels_{h.hexdigest()[:16]}.so"
@@ -107,6 +108,8 @@ def load_library() -> ctypes.CDLL:
         ci, ci, ci, ci, vp,              # Q, L, C, expand, stream
     ]
     lib.merge_select.restype = ci
+    lib.merge_select_occupancy.argtypes = [ci, ci]      # L, C
+    lib.merge_select_occupancy.restype = ci
     lib.cluster_join.argtypes = [
         vp, vp, vp, vp, vp,              # qv, stacks, bias, vals, idx
         ci, ci, ci, ci, ci, ci,          # C, maxc, d, mm, k, group

@@ -9,8 +9,10 @@
 including the tie order (retset before candidates, then position), the
 PAD_DIST/PAD_ID handling and PAD_ID in invalid select slots. CPU tensors
 take that composition (``merge_select_reference``); CUDA tensors launch
-the hand-written kernel ``csrc/merge_select.cu``, or the wrapper raises.
-``launches`` counts kernel launches.
+the hand-written kernel ``csrc/merge_select.cu`` (a warp per query: the
+retset ids in a shared-memory hash table, a rank sort of the candidates,
+a merge path), or the wrapper raises. ``launches`` counts kernel launches
+and ``launches_by_shape`` splits the same count by (Q, L, C, expand).
 
 Not carried over from the TPU wrapper, none of which changes a result:
 the power-of-two padding of L + C and the 16-bit position/expanded
@@ -21,6 +23,8 @@ last block).
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from .cluster_scan import _on_cpu
@@ -28,6 +32,8 @@ from .topk import merge_into_retset
 
 # kernel launches made by fused_merge_select (CUDA tensors only)
 launches = 0
+launches_by_shape: Counter = Counter()   # (Q, L, C, expand) -> launches
+MAX_L, MAX_C = 2048, 1024                # the kernel's retset, candidates
 
 
 def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -54,6 +60,9 @@ def _check(r_d, r_i, r_e, c_d, c_i, expand: int):
         raise ValueError("c_d, c_i must share one [Q, C] shape")
     if not 1 <= expand <= l:
         raise ValueError(f"expand={expand} outside [1, L={l}]")
+    if l > MAX_L or c_d.shape[1] > MAX_C:
+        raise ValueError(f"L={l}, C={c_d.shape[1]} above the kernel's "
+                         f"{MAX_L}, {MAX_C}")
 
 
 def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -79,7 +88,20 @@ def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
     if rc != 0:
         raise RuntimeError(f"merge_select kernel launch failed: CUDA error {rc}")
     launches += 1
+    launches_by_shape[(q, l, c_d.shape[1], expand)] += 1
     return o_d, o_i, o_e, sel_i, sel_v
+
+
+def occupancy(l: int, c: int) -> int:
+    """Queries (warps) that one SM holds at once for retset width ``l`` and
+    ``c`` candidates, as the CUDA runtime reports it for the kernel's
+    launch. Needs the card."""
+    from ._build import load_library
+
+    warps = load_library().merge_select_occupancy(l, c)
+    if warps < 0:
+        raise RuntimeError(f"merge_select occupancy query failed ({warps})")
+    return warps
 
 
 def fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand: int):

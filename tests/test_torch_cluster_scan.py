@@ -133,6 +133,33 @@ def test_pregathered_plain_matches_pallas(qd, sd, metric):
              _full(qc, qidx, slabs, bias, scale))
 
 
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qd,sd", [("bf16", "bf16"), ("f32", "f32")])
+def test_main_path_call_matches_pallas(qd, sd, metric):
+    """The CNNS search's own call: k = 20 (2k of a replicated index),
+    cap = 32, with a cluster that has fewer live rows than k, an all-pad
+    cluster and a query list that is all pad. vals allclose (f32 sums in
+    another order: rtol 1e-5, atol 1e-4); ids equal in f32, a tie within
+    that tolerance in bf16; +inf past a cluster's live rows."""
+    qc, qidx, slabs, bias, scale = _case(20, qd, sd, metric, c=5, cap=32,
+                                         maxc=64, d=32, qn=90)
+    bias[1, 7:] = np.inf                      # 7 live rows < k
+    qidx[2, :] = -1                           # a query list that is all pad
+    want = jps.grouped_cluster_topk_gq(
+        _to_j(qc, qd), jnp.asarray(qidx), _to_j(slabs, sd),
+        jnp.asarray(bias), 20, scale, interpret=True)
+    got = cs.grouped_cluster_topk_gq(
+        _to_t(qc, qd), torch.from_numpy(qidx), _to_t(slabs, sd),
+        torch.from_numpy(bias), 20, scale)
+    _compare(got, want, qidx, "bf16" in (qd, sd),
+             _full(qc, qidx, slabs, bias, scale))
+    n_live = int(np.isfinite(bias[1]).sum())
+    assert 0 < n_live <= 7
+    rows = got[0].numpy()[1][qidx[1] >= 0]
+    assert np.isinf(rows[:, n_live:]).all()
+    assert np.isfinite(rows[:, :n_live]).all()
+
+
 def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
     qc, qidx, slabs, bias, scale = _case(13, "f32", "f32", "l2")
     args = (torch.from_numpy(qc), torch.from_numpy(qidx),

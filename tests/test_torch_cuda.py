@@ -23,7 +23,8 @@ from hnsw_nsg_tpu_torch.ops import merge_select as ms  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
 from hnsw_nsg_tpu_torch.ops.topk import init_retset  # noqa: E402
 from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig  # noqa: E402,E501
-from hnsw_nsg_tpu_torch.utils.synth import make_data  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.synth import (  # noqa: E402
+    MERGE_STATE_KINDS, adversarial_merge_state, make_data)
 
 PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
          (torch.int8, torch.int8), (torch.bfloat16, torch.int8)]
@@ -90,6 +91,70 @@ def test_kernel_matches_plain_version(card, qdt, sdt, shape, metric):
         cs._gather_queries(qc, qidx), slabs)
     own = torch.gather(full, 2, ki.long())
     torch.testing.assert_close(own[fin], rv[fin], **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,sdt", PAIRS)
+@pytest.mark.parametrize("name,c,cap,maxc,d,qn,k", [
+    ("main path", 6, 32, 300, 128, 200, 20),   # k = 2k of a replicated index
+    ("cap > 32", 4, 80, 200, 64, 300, 32),     # several row blocks a cluster
+    ("d = 100", 4, 32, 150, 100, 100, 10),     # rows not 16-byte aligned
+    ("odd d", 3, 20, 130, 37, 60, 5),          # plain-load copies
+    ("d = 200", 3, 32, 140, 200, 80, 10),      # two d chunks, 8-byte rows
+])
+def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
+    """The shapes the bf16 tensor-core kernel treats apart (and the same
+    for the other pairs, on the CUDA-core kernel), with a cluster that has
+    fewer live rows than k, an all-pad cluster and an all-pad query list.
+    vals within f32 summation order (rtol 1e-5, atol 1e-3; exact for
+    int8 x int8; atol 0.5 at an int8 slab's |bias| ~ 7e5); a returned
+    slot that differs from the plain version's scores its value."""
+    qc, qidx, slabs, bias, scale = _case(c * 100 + d, qdt, sdt, "l2", c,
+                                         cap, maxc, d, qn)
+    bias[1, 7:] = float("inf")                 # 7 live rows < k (k >= 10)
+    qidx[0, :] = -1
+    args = [t.to(card) for t in (qc, qidx, slabs, bias)]
+    kv, ki = cs.grouped_cluster_topk_gq(*args, k, scale)
+    torch.cuda.synchronize()
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                  scale)
+    kv, ki = kv.cpu(), ki.cpu()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    fin = live & torch.isfinite(rv)
+    assert torch.equal(torch.isinf(kv[live]), torch.isinf(rv[live]))
+    exact = qdt == sdt == torch.int8
+    tol = dict(rtol=0.0, atol=0.0) if exact else dict(rtol=1e-5, atol=1e-3)
+    if sdt == torch.int8 and not exact:
+        tol["atol"] = 0.5
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    own = torch.gather(full, 2, ki.long())
+    torch.testing.assert_close(own[fin], rv[fin], **tol)
+    if exact:
+        assert torch.equal(ki[fin], ri[fin])
+    else:
+        assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_scan_kernel_unaligned_bf16_views(card):
+    """bf16 tensors that start 2 bytes off a 16-byte boundary take the
+    narrow-copy path and give the same result."""
+    qc, qidx, slabs, bias, scale = _case(31, torch.bfloat16, torch.bfloat16,
+                                         "l2", 4, 32, 100, 64, 70)
+    dev = [t.to(card) for t in (qc, qidx, slabs, bias)]
+    want = cs.grouped_cluster_topk_gq(*dev, 10, scale)
+    off = []
+    for t in (dev[0], dev[2]):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        off.append(view)
+    got = cs.grouped_cluster_topk_gq(off[0], dev[1], off[1], dev[3], 10,
+                                     scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
@@ -191,6 +256,42 @@ def test_merge_select_kernel_bit_identical(card, q, l, c, expand):
     got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
     torch.cuda.synchronize()
     assert ms.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,c,expand", [
+    (40, 50, 1), (100, 50, 4), (500, 50, 1), (500, 120, 4), (40, 120, 4),
+    (100, 120, 1), (102, 50, 2)])               # 102: the unaligned-row path
+@pytest.mark.parametrize("kind", MERGE_STATE_KINDS)
+def test_merge_select_kernel_adversarial_states(card, kind, l, c, expand):
+    """States that a hash table can get wrong (colliding ids, id 0, ids
+    near 2**31 - 1, all candidates one retset id or one new id, an all-PAD
+    retset): the kernel equals the plain version on all five outputs."""
+    state = [torch.from_numpy(a) for a in adversarial_merge_state(
+        kind, l * 7 + c + expand, 37, l, c)]
+    want = ms.merge_select_reference(*state, expand)
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_merge_select_kernel_unaligned_views(card):
+    """Rows that do not start on 16 bytes (a slice of a larger buffer made
+    contiguous at an odd offset) take the scalar path and stay exact."""
+    state = _merge_state(5, 33, 100, 50)
+    want = ms.merge_select_reference(*state, 2)
+    dev = []
+    for t in state:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        dev.append(view)
+    got = ms.fused_merge_select(*dev, 2)
+    torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 

@@ -16,6 +16,8 @@ from hnsw_nsg_tpu.ops import topk as jtopk  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import merge_select as tms  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import topk as ttopk  # noqa: E402
 from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST, PAD_ID  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.synth import (  # noqa: E402
+    MERGE_STATE_KINDS, adversarial_merge_state)
 
 NAMES = ("dists", "ids", "expanded", "sel_ids", "sel_valid")
 
@@ -63,6 +65,24 @@ def test_plain_version_bit_identical_to_jax(l, c, expand):
     before = tms.launches
     _assert_identical(*_both(state, expand))
     assert tms.launches == before        # CPU tensors never launch
+
+
+@pytest.mark.parametrize("expand", [1, 4])
+@pytest.mark.parametrize("c", [50, 120])
+@pytest.mark.parametrize("l", [40, 100, 500])
+@pytest.mark.parametrize("kind", MERGE_STATE_KINDS)
+def test_adversarial_states_bit_identical_to_jax(kind, l, c, expand):
+    """States that a hash- or filter-based membership test can get wrong
+    (ids that collide modulo 1024 and 2048, id 0 and ids near 2**31 - 1,
+    candidates that all repeat a retset id or one new id, an all-PAD
+    retset): the port on the CPU equals JAX's merge_select_reference on
+    all five outputs. The card tests run the same states kernel vs plain."""
+    state = adversarial_merge_state(kind, l * 7 + c + expand, 5, l, c)
+    want = jms.merge_select_reference(*(jnp.asarray(a) for a in state),
+                                      expand)
+    got = tms.fused_merge_select(*(torch.from_numpy(a) for a in state),
+                                 expand)
+    _assert_identical(got, want)
 
 
 def test_all_pad_candidates_noop():
