@@ -210,7 +210,7 @@ def phase_kernels(gen):
          1e-5, 5e-3),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
-        # rows that start off 16 bytes (8-byte copies), d padded to 112
+        # rows that start off 16 bytes (plain loads), d padded to 112
         ("d=100 bf16 l2", 256, 1000, 100, 32, 2048, bf, bf, "l2", 10,
          1e-5, 1e-3),
     ]
@@ -796,8 +796,10 @@ def main() -> int:
 
     # no single PyTorch call computes any of the three functions, so none
     # has a library time; the grouped scan's times are at the call the
-    # main path makes (k = 20)
-    ms_ms, ms_plain, ms_bound, ms_by = ms_times["search shape"]
+    # main path makes (k = 20), merge+select's at the NSG build's collect
+    # pool (L = 500), the launched shape with the largest launches x
+    # (time - bound)
+    ms_ms, ms_plain, ms_bound, ms_by = ms_times["collect pool"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,

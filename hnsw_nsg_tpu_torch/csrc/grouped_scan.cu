@@ -33,8 +33,8 @@
 //     registers for the whole run.
 //   * The slab streams through a cp.async ring of [64 rows x 128 d] tiles
 //     (rows padded by 16 bytes so that ldmatrix reads hit distinct banks;
-//     16-byte copies when d % 8 == 0, else 8- or 4-byte ones, plain loads
-//     for odd d; the tail of d is zero-filled). When d <= 128 the ring
+//     16-byte copies when every row starts on 16 bytes, d % 8 == 0, else
+//     plain loads and stores; the tail of d is zero-filled). When d <= 128 the ring
 //     has 2 stages and three blocks share an SM (~70 KB each), so ~52 KB
 //     of slab are in flight an SM and one block's products and staging
 //     run under the others' loads; above, 4 stages and one block.
@@ -300,8 +300,7 @@ constexpr int kMaxChunks = 15;   // d <= 1920: the query tile must fit
 
 // Copy 8 bf16 of a row into shared memory; elements at n_valid and past
 // it (n_valid may be <= 0 or >= 8) become zero. kCB is the copy width in
-// bytes that the row starts allow: 16, 8 or 4 (cp.async), or 2 (plain
-// loads, for odd d).
+// bytes that the row starts allow: 16 (cp.async) or 2 (plain loads).
 template <int kCB>
 __device__ __forceinline__ void copy8(__nv_bfloat16* dst,
                                       const __nv_bfloat16* src, int n_valid,
@@ -311,15 +310,9 @@ __device__ __forceinline__ void copy8(__nv_bfloat16* dst,
     for (int u = 0; u < 8; ++u)
       dst[u] = u < n_valid ? src[u] : __float2bfloat16(0.f);
   } else {
-    constexpr int kE = kCB / 2;   // elements a copy
-#pragma unroll
-    for (int u = 0; u < 8; u += kE) {
-      const int nv = min(max(n_valid - u, 0), kE);
-      const void* from = nv > 0 ? src + u : safe;
-      if constexpr (kCB == 16) cp_async16(smem_addr(dst + u), from, nv * 2);
-      else if constexpr (kCB == 8) cp_async8(smem_addr(dst + u), from, nv * 2);
-      else cp_async4(smem_addr(dst + u), from, nv * 2);
-    }
+    static_assert(kCB == 16, "copy widths: 16 or 2 bytes");
+    const int nv = min(max(n_valid, 0), 8);
+    cp_async16(smem_addr(dst), nv > 0 ? src : safe, nv * 2);
   }
 }
 
@@ -703,19 +696,13 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
   else if (q_dtype == kBF16 && s_dtype == kBF16) {
     if ((d + kTD - 1) / kTD > kMaxChunks)
       return static_cast<int>(cudaErrorInvalidValue);
-    // the widest copy that every row start of qc and slabs allows
+    // 16-byte copies where every row start of qc and slabs allows them
     const uintptr_t at = reinterpret_cast<uintptr_t>(qc) |
                          reinterpret_cast<uintptr_t>(slabs) |
                          static_cast<uintptr_t>(d) * 2;
     if (at % 16 == 0)
       return launch_mma_d<16>(qc, qidx, slabs, bias, vals, idx, n_clusters,
                               cap, qn, d, maxc, k, scale, st);
-    if (at % 8 == 0)
-      return launch_mma_d<8>(qc, qidx, slabs, bias, vals, idx, n_clusters,
-                             cap, qn, d, maxc, k, scale, st);
-    if (at % 4 == 0)
-      return launch_mma_d<4>(qc, qidx, slabs, bias, vals, idx, n_clusters,
-                             cap, qn, d, maxc, k, scale, st);
     return launch_mma_d<2>(qc, qidx, slabs, bias, vals, idx, n_clusters, cap,
                            qn, d, maxc, k, scale, st);
   }

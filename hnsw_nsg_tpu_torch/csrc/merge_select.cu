@@ -30,7 +30,9 @@
 // retset is already sorted, so one warp per query orders only the
 // candidates it keeps and merges:
 //   * the lanes hold the retset ids in registers, slot lane + 32 k in
-//     register k (the kernel is compiled for 2, 4, .. 64 slots a lane),
+//     register k (the kernel is compiled for 2, 4, 8 and 16 slots a
+//     lane, so L <= 512: the widest retset a ported path uses is the
+//     NSG build's pool of 500),
 //     and the expanded flags as one bit mask; only the dists go to
 //     shared memory;
 //   * membership, 32 candidates a round: each candidate id is read by
@@ -66,7 +68,7 @@
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor reports them through
 // merge_select_occupancy: 40 at L = 500 (48 registers; the first design
 // held 20), so the collect pool's 4096 queries are one wave, and 48 at
-// L = 100 and L = 40 (40 registers). nvcc -Xptxas -v shows at most 40
+// L = 100 and L = 40 (40 registers). nvcc -Xptxas -v shows at most 32
 // bytes of spill in any instantiation.
 
 #include <cuda_runtime.h>
@@ -78,7 +80,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kPadDist = 3.4e37f;  // ops/distance.py PAD_DIST
 constexpr int kPadId = -1;           // ops/distance.py PAD_ID
 constexpr int kWarps = 8;            // queries (warps) per block
-constexpr int kMaxL = 2048;          // 64 retset slots a lane
+constexpr int kMaxL = 512;           // 16 retset slots a lane
 constexpr int kMaxC = 1024;
 constexpr int kSmallSmem = 48 * 1024;
 
@@ -101,7 +103,7 @@ __device__ __forceinline__ int floor_pow2(int n) {
 // blocks an SM should hold, which sets the register cap: the lanes keep
 // kNR retset ids each
 constexpr int min_blocks(int nr) {
-  return nr <= 8 ? 6 : nr <= 16 ? 5 : nr <= 32 ? 3 : 2;
+  return nr <= 8 ? 6 : 5;
 }
 
 // kNR: retset slots a lane, >= ceil(l / 32). kVec: l % 4 == 0 and the
@@ -138,6 +140,8 @@ merge_select_kernel(
     md[j] = c_d[cq + j];
   }
   int rid[kNR];
+  // (64 bits though kNR <= 16: with a 32-bit mask the 16-slot build
+  // spills more and measured 38 us against 33 at Q = 4096, L = 500)
   unsigned long long expanded = 0;
 #pragma unroll
   for (int k = 0; k < kNR; ++k) {
@@ -197,7 +201,6 @@ merge_select_kernel(
   }
 
   // 3. the listed candidates: rank by (dist, position), then the merged
-  // slot
   // slot. A lane takes candidates j and j + 32 together, so that their
   // reads overlap.
   const int l_top = floor_pow2(l), n_top = floor_pow2(n);
@@ -328,12 +331,10 @@ Kernel pick_vec(bool vec) {
 // the instantiation whose lanes hold ceil(l / 32) retset slots or more
 Kernel pick(int l, bool vec) {
   const int nr = (l + 31) / 32;
-  return nr <= 2    ? pick_vec<2>(vec)
-         : nr <= 4  ? pick_vec<4>(vec)
-         : nr <= 8  ? pick_vec<8>(vec)
-         : nr <= 16 ? pick_vec<16>(vec)
-         : nr <= 32 ? pick_vec<32>(vec)
-                    : pick_vec<64>(vec);
+  return nr <= 2   ? pick_vec<2>(vec)
+         : nr <= 4 ? pick_vec<4>(vec)
+         : nr <= 8 ? pick_vec<8>(vec)
+                   : pick_vec<16>(vec);
 }
 
 cudaError_t allow(Kernel kernel, int bytes) {
@@ -347,7 +348,7 @@ cudaError_t allow(Kernel kernel, int bytes) {
 // Plain C entry point (loaded with ctypes). Pointers are device pointers:
 // r_d f32, r_i i32, r_e bool (1 byte) [Q, L]; c_d f32, c_i i32 [Q, C];
 // outputs o_d/o_i/o_e [Q, L] and sel_i i32 / sel_v bool [Q, expand],
-// allocated by the caller. L <= 2048, C <= 1024. Launches on `stream`
+// allocated by the caller. L <= 512, C <= 1024. Launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" int merge_select(const void* r_d, const void* r_i, const void* r_e,
                             const void* c_d, const void* c_i, void* o_d,

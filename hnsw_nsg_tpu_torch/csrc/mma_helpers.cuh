@@ -29,16 +29,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-, 8- and 4-byte async copies; the bytes past src_bytes (0: all of
+// 16- and 4-byte async copies; the bytes past src_bytes (0: all of
 // them) are filled with zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,

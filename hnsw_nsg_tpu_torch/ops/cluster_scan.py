@@ -18,6 +18,9 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. ``launches`` counts kernel launches.
+The kernel takes k <= ``MAX_K`` = 32 and, for bf16 x bf16 (its
+tensor-core path keeps the 32 query rows of a block in shared memory),
+d <= ``MAX_D_BF16`` = 1920; the JAX functions have neither limit.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
@@ -49,6 +52,7 @@ _PAIRS = {
     (torch.bfloat16, torch.int8),
 }
 MAX_K = 32
+MAX_D_BF16 = 1920   # bf16 x bf16 on the card
 
 
 def _check(qc, qidx, slabs, bias, k):
@@ -94,6 +98,8 @@ def _launch(qc, qidx, slabs, bias, k: int, scale: float):
     c, cap = qidx.shape
     qn, d = qc.shape
     maxc = slabs.shape[1]
+    if qc.dtype == slabs.dtype == torch.bfloat16 and d > MAX_D_BF16:
+        raise ValueError(f"d={d} above the bf16 kernel's {MAX_D_BF16}")
     vals = torch.empty((c, cap, k), dtype=torch.float32, device=qc.device)
     idx = torch.empty((c, cap, k), dtype=torch.int32, device=qc.device)
     if c == 0 or cap == 0 or qn == 0:
@@ -172,7 +178,8 @@ def grouped_cluster_topk_reference(qv, slabs, bias, k: int, scale: float):
 def grouped_cluster_topk_gq(qc, qidx, slabs, bias, k: int, scale: float):
     """qc [qn, d], qidx [C, cap] (-1 pad), slabs [C, maxc, d], bias [C, maxc]
     f32 (+inf on pad slots) -> (vals, idx) [C, cap, k]. Rows with qidx < 0
-    carry unspecified results the caller must mask."""
+    carry unspecified results the caller must mask. On the card k <= 32,
+    and d <= 1920 for bf16 x bf16."""
     if _on_cpu(qc, qidx, slabs, bias):
         return grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                  scale)

@@ -10,9 +10,13 @@ including the tie order (retset before candidates, then position), the
 PAD_DIST/PAD_ID handling and PAD_ID in invalid select slots. CPU tensors
 take that composition (``merge_select_reference``); CUDA tensors launch
 the hand-written kernel ``csrc/merge_select.cu`` (a warp per query: the
-retset ids in a shared-memory hash table, a rank sort of the candidates,
-a merge path), or the wrapper raises. ``launches`` counts kernel launches
-and ``launches_by_shape`` splits the same count by (Q, L, C, expand).
+retset ids in the lanes' registers, every candidate broadcast and
+compared with them, a rank sort of the kept candidates, a merge path), or
+the wrapper raises. ``launches`` counts kernel launches and
+``launches_by_shape`` splits the same count by (Q, L, C, expand). The
+kernel takes L <= ``MAX_L`` = 512 (16 retset ids a lane; the widest
+retset of a ported path is the NSG build's pool of 500) and
+C <= ``MAX_C`` = 1024; the JAX function has neither limit.
 
 Not carried over from the TPU wrapper, none of which changes a result:
 the power-of-two padding of L + C and the 16-bit position/expanded
@@ -33,7 +37,7 @@ from .topk import merge_into_retset
 # kernel launches made by fused_merge_select (CUDA tensors only)
 launches = 0
 launches_by_shape: Counter = Counter()   # (Q, L, C, expand) -> launches
-MAX_L, MAX_C = 2048, 1024                # the kernel's retset, candidates
+MAX_L, MAX_C = 512, 1024                 # the kernel's retset, candidates
 
 
 def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -109,7 +113,8 @@ def fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand: int):
 
     r_d/r_i/r_e: [Q, L] retset (f32 ascending, int32 PAD-padded, bool
     expanded). c_d/c_i: [Q, C] candidates (PAD_ID and duplicates allowed).
-    Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand])."""
+    Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand]).
+    On the card L <= 512 and C <= 1024, else ValueError."""
     if _on_cpu(r_d, r_i, r_e, c_d, c_i):
         return merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand)
     _check(r_d, r_i, r_e, c_d, c_i, expand)

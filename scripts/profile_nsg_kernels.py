@@ -1,15 +1,17 @@
 """Device time by kernel of the port's two paths on real states, for one
 source tree, on one CUDA card.
 
-    python3 scripts/profile_nsg_kernels.py [--tree DIR] [--n N]
+    python3 scripts/profile_nsg_kernels.py [--tree DIR]
     python3 scripts/profile_nsg_kernels.py --cnns [--tree DIR]
 
 With ``--cnns``: builds the 1M x 128 CNNS index of ``chip_smoke.py`` and
 profiles three searches of 8192 queries at nprobe = 2, printing the wall
 time per search, the device time in all and the six kernels that take
-most of it. Otherwise: builds the kNN graph and the NSG of N points of ``make_data`` (default
-150,000 x 128) under torch.profiler, then profiles three searches of 8192
-queries at l_search = 64, and prints for each phase the wall time, the
+most of it. Otherwise: builds the kNN graph and the NSG of ``NSG_N`` =
+150,000 x 128 points of ``make_data`` under torch.profiler (a cut: the
+figures are not those of ``chip_smoke.py``'s 1M build, whose launches
+have another mix of batch and retset sizes), then profiles three
+searches of 8192 queries at l_search = 64, and prints for each phase the wall time, the
 device time in all and the device time and launch count of the kernels
 whose name contains ``merge_select`` or ``scan``. The profiler slows the
 host down several times (a run takes about four minutes on an H100), so
@@ -24,6 +26,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+NSG_N = 150_000
 
 
 def summarize(prof, wall_s, phase, tree, card, top=0):
@@ -47,7 +51,6 @@ def summarize(prof, wall_s, phase, tree, card, top=0):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent))
-    ap.add_argument("--n", type=int, default=150_000)
     ap.add_argument("--cnns", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, args.tree)
@@ -86,7 +89,7 @@ def main():
         summarize(prof, (time.perf_counter() - t0) / 3, "CNNS search "
                   "nprobe=2 (x3, wall per search)", args.tree, card, top=6)
         return
-    x, q = make_data(args.n, 128, 8192, "l2", seed=0)
+    x, q = make_data(NSG_N, 128, 8192, "l2", seed=0)
     xd = torch.from_numpy(x).to("cuda")
     qd = torch.from_numpy(q).to("cuda")
     cfg = NSGBuildConfig()

@@ -98,9 +98,9 @@ def test_kernel_matches_plain_version(card, qdt, sdt, shape, metric):
 @pytest.mark.parametrize("name,c,cap,maxc,d,qn,k", [
     ("main path", 6, 32, 300, 128, 200, 20),   # k = 2k of a replicated index
     ("cap > 32", 4, 80, 200, 64, 300, 32),     # several row blocks a cluster
-    ("d = 100", 4, 32, 150, 100, 100, 10),     # rows not 16-byte aligned
-    ("odd d", 3, 20, 130, 37, 60, 5),          # plain-load copies
-    ("d = 200", 3, 32, 140, 200, 80, 10),      # two d chunks, 8-byte rows
+    ("d = 100", 4, 32, 150, 100, 100, 10),     # rows off 16 bytes and
+    ("odd d", 3, 20, 130, 37, 60, 5),          # odd d: plain-load copies
+    ("d = 200", 3, 32, 140, 200, 80, 10),      # two d chunks
 ])
 def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
     """The shapes the bf16 tensor-core kernel treats apart (and the same
@@ -140,7 +140,7 @@ def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
 @pytest.mark.cuda
 def test_scan_kernel_unaligned_bf16_views(card):
     """bf16 tensors that start 2 bytes off a 16-byte boundary take the
-    narrow-copy path and give the same result."""
+    plain-load path and give the same result."""
     qc, qidx, slabs, bias, scale = _case(31, torch.bfloat16, torch.bfloat16,
                                          "l2", 4, 32, 100, 64, 70)
     dev = [t.to(card) for t in (qc, qidx, slabs, bias)]
@@ -185,6 +185,11 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
                                    scale)
     with pytest.raises(ValueError):           # mixed devices
         cs.grouped_cluster_topk_gq(qc.cpu(), qidx, slabs, bias, 10, scale)
+    d = cs.MAX_D_BF16 + 8                     # past the bf16 kernel's d
+    wide = [torch.zeros(s, dtype=torch.bfloat16, device=card)
+            for s in ((20, d), (4, 64, d))]
+    with pytest.raises(ValueError):
+        cs.grouped_cluster_topk_gq(wide[0], qidx, wide[1], bias, 10, scale)
 
 
 @pytest.mark.cuda
@@ -248,7 +253,7 @@ def _merge_state(seed, q, l, c, n_ids=500, fill=0.7):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,l,c,expand", [
     (64, 128, 30, 1), (64, 128, 120, 4), (37, 64, 30, 2), (16, 256, 60, 8),
-    (40, 500, 50, 1), (29, 24, 50, 1), (8, 1024, 400, 3)])
+    (40, 500, 50, 1), (29, 24, 50, 1), (8, 512, 400, 3)])
 def test_merge_select_kernel_bit_identical(card, q, l, c, expand):
     state = _merge_state(q * 7 + l + c, q, l, c)
     want = ms.merge_select_reference(*state, expand)
@@ -294,6 +299,16 @@ def test_merge_select_kernel_unaligned_views(card):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,c", [(ms.MAX_L + 1, 50), (64, ms.MAX_C + 1)])
+def test_merge_select_raises_past_the_kernel_limits(card, l, c):
+    state = [t.to(card) for t in _merge_state(1, 4, l, c)]
+    before = ms.launches
+    with pytest.raises(ValueError):
+        ms.fused_merge_select(*state, 1)
+    assert ms.launches == before
 
 
 @pytest.mark.cuda
