@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
      per source, in parallel);
   2. the grouped-scan kernel versus its plain PyTorch version on the card,
      per dtype pair, metric and shape (the bench shape at k=10, the CNNS
-     search's own call at k=20, d=960, cap=80 with k=32, d=100), with the
+     search's own call at k=20, d=960, d=1928 on the CUDA-core kernel,
+     cap=80 with k=32, d=100), with the
      tolerance and the count of near-tie ids stated beside each case, and
      both times and the bound of each;
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
@@ -20,25 +21,41 @@ Phases, each of which fails the run (non-zero exit) on its own:
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
      one id, an all-PAD retset), at the search, collect-pool, build-retset
-     and wide-expand shapes, a ragged Q, all-PAD candidates and a
-     converged retset, with its resident warps per SM; and the
+     and wide-expand shapes, the HNSW insert and search shapes, a ragged
+     Q, all-PAD candidates and a converged retset, with its resident warps
+     per SM; its general kernel (L > 512 or C > 1024) at (L, C) = (513,
+     50), (1024, 128), (4096, 128), (200, 1025) on the same kinds of
+     states, timed at L=1024; and the
      cluster-join kernel versus its plain version at small shapes (f32:
      l2 group 1, an inf tail; bf16 on tensor cores: ip group 4, group 8
      with a ragged bucket tile, d=960, d=100, maxc=200, k=64, a sparse
      last cluster);
-  5. the NSG path at ``NSG_N`` = 1M points: ``knn_graph_ivf`` (k=50,
-     probes=8), ``build_nsg`` (L=40, R=50, C=500) with each stage's wall
-     time, the kNN graph's recall on a 10k sample, the mean degree, a BFS
-     proving connectivity, an l_search sweep of ``NSGIndex.search``
-     (Q=8192, k=10) over 16..256 with its recall reported, and
-     ``search_from_enterpoint`` from sampled entries; both kernels'
-     launch counts read around it, merge+select's also by shape;
-  6. the cluster-join kernel versus its plain version at the build shape
-     (C from phase 5, maxc 2112, M=8, d=128, bf16, k=52): both times,
+  5. the HNSW path at 1M points through the hnswlib-compatible API:
+     ``Index("l2", 128)``, ``init_index(N, M=16, ef_construction=200)``,
+     ``add_items`` (seconds, points/s, each insert phase's seconds),
+     ``check_integrity``, a BFS from the enterpoint that must reach every
+     node, the mean level-0 degree and the count of level >= 1 nodes; then
+     ``knn_query`` (Q=8192, k=10) with ``set_ef`` over 16..256 and one
+     batch at ef=1024, which runs the general merge+select kernel on real
+     beam states. It fails unless recall@10 >= 0.95 at some ef <= 256 and
+     ef=1024 is no lower than ef=256;
+  6. the hybrid path on the same data: ``HybridHNSWNSG(128, N,
+     nsg_cfg=NSGBuildConfig())``, ``add_points`` (a second insert of the
+     same seed: its graph must equal phase 5's at every level),
+     ``build_nsg_layer()`` (``knn_graph_ivf`` with k=50, probes=8, then
+     ``build_nsg`` with L=40, R=50, C=500; each stage's wall time, the kNN
+     graph's recall on a 10k sample, the mean degree, a BFS proving
+     connectivity); on its NSG an l_search sweep of ``NSGIndex.search``
+     from the medoid (16..256, reported) and ``search_from_enterpoint``
+     from sampled entries; then ``search_knn`` over the same sweep with
+     ``entry="routed"`` and at l_search=64 with ``entry="descend"``. It
+     fails unless the routed entry reaches recall@10 >= 0.95 at some
+     l_search <= 256. Both kernels' launch counts are set to 0 before and
+     read after each path, merge+select's also by shape and by kernel;
+  7. the cluster-join kernel versus its plain version at the build shape
+     (C from phase 6, maxc 2112, M=8, d=128, bf16, k=52): both times,
      the id mismatches at near-ties, the bound (the products of the
      finite-bias slots only) and the kernel's share of it;
-  7. the recall gate: phase 5 again at ``NSG_GATE_N`` = 250k points,
-     failing unless recall@10 >= 0.95 at some l_search <= 256;
   8. the kernels line (times, launches, errors and each kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      989 TFLOP/s bf16 peak), and the last line:
@@ -61,14 +78,10 @@ BENCH = dict(c=1152, maxc=2056, d=128, cap=32, k=10, qn=8192)
 KERNEL_SOURCE = "hnsw_nsg_tpu_torch/csrc/grouped_scan.cu"
 REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:244"
 TARGET_RECALL = 0.95
-# the NSG phase's point count: the sift1m shape (bench.py:65)
-NSG_N = 1_000_000
-# The recall gate (>= 0.95 at some l_search <= 256) runs on a cut. At 1M,
-# make_data is a mixture of 400 components whose kNN graph has almost no
-# edges between them, and a search from the single medoid entry reaches
-# too few of them (recall@10 0.725 at l_search 256, on an H100); at
-# 250k (100 components) the same code passes. See PERF.md §6.
-NSG_GATE_N = 250_000
+# the graph phases' point count: the sift1m shape (bench.py:65)
+GRAPH_N = 1_000_000
+EF_SWEEP = (16, 32, 64, 96, 128, 256)
+EF_WIDE = 1024     # past the warp-per-query merge+select kernel's L = 512
 L_SWEEP = (16, 24, 32, 48, 64, 96, 128, 192, 256)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
@@ -208,6 +221,9 @@ def phase_kernels(gen):
          b["qn"], bf, i8, "l2", b["k"], 1e-5, 0.5),
         ("d=960 bf16 l2", 128, 1024, 960, 32, 2048, bf, bf, "l2", 10,
          1e-5, 5e-3),
+        # past the tensor-core kernel's d = 1920: the CUDA-core kernel
+        ("d=1928 bf16 l2", 64, 512, 1928, 32, 1024, bf, bf, "l2", 10,
+         1e-5, 1e-2),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
         # rows that start off 16 bytes (plain loads), d padded to 112
@@ -407,18 +423,53 @@ def phase_merge_select():
           + ", ".join(f"L={l} C={c}: {ms.occupancy(l, c)}"
                       for l, c in ((100, 50), (500, 50), (40, 50))))
 
-    cases = [  # (name, Q, L, C, expand, mutation)
-        ("search shape", 8192, 100, 50, 1, None),
-        ("collect pool", 4096, 500, 50, 1, None),
-        ("build retset", 4096, 40, 50, 1, None),
-        ("wide expand", 8192, 64, 120, 4, None),
-        ("ragged Q", 8195, 100, 50, 2, None),
-        ("all-PAD candidates", 1000, 100, 50, 1, "pad"),
-        ("converged retset", 1000, 100, 50, 4, "converged"),
+    # the general kernel (a block a query; L > 512 or C > 1024) on the
+    # same adversarial kinds and on random states
+    general = ((513, 50, 1), (1024, 128, 4), (4096, 128, 1), (200, 1025, 4))
+    g0 = ms.general_launches
+    for l, c, expand in general:
+        states = [(kind, [torch.from_numpy(a).cuda() for a in
+                          adversarial_merge_state(kind, l + c, 48, l, c)])
+                  for kind in MERGE_STATE_KINDS]
+        states.append(("random", merge_state(l + c, 256, l, c, expand,
+                                             n_ids=4 * l)))
+        for kind, state in states:
+            got = ms.fused_merge_select(*state, expand)
+            torch.cuda.synchronize()
+            want = ms.merge_select_reference(*state, expand)
+            for nm, a, b in zip(names, got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"merge_select general kernel {kind} L={l} C={c} "
+                        f"expand={expand}: {nm} differs from the plain "
+                        f"version")
+        del states
+    n_gen = ms.general_launches - g0
+    if n_gen != len(general) * (len(MERGE_STATE_KINDS) + 1):
+        raise AssertionError("a wide shape did not reach the general kernel")
+    print(f"  merge_select general kernel at (L, C) = "
+          f"{[g[:2] for g in general]}: {n_gen} cases (adversarial and "
+          f"random states), all five outputs equal")
+    torch.cuda.empty_cache()
+
+    cases = [  # (name, Q, L, C, expand, mutation, timed)
+        ("search shape", 8192, 100, 50, 1, None, True),
+        ("collect pool", 4096, 500, 50, 1, None, True),
+        ("build retset", 4096, 40, 50, 1, None, True),
+        ("wide expand", 8192, 64, 120, 4, None, False),
+        ("ragged Q", 8195, 100, 50, 2, None, False),
+        ("all-PAD candidates", 1000, 100, 50, 1, "pad", False),
+        ("converged retset", 1000, 100, 50, 4, "converged", False),
+        ("hnsw insert", 4096, 200, 128, 4, None, True),
+        ("hnsw insert upper", 4096, 200, 64, 4, None, True),
+        ("hnsw search ef=96", 8192, 96, 32, 1, None, True),
+        ("widest warp kernel L=512", 8192, 512, 32, 1, None, True),
+        ("general L=513", 8192, 513, 32, 1, None, True),
+        ("general L=1024", 8192, 1024, 32, 1, None, True),
     ]
     times = {}
     max_err = 0.0
-    for i, (name, q, l, c, expand, mut) in enumerate(cases):
+    for i, (name, q, l, c, expand, mut, timed) in enumerate(cases):
         state = merge_state(100 + i, q, l, c, expand)
         if mut == "pad":
             state[3].fill_(3.4e37)
@@ -439,7 +490,7 @@ def phase_merge_select():
             raise AssertionError("a converged retset selected a frontier")
         line = f"  merge_select {name} (Q={q} L={l} C={c} expand={expand}): "
         line += "all five outputs equal"
-        if i < 3:
+        if timed:
             k_ms = cuda_ms(lambda: ms.fused_merge_select(*state, expand),
                            reps=50, warmup=5)
             p_ms = cuda_ms(lambda: ms.merge_select_reference(*state, expand),
@@ -452,7 +503,7 @@ def phase_merge_select():
                      f"{b_ms / k_ms:.1%} of it")
         print(line)
         del state, got, want
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return max_err, times
 
 
@@ -629,55 +680,210 @@ def sampled_entries(qd, xd, sample: int = 4096, seed: int = 0):
     return pick[near[:, 0]].to(torch.int32)
 
 
-def phase_nsg(card, n=NSG_N, nq=8192, gate=False):
-    """The NSG path (hybrid.py:59-79's large-N composition): cluster-join
-    kNN graph, NSG build, l_search sweep of NSGIndex.search. With
-    ``gate`` the sweep stops at recall@10 >= 0.95 and fails if no
-    l_search <= 256 reaches it; without, it runs every l_search and
-    reports. Both kernels' counts are set to 0 just before and read just
-    after. Returns (join launches, merge launches, n_slabs)."""
-    from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf
-    from hnsw_nsg_tpu_torch.models.nsg import build_nsg
-    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+def launch_split(ms, what):
+    """Print merge+select's launches since the counts were last cleared,
+    by (L, C, expand) and by kernel. Returns (launches, general)."""
+    split = {}
+    for (q_, l_, c_, e_), cnt in ms.launches_by_shape.items():
+        ent = split.setdefault((l_, c_, e_), [0, q_, q_])
+        ent[0] += cnt
+        ent[1], ent[2] = min(ent[1], q_), max(ent[2], q_)
+    for (l_, c_, e_), (cnt, q_lo, q_hi) in sorted(split.items()):
+        kern = "general" if l_ > ms.MAX_L or c_ > ms.MAX_C else "warp"
+        print(f"  merge_select launches, {what}, L={l_} C={c_} expand={e_}: "
+              f"{cnt} (Q {q_lo}..{q_hi}; {kern} kernel)")
+    if sum(v[0] for v in split.values()) != ms.launches:
+        raise AssertionError("the launch split does not add up")
+    share = ms.general_launches / max(ms.launches, 1)
+    print(f"  merge_select launches, {what}: {ms.launches}, of them "
+          f"{ms.general_launches} ({share:.2%}) by the general kernel")
+    return ms.launches, ms.general_launches
+
+
+def reset_counts(cs, ms):
+    cs.launches = cs.join_launches = 0
+    ms.launches = ms.general_launches = 0
+    ms.launches_by_shape.clear()
+
+
+def timed_query(fn, reps=10):
+    """fn() returns host arrays: median wall seconds of ``reps`` calls."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts), min(ts), max(ts)
+
+
+def check_answers(labels, dists, x, queries, n, nq, k, rtol, atol):
+    """Shape, finiteness, order, in-range labels, and the returned
+    distances against exact f32 distances of the returned points."""
+    if labels.shape != (nq, k) or dists.shape != (nq, k):
+        raise AssertionError(f"bad result shapes {labels.shape} {dists.shape}")
+    if not np.isfinite(dists).all():
+        raise AssertionError("non-finite distances in the result")
+    if not (dists[:, 1:] >= dists[:, :-1]).all():
+        raise AssertionError("result rows are not ascending")
+    if not ((labels >= 0) & (labels < n)).all():
+        raise AssertionError("result labels out of range")
+    ex = ((x[labels[:256]] - queries[:256, None, :]) ** 2).sum(-1)
+    if not np.allclose(dists[:256], ex, rtol=rtol, atol=atol):
+        raise AssertionError("returned distances disagree with exact ones")
+
+
+def phase_hnsw(card, x, queries, gt):
+    """The HNSW path through the hnswlib-compatible API, on the card by
+    default. Returns (merge launches, general launches, the graph's host
+    arrays for the hybrid phase to compare its own insert with)."""
+    from hnsw_nsg_tpu_torch.api import Index
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.ops import recall
+
+    n, d = x.shape
+    nq, k = queries.shape[0], 10
+    print(f"HNSW path at N={n} (Index('l2', {d}), M=16, ef_construction=200)")
+    reset_counts(cs, ms)
+    p = Index("l2", d)
+    p.init_index(n, M=16, ef_construction=200)
+    idx = p._index
+    if idx.data.device.type != "cuda":
+        raise AssertionError("Index() did not put its arrays on the card")
+    idx.stage_seconds = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p.add_items(x)
+    torch.cuda.synchronize()
+    ins_s = time.perf_counter() - t0
+    # the cold start's 32..2048 doubling (7 batches, 4064 points), then 4096s
+    batches = 7 + -(-(n - 4064) // 4096)
+    stages = ", ".join(f"{nm} {sec:.2f}" for nm, sec in
+                       idx.stage_seconds.items())
+    print(f"HNSW add_items: {ins_s:.2f} s, {n / ins_s:.1f} points/s, "
+          f"{batches} batches; seconds by phase: {stages} (the rest: "
+          f"connectivity repair and host bookkeeping) [{card}]")
+    idx.stage_seconds = None
+    launch_split(ms, "HNSW build")
+    build_launches, build_general = ms.launches, ms.general_launches
+
+    t0 = time.perf_counter()
+    if not idx.check_integrity():
+        raise AssertionError("HNSW check_integrity failed")
+    adj0 = idx.adj0[:n].cpu().numpy()
+    ok, reached_n = bfs_reaches_all(adj0, idx.ep)
+    n_up = int((idx.levels[:n] >= 1).sum())
+    print(f"HNSW check_integrity ok; BFS from ep {idx.ep} reaches "
+          f"{reached_n}/{n}; mean level-0 degree "
+          f"{float((adj0 >= 0).sum(1).mean()):.3f} (cap 32); max level "
+          f"{idx.max_level}; level >= 1 nodes {n_up} "
+          f"({time.perf_counter() - t0:.1f} s of host checks)")
+    if not ok:
+        raise AssertionError("the HNSW level-0 graph is not connected")
+    graph = dict(adj0=adj0, adj_up=[a[:n].cpu().numpy() for a in idx.adj_up],
+                 levels=idx.levels[:n].copy(), ep=idx.ep)
+
+    reset_counts(cs, ms)
+    sweep, reached = {}, None
+    for ef in EF_SWEEP:
+        p.set_ef(ef)
+        labels, dists = p.knn_query(queries, k=k)
+        r = recall(labels, gt)
+        med, lo, hi = timed_query(lambda: p.knn_query(queries, k=k))
+        sweep[ef] = r
+        print(f"ef={ef}: recall@10={r:.4f} median {med * 1e3:.3f} ms "
+              f"QPS={nq / med:.1f} (min {lo * 1e3:.3f}, max {hi * 1e3:.3f} "
+              f"ms) [{card}]")
+        if r >= TARGET_RECALL and reached is None:
+            reached = ef
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    # the reference's per-level greedy walk as the entry, for comparison
+    labels, _ = idx.knn_query(queries, k=k, ef=reached or 256,
+                              entry="descend")
+    print(f"ef={reached or 256} with entry='descend': recall@10="
+          f"{recall(labels, gt):.4f} (routed: {sweep[reached or 256]:.4f})")
+    if ms.general_launches:
+        raise AssertionError("an ef <= 512 search reached the general kernel")
+    p.set_ef(EF_WIDE)
+    t0 = time.perf_counter()
+    labels, dists = p.knn_query(queries, k=k)
+    wide_s = time.perf_counter() - t0
+    r_wide = recall(labels, gt)
+    print(f"ef={EF_WIDE} (the general merge+select kernel): recall@10="
+          f"{r_wide:.4f}, one batch {wide_s * 1e3:.1f} ms [{card}]")
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    launch_split(ms, "HNSW search")
+    if ms.general_launches <= 0:
+        raise AssertionError(f"ef={EF_WIDE} did not launch the general kernel")
+    if reached is None:
+        raise AssertionError(
+            f"HNSW recall@10 >= {TARGET_RECALL} not reached at ef <= 256: "
+            f"{sweep}")
+    if r_wide < sweep[256]:
+        raise AssertionError(f"recall at ef={EF_WIDE} ({r_wide}) is below "
+                             f"ef=256 ({sweep[256]})")
+    print(f"HNSW recall@10 >= {TARGET_RECALL} first at ef={reached}")
+    launches = build_launches + ms.launches
+    general = build_general + ms.general_launches
+    del p, idx
+    torch.cuda.empty_cache()
+    return launches, general, graph
+
+
+def phase_hybrid(card, x, queries, gt, hnsw_graph):
+    """The hybrid path (HNSW upper levels routing into an NSG base layer)
+    and, on its NSG, the NSG path from the medoid. Returns (join launches,
+    merge launches, general launches, n_slabs)."""
+    from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.ops import recall
     from hnsw_nsg_tpu_torch.utils.params import NSGBuildConfig
-    from hnsw_nsg_tpu_torch.utils.synth import make_data
 
-    d, k = 128, 10
-    print(f"NSG path at N={n}" + (" (the recall gate's cut)" if gate else ""))
-    t0 = time.perf_counter()
-    x, queries = make_data(n, d, nq, "l2", seed=0)
-    print(f"data: {n}x{d} + {nq} queries in "
-          f"{time.perf_counter() - t0:.1f} s (host)")
-    xd = torch.from_numpy(x).to("cuda")
-    qd = torch.from_numpy(queries).to("cuda")
-    _, gt = brute_force_topk(qd, xd, k, "l2")
-    gt = gt.cpu()
+    n, d = x.shape
+    nq, k = queries.shape[0], 10
     cfg = NSGBuildConfig()
+    print(f"hybrid path at N={n} (HybridHNSWNSG, NSG L={cfg.L} R={cfg.R} "
+          f"C={cfg.C})")
+    reset_counts(cs, ms)
+    hyb = HybridHNSWNSG(d, n, nsg_cfg=cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyb.add_points(x)
+    torch.cuda.synchronize()
+    ins_s = time.perf_counter() - t0
+    print(f"hybrid add_points: {ins_s:.2f} s, {n / ins_s:.1f} points/s "
+          f"[{card}]")
+    h = hyb.hnsw
+    same = (h.ep == hnsw_graph["ep"]
+            and np.array_equal(h.levels[:n], hnsw_graph["levels"])
+            and np.array_equal(h.adj0[:n].cpu().numpy(), hnsw_graph["adj0"])
+            and len(h.adj_up) == len(hnsw_graph["adj_up"])
+            and all(np.array_equal(a[:n].cpu().numpy(), b)
+                    for a, b in zip(h.adj_up, hnsw_graph["adj_up"])))
+    if not same:
+        raise AssertionError("two HNSW inserts of one seed gave two graphs")
+    print("two HNSW inserts of one seed (phase 5's and this one): one graph "
+          "at every level")
+    hnsw_graph.clear()
+    insert_launches = ms.launches
 
-    cs.join_launches = 0
-    ms.launches = 0
-    ms.launches_by_shape.clear()
-    torch.cuda.synchronize()
+    stats = {}
     t0 = time.perf_counter()
-    knn_k = cfg.L + 10    # hybrid.py:60
-    join = {}
-    adj = knn_graph_ivf(xd, knn_k, probes=8, kmeans_iters=8, as_device=True,
-                        stats=join)
+    hyb.build_nsg_layer(stats=stats)
     torch.cuda.synchronize()
-    knn_s = time.perf_counter() - t0
-    print(f"kNN graph (k={knn_k}, probes=8, C={join['n_slabs']} "
-          f"maxc={join['maxc']} join k={join['k']}): {knn_s:.2f} s [{card}]")
-    stages = {}
-    t0 = time.perf_counter()
-    idx = build_nsg(xd, adj, cfg, stage_seconds=stages)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    layer_s = time.perf_counter() - t0
+    adj = stats.pop("knn_adj")
+    print(f"kNN graph (k={adj.shape[1]}, probes={stats['probes']}, "
+          f"C={stats['n_slabs']} maxc={stats['maxc']} join k={stats['k']}): "
+          f"{stats['knn']:.2f} s [{card}]")
     for st in ("collect_prune", "interinsert", "tree_grow"):
-        print(f"NSG {st}: {stages[st]:.2f} s [{card}]")
-    print(f"NSG build total (incl. medoid): {build_s:.2f} s; kNN + NSG "
-          f"{knn_s + build_s:.2f} s [{card}]")
+        print(f"NSG {st}: {stats[st]:.2f} s [{card}]")
+    print(f"build_nsg_layer total (kNN + medoid + NSG): {layer_s:.2f} s "
+          f"[{card}]")
+    idx = hyb.nsg
+    xd = h.data[:n]
+    qd = torch.from_numpy(queries).to(xd.device)
     knn_r = exact_knn_recall(xd, adj)
     print(f"kNN graph recall on a 10k-node sample: {knn_r:.4f}")
     del adj
@@ -690,79 +896,69 @@ def phase_nsg(card, n=NSG_N, nq=8192, gate=False):
         raise AssertionError("the NSG is not connected from its entry point")
     if (adj_np == np.arange(n)[:, None]).any():
         raise AssertionError("the NSG has a self edge")
+    del adj_np
+    launch_split(ms, "hybrid build (HNSW insert + NSG build)")
+    if ms.launches <= insert_launches or cs.join_launches <= 0:
+        raise AssertionError("the NSG build did not launch both kernels")
+    build_counts = (cs.join_launches, ms.launches, ms.general_launches)
 
-    sweep, reached = [], None
+    # the NSG path from its single medoid entry (reported, not gated: the
+    # 400 mixture components of the 1M data keep a beam from the medoid
+    # inside too few of them, as in the JAX package)
+    reset_counts(cs, ms)
     for ls in L_SWEEP:
         dd, ii = idx.search(qd, k=k, l_search=ls)
         r = recall(ii.cpu(), gt)
-        ts = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            dd, ii = idx.search(qd, k=k, l_search=ls)
-            ii_host = ii.cpu()   # every rep copies its ids to the host
-            ts.append(time.perf_counter() - t0)
-        med = statistics.median(ts)
-        sweep.append(dict(l_search=ls, recall=r, ms=med * 1e3,
-                          qps=nq / med))
-        print(f"l_search={ls}: recall@10={r:.4f} median {med * 1e3:.3f} ms "
-              f"QPS={nq / med:.1f} (min {min(ts) * 1e3:.3f}, max "
-              f"{max(ts) * 1e3:.3f} ms) [{card}]")
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=k, l_search=ls)[1].cpu())
+        print(f"NSG from the medoid, l_search={ls}: recall@10={r:.4f} median "
+              f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, "
+              f"max {hi * 1e3:.3f} ms) [{card}]")
+    check_answers(ii.cpu().numpy(), dd.cpu().numpy(), x, queries, n, nq, k,
+                  1e-4, 1e-2)
+    entries = sampled_entries(qd, xd)
+    for ls in (64, 128):
+        _, ei = idx.search_from_enterpoint(qd, entries, k=k, l_search=ls)
+        print(f"search_from_enterpoint (nearest of 4096 sampled points) "
+              f"l_search={ls}: recall@10={recall(ei.cpu(), gt):.4f}")
+    launch_split(ms, "NSG search from the medoid")
+    nsg_counts = (ms.launches, ms.general_launches)
+
+    # the hybrid's own search: the routed entry, then SearchFromEnterpoint
+    reset_counts(cs, ms)
+    sweep, reached = {}, None
+    for ls in L_SWEEP:
+        labels, dists = hyb.search_knn(queries, k=k, l_search=ls)
+        r = recall(labels, gt)
+        med, lo, hi = timed_query(
+            lambda: hyb.search_knn(queries, k=k, l_search=ls))
+        sweep[ls] = r
+        print(f"hybrid routed, l_search={ls}: recall@10={r:.4f} median "
+              f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, "
+              f"max {hi * 1e3:.3f} ms) [{card}]")
         if r >= TARGET_RECALL and reached is None:
             reached = ls
-            if gate:
-                break
-    if not gate:
-        # the graph near each query, reached without the medoid: entries
-        # from the nearest of 4096 sampled points (search_from_enterpoint)
-        entries = sampled_entries(qd, xd)
-        for ls in (64, 128):
-            _, ei = idx.search_from_enterpoint(qd, entries, k=k, l_search=ls)
-            print(f"search_from_enterpoint (nearest of 4096 sampled points) "
-                  f"l_search={ls}: recall@10={recall(ei.cpu(), gt):.4f}")
-    j_launches, m_launches = cs.join_launches, ms.launches
-    print(f"kernel launches during the NSG path: cluster_join {j_launches}, "
-          f"merge_select {m_launches}")
-    # the same count by shape: the build's collect beam launches twice a
-    # hop (the C-wide pool and the L-wide retset), a search once, on a
-    # batch that shrinks as queries converge
-    split = {}
-    for (q_, l_, c_, e_), cnt in ms.launches_by_shape.items():
-        ent = split.setdefault((l_, c_, e_), [0, q_, q_])
-        ent[0] += cnt
-        ent[1], ent[2] = min(ent[1], q_), max(ent[2], q_)
-    for (l_, c_, e_), (cnt, q_lo, q_hi) in sorted(split.items()):
-        print(f"  merge_select launches at L={l_} C={c_} expand={e_}: {cnt} "
-              f"(Q {q_lo}..{q_hi})")
-    if sum(v[0] for v in split.values()) != m_launches:
-        raise AssertionError("the launch split does not add up")
-    if j_launches <= 0 or m_launches <= 0:
-        raise AssertionError("the NSG path did not launch both kernels")
-    if gate and reached is None:
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    labels, _ = hyb.search_knn(queries, k=k, l_search=64, entry="descend")
+    med, _, _ = timed_query(lambda: hyb.search_knn(
+        queries, k=k, l_search=64, entry="descend"))
+    print(f"hybrid descend, l_search=64: recall@10={recall(labels, gt):.4f} "
+          f"median {med * 1e3:.3f} ms (routed: {sweep[64]:.4f}) [{card}]")
+    launch_split(ms, "hybrid search")
+    if ms.launches <= 0:
+        raise AssertionError("the hybrid search did not launch merge_select")
+    if reached is None:
         raise AssertionError(
-            f"recall@10 >= {TARGET_RECALL} not reached at l_search <= 256: "
-            f"{sweep}")
-    print(f"recall@10 >= {TARGET_RECALL} first at l_search={reached}"
-          if reached else
-          f"recall@10 >= {TARGET_RECALL} not reached at l_search <= 256")
-
-    # output check: shape, finiteness, order, in-range ids, and the
-    # returned distances against exact f32 distances of the returned ids
-    if tuple(dd.shape) != (nq, k) or tuple(ii_host.shape) != (nq, k):
-        raise AssertionError(f"bad result shapes {dd.shape} {ii_host.shape}")
-    ddh = dd.cpu()
-    if not bool(torch.isfinite(ddh).all()):
-        raise AssertionError("non-finite distances in the result")
-    if not bool((ddh[:, 1:] >= ddh[:, :-1]).all()):
-        raise AssertionError("result rows are not ascending")
-    if not bool(((ii_host >= 0) & (ii_host < n)).all()):
-        raise AssertionError("result ids out of range")
-    ex = ((torch.from_numpy(x)[ii_host[:256].long()]
-           - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
-    if not torch.allclose(ddh[:256], ex, rtol=1e-4, atol=1e-2):
-        raise AssertionError("returned distances disagree with exact ones")
-    del idx, xd, qd
+            f"hybrid recall@10 >= {TARGET_RECALL} not reached at l_search "
+            f"<= 256: {sweep}")
+    print(f"hybrid recall@10 >= {TARGET_RECALL} first at l_search={reached} "
+          f"(N={n})")
+    m_launches = build_counts[1] + nsg_counts[0] + ms.launches
+    g_launches = build_counts[2] + nsg_counts[1] + ms.general_launches
+    n_slabs = stats["n_slabs"]
+    del hyb, idx, h, xd, qd
     torch.cuda.empty_cache()
-    return j_launches, m_launches, join["n_slabs"]
+    return build_counts[0], m_launches, g_launches, n_slabs
 
 
 def main() -> int:
@@ -789,17 +985,36 @@ def main() -> int:
     ms_err, ms_times = phase_merge_select()
     join_err = phase_join_small()
 
-    j_launches, m_launches, n_slabs = phase_nsg(card)
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    t0 = time.perf_counter()
+    x, queries = make_data(GRAPH_N, 128, 8192, "l2", seed=0)
+    _, gt = brute_force_topk(torch.from_numpy(queries).cuda(),
+                             torch.from_numpy(x).cuda(), 10, "l2")
+    gt = gt.cpu()
+    torch.cuda.empty_cache()
+    print(f"graph phases' data: {GRAPH_N}x128 + 8192 queries and the f32 "
+          f"ground truth in {time.perf_counter() - t0:.1f} s")
+    h_launches, h_general, hnsw_graph = phase_hnsw(card, x, queries, gt)
+    j_launches, y_launches, y_general, n_slabs = phase_hybrid(
+        card, x, queries, gt, hnsw_graph)
+    m_launches = h_launches + y_launches
+    g_launches = h_general + y_general
+    print(f"merge_select launches over the HNSW and hybrid paths: "
+          f"{m_launches}, of them {g_launches} "
+          f"({g_launches / m_launches:.3%}) by the general kernel")
+    del x, queries
     build_err, join_ms, join_plain_ms, join_bound = phase_join_build(
         card, n_slabs)
-    phase_nsg(card, n=NSG_GATE_N, gate=True)
 
-    # no single PyTorch call computes any of the three functions, so none
-    # has a library time; the grouped scan's times are at the call the
-    # main path makes (k = 20), merge+select's at the NSG build's collect
-    # pool (L = 500), the launched shape with the largest launches x
-    # (time - bound)
+    # no single PyTorch call computes any of the functions, so none has a
+    # library time; the grouped scan's times are at the call the main path
+    # makes (k = 20), merge+select's at the NSG build's collect pool
+    # (L = 500) and, for its general kernel, at L = 1024 (the ef = 1024
+    # search's shape)
     ms_ms, ms_plain, ms_bound, ms_by = ms_times["collect pool"]
+    g_ms, g_plain, g_bound, g_by = ms_times["general L=1024"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -810,9 +1025,17 @@ def main() -> int:
         "name": "fused_merge_select", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
         "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
-        "launches": m_launches, "max_abs_err": ms_err,
+        "launches": m_launches - g_launches, "max_abs_err": ms_err,
         "ms": ms_ms, "plain_ms": ms_plain, "bound_ms": ms_bound,
         "bound_by": ms_by, "library_ms": None,
+    }, {
+        "name": "fused_merge_select (general kernel: L > 512 or C > 1024)",
+        "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
+        "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
+        "launches": g_launches, "max_abs_err": ms_err,
+        "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+        "bound_by": g_by, "library_ms": None,
     }, {
         "name": "cluster_join_topk", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",

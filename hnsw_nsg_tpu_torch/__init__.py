@@ -11,7 +11,12 @@ the same path there. Ported so far:
     ``csrc/cluster_join.cu``), ``models.nsg.build_nsg`` and
     ``NSGIndex.search`` over the lockstep beam of ``models.beam``, whose
     every hop runs the fused merge+select (``csrc/merge_select.cu``,
-    bound in ``ops/merge_select.py``).
+    bound in ``ops/merge_select.py``);
+  * HNSW (``models.hnsw.HNSWIndex``: batched insert, routed or descended
+    entry, deletes, filters, hnswlib's file format), the hybrid index
+    (``models.hybrid.HybridHNSWNSG``: HNSW upper levels routing into an
+    NSG base layer) and the hnswlib-compatible ``api.Index``,
+    ``LazyIndex`` and ``BFIndex``, on the same beam and kernel.
 
 Importing the package loads no GPU library; the kernels are compiled at
 the first launch on a CUDA tensor.

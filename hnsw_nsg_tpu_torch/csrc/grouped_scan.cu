@@ -26,7 +26,9 @@
 //
 // Two kernels, by operand type.
 //
-// bf16 x bf16 (the CNNS path), scan_mma_kernel. A block takes one cluster
+// bf16 x bf16 (the CNNS path) up to d = 1920, scan_mma_kernel (above that
+// the query tile does not fit and the pair runs on grouped_scan_kernel
+// below). A block takes one cluster
 // and up to 32 of its query rows, so at cap <= 32 a slab is read once.
 //   * The query rows are gathered by pointer into shared memory (zero for
 //     pad slots and past d) and, when d <= 128, kept as mma A fragments in
@@ -694,8 +696,14 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
     launch<float, float, float>(qc, qidx, slabs, bias, vals, idx, n_clusters,
                                 cap, qn, d, maxc, k, scale, st);
   else if (q_dtype == kBF16 && s_dtype == kBF16) {
-    if ((d + kTD - 1) / kTD > kMaxChunks)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if ((d + kTD - 1) / kTD > kMaxChunks) {
+      // the query tile of the tensor-core kernel no longer fits: the
+      // CUDA-core kernel takes any d (f32 sums of exact bf16 products)
+      launch<__nv_bfloat16, __nv_bfloat16, float>(
+          qc, qidx, slabs, bias, vals, idx, n_clusters, cap, qn, d, maxc, k,
+          scale, st);
+      return static_cast<int>(cudaGetLastError());
+    }
     // 16-byte copies where every row start of qc and slabs allows them
     const uintptr_t at = reinterpret_cast<uintptr_t>(qc) |
                          reinterpret_cast<uintptr_t>(slabs) |

@@ -31,8 +31,8 @@
 // candidates it keeps and merges:
 //   * the lanes hold the retset ids in registers, slot lane + 32 k in
 //     register k (the kernel is compiled for 2, 4, 8 and 16 slots a
-//     lane, so L <= 512: the widest retset a ported path uses is the
-//     NSG build's pool of 500),
+//     lane, so L <= 512; wider retsets and C > 1024 go to the general
+//     kernel at the end of this file),
 //     and the expanded flags as one bit mask; only the dists go to
 //     shared memory;
 //   * membership, 32 candidates a round: each candidate id is read by
@@ -343,6 +343,147 @@ cudaError_t allow(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+
+// ---- the general kernel: any L and C that fit shared memory ----------------
+//
+// The kernel above holds the retset ids in a lane's registers, so it is
+// compiled per width and stops at L = 512. This one takes L and C at run
+// time (an HNSW search with ef = 1024, a beam whose expand * R passes
+// 1024): a block per query, the retset and the candidates in shared
+// memory, the same three steps with nothing clever in them. It is the
+// simple one and is not tuned:
+//   * dedup: thread j walks the retset ids and the earlier candidates for
+//     candidate j (an exit on the first hit), C * (L + C / 2) compares a
+//     block at worst;
+//   * rank: every candidate, dropped ones included, is counted against
+//     all others by (dist, position), C^2 compares a block;
+//   * merge path: one binary search a retset slot and a candidate; the
+//     retset wins ties, being earlier. Results go straight to the output
+//     rows;
+//   * select: the first warp reads the new flags back (ballot + prefix
+//     popcount, 32 slots a step).
+// Shared memory is 8 L + 16 C bytes a block: 64 KB at L = 4096, C = 2048,
+// the largest shape asked of it so far; the entry point takes up to
+// L = 16384 and C = 4096 (192 KB).
+
+constexpr int kGenThreads = 256;
+constexpr int kGenMaxL = 16384;
+constexpr int kGenMaxC = 4096;
+
+__host__ __device__ inline int general_bytes(int l, int c) {
+  return 8 * l + 16 * c;
+}
+
+// #{i : a[i] < v} and #{i : a[i] <= v} over an ascending array
+__device__ __forceinline__ int count_less(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+__device__ __forceinline__ int count_le(const float* a, int n, float v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kGenThreads)
+merge_select_general_kernel(
+    const float* __restrict__ r_d, const int* __restrict__ r_i,
+    const uint8_t* __restrict__ r_e, const float* __restrict__ c_d,
+    const int* __restrict__ c_i, float* __restrict__ o_d,
+    int* __restrict__ o_i, uint8_t* o_e, int* __restrict__ sel_i,
+    uint8_t* __restrict__ sel_v, int l, int c, int expand) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const long long q = blockIdx.x;
+  float* rd = reinterpret_cast<float*>(smem);   // [l] retset dists
+  int* ri = reinterpret_cast<int*>(rd + l);     // [l] retset ids
+  float* md = reinterpret_cast<float*>(ri + l); // [c] masked candidates
+  int* mi = reinterpret_cast<int*>(md + c);
+  float* sd = reinterpret_cast<float*>(mi + c); // [c] sorted candidates
+  int* si = reinterpret_cast<int*>(sd + c);
+  const long long rq = q * l, cq = q * c;
+
+  for (int i = tid; i < l; i += kGenThreads) {
+    rd[i] = r_d[rq + i];
+    ri[i] = r_i[rq + i];
+  }
+  for (int j = tid; j < c; j += kGenThreads) si[j] = c_i[cq + j];
+  __syncthreads();
+
+  // 1. drop PADs, retset members and repeats of an earlier candidate
+  for (int j = tid; j < c; j += kGenThreads) {
+    const int id = si[j];
+    bool drop = id < 0;
+    for (int i = 0; i < l && !drop; ++i) drop = ri[i] == id;
+    for (int t = 0; t < j && !drop; ++t) drop = si[t] == id;
+    md[j] = drop ? kPadDist : c_d[cq + j];
+    mi[j] = drop ? kPadId : id;
+  }
+  __syncthreads();
+
+  // 2a. stable order of the candidates by (dist, position)
+  for (int j = tid; j < c; j += kGenThreads) {
+    const float v = md[j];
+    int rank = 0;
+    for (int t = 0; t < c; ++t) {
+      const float w = md[t];
+      rank += (w < v) || (w == v && t < j);
+    }
+    sd[rank] = v;
+    si[rank] = mi[j];
+  }
+  __syncthreads();
+
+  // 2b. merge path: each element's slot in the merged order; keep < l
+  for (int i = tid; i < l; i += kGenThreads) {
+    const float v = rd[i];
+    const int p = i + count_less(sd, c, v);
+    if (p < l) {
+      o_d[rq + p] = v;
+      o_i[rq + p] = ri[i];
+      o_e[rq + p] = (r_e[rq + i] != 0) || ri[i] < 0;
+    }
+  }
+  for (int s = tid; s < c; s += kGenThreads) {
+    const float v = sd[s];
+    const int p = s + count_le(rd, l, v);
+    if (p < l) {
+      o_d[rq + p] = v;
+      o_i[rq + p] = si[s];
+      o_e[rq + p] = si[s] < 0;
+    }
+  }
+  __syncthreads();   // the block's writes to o_i / o_e are visible to it
+
+  // 3. frontier: the first `expand` unexpanded slots, in slot order
+  if (tid >= 32) return;
+  const int lane = tid;
+  int taken = 0;
+  for (int s0 = 0; s0 < l && taken < expand; s0 += 32) {
+    const int slot = s0 + lane;
+    const bool un = slot < l && o_e[rq + slot] == 0;
+    const unsigned ball = __ballot_sync(kFull, un);
+    const int rank = taken + __popc(ball & ((1u << lane) - 1u));
+    if (un && rank < expand) {
+      sel_i[q * expand + rank] = o_i[rq + slot];
+      sel_v[q * expand + rank] = 1;
+      o_e[rq + slot] = 1;
+    }
+    taken += __popc(ball);
+  }
+  for (int e = (taken < expand ? taken : expand) + lane; e < expand; e += 32) {
+    sel_i[q * expand + e] = kPadId;
+    sel_v[q * expand + e] = 0;
+  }
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers:
@@ -387,4 +528,32 @@ extern "C" int merge_select_occupancy(int l, int c) {
                                                       kWarps * 32, bytes);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return blocks * kWarps;
+}
+
+// The general kernel's entry point, same arguments: any L <= 16384 and
+// C <= 4096 (one instantiation; a block a query).
+extern "C" int merge_select_general(const void* r_d, const void* r_i,
+                                    const void* r_e, const void* c_d,
+                                    const void* c_i, void* o_d, void* o_i,
+                                    void* o_e, void* sel_i, void* sel_v,
+                                    int nq, int l, int c, int expand,
+                                    void* stream) {
+  if (nq < 1 || l < 1 || l > kGenMaxL || c < 0 || c > kGenMaxC ||
+      expand < 1 || expand > l)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = general_bytes(l, c);
+  if (bytes > kSmallSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_select_general_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  merge_select_general_kernel<<<nq, kGenThreads, bytes,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(r_d), static_cast<const int*>(r_i),
+      static_cast<const uint8_t*>(r_e), static_cast<const float*>(c_d),
+      static_cast<const int*>(c_i), static_cast<float*>(o_d),
+      static_cast<int*>(o_i), static_cast<uint8_t*>(o_e),
+      static_cast<int*>(sel_i), static_cast<uint8_t*>(sel_v), l, c, expand);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,17 @@ Hops run in chunks of ``chunk_hops`` with one host convergence check
 per chunk, as in the JAX package. ``beam_search_chunked`` compacts
 converged queries out between chunks and scatters their results back;
 it compacts to exactly the live rows, where the TPU padded the batch to
-a power of two to bound recompiles (no result depends on it). The
-while-loop variants, ``greedy_descent`` and ``beam_search_filtered`` are
-not ported yet.
+a power of two to bound recompiles (no result depends on it).
+
+``greedy_descent`` (hnswlib's upper-level walk) and
+``beam_search_filtered`` (in-traversal filtering) are plain functions on
+tensors, as in the JAX package, where neither reaches the kernel: the
+filtered beam kills frontier slots between its merge and its select, and
+its width can grow to N. Their loops test for convergence on the host
+every few hops; a hop after convergence changes nothing, so the results
+are those of a test every hop. The while-loop ``beam_search`` and
+``beam_search_collect`` (for callers inside ``jit``/``shard_map``,
+``parallel/mesh.py``) and ``random_fill_ids`` are not ported and raise.
 """
 
 from __future__ import annotations
@@ -26,9 +34,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops.distance import PAD_ID, gathered_dists
+from ..ops.distance import PAD_DIST, PAD_ID, gathered_dists
 from ..ops.merge_select import fused_merge_select
-from ..ops.topk import init_retset
+from ..ops.topk import init_retset, merge_into_retset
+
+_CHECK_EVERY = 4   # hops between host convergence tests of the plain loops
 
 
 class BeamResult(NamedTuple):
@@ -183,3 +193,111 @@ def beam_search_collect_chunked(
         if not bool(sel_valid.any()):
             break
     return BeamResult(r_d, r_i, hops, evals), p_i, p_d
+
+
+def greedy_descent(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    start_ids: torch.Tensor,
+    metric: str = "l2",
+    max_hops: int = 256,
+):
+    """Batched 1-best greedy walk (hnswlib upper-level descent,
+    hnswalg.h:1278-1303): move to the closest neighbor while it improves;
+    among equally close neighbors the first in the row wins.
+
+    queries [Q, d]; start_ids [Q] int32. Returns (ids [Q] int32, dists [Q])
+    with dists in FastL2 form for l2."""
+    cur = start_ids.to(torch.int32)
+    cur_d = gathered_dists(queries, data, cur[:, None], metric, norms)[:, 0]
+    for it in range(max_hops):
+        nbrs = adj[cur.clamp(min=0).long()]                  # [Q, R]
+        nd = gathered_dists(queries, data, nbrs, metric, norms)
+        best = nd.argmin(1, keepdim=True)     # the first of equal minima
+        best_d = torch.gather(nd, 1, best)[:, 0]
+        best_id = torch.gather(nbrs, 1, best)[:, 0]
+        moved = best_d < cur_d
+        cur = torch.where(moved, best_id, cur)
+        cur_d = torch.where(moved, best_d, cur_d)
+        if it % _CHECK_EVERY == _CHECK_EVERY - 1 and not bool(moved.any()):
+            break
+    return cur, cur_d
+
+
+def beam_search_filtered(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    init_ids: torch.Tensor,
+    width: int,
+    accept: torch.Tensor,
+    metric: str = "l2",
+    max_hops: int = 512,
+    expand: int = 1,
+) -> BeamResult:
+    """Lockstep beam with in-traversal filtering.
+
+    ``accept``: bool [N], the nodes allowed in results (filter pass and
+    not deleted). Rejected nodes are still traversed but never enter the
+    result pool, and exploration goes on until ``width`` accepted results
+    exist or the frontier is exhausted: hnswlib's searchBaseLayerST<false>
+    (hnswalg.h:309-440). A query is live while it has an unexpanded
+    candidate closer than the accepted pool's ``width``-th distance
+    (PAD_DIST while the pool is not full); frontier slots at or beyond
+    that bound are killed before each selection.
+
+    Returns the ACCEPTED pool (dists FastL2-form for l2, ids PAD-padded);
+    hops and evals count as in beam_search_chunked."""
+    q = queries
+    init_ids = init_ids.to(torch.int32)
+    init_d = gathered_dists(q, data, init_ids, metric, norms)
+    r_d, r_i, r_e = init_retset(init_d, init_ids, width)
+    acc = accept.to(device=q.device, dtype=torch.bool)
+
+    def accepted_only(d, i):
+        ok = acc[i.clamp(min=0).long()] & (i >= 0)
+        return torch.where(ok, d, PAD_DIST), torch.where(ok, i, PAD_ID)
+
+    p_d, p_i, _ = init_retset(*accepted_only(init_d, init_ids), width)
+    p_e = torch.zeros_like(p_i, dtype=torch.bool)
+    hops = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    evals = (init_ids >= 0).sum(1, dtype=torch.int32)
+    for it in range(max_hops):
+        bound = p_d[:, -1:]
+        if it % _CHECK_EVERY == 0 and not bool((~r_e & (r_d < bound)).any()):
+            break
+        r_e = r_e | (r_d >= bound)
+        sel_ids, sel_valid, r_e = _select_frontier(r_i, r_e, expand)
+        nbrs = _expand(adj, sel_ids, sel_valid)
+        cd = gathered_dists(q, data, nbrs, metric, norms)
+        r_d, r_i, r_e = merge_into_retset(r_d, r_i, r_e, cd, nbrs)
+        p_d, p_i, _ = merge_into_retset(p_d, p_i, p_e,
+                                        *accepted_only(cd, nbrs))
+        _hop_counts(hops, evals, sel_valid, nbrs)
+    return BeamResult(p_d, p_i, hops, evals)
+
+
+def _not_ported(name: str):
+    raise NotImplementedError(
+        f"{name} is not ported: it serves callers inside one compiled "
+        f"program (parallel/mesh.py, models/extensions.py), which are not "
+        f"ported yet (ROADMAP.md Queue 1 steps 7 and 10); host-driven code "
+        f"uses the chunked beams of this module")
+
+
+def beam_search(*args, **kwargs):
+    """The while-loop beam of the JAX package (beam.py:73)."""
+    _not_ported("beam_search")
+
+
+def beam_search_collect(*args, **kwargs):
+    """The while-loop collect beam of the JAX package (beam.py:418)."""
+    _not_ported("beam_search_collect")
+
+
+def random_fill_ids(*args, **kwargs):
+    """The JAX package's random init fill (beam.py:558)."""
+    _not_ported("random_fill_ids")

@@ -3,7 +3,7 @@
 from .bruteforce import brute_force_topk, knn_graph_exact, recall
 from .distance import (
     PAD_DIST, PAD_ID, as_f32_queries, exact_from_fast, gathered_dists,
-    pairwise_dists, point_dists, squared_norms,
+    normalize, pairwise_dists, point_dists, squared_norms,
 )
 from .topk import (
     empty_retset, init_retset, mask_internal_dups, merge_into_retset,
@@ -14,6 +14,6 @@ __all__ = [
     "PAD_DIST", "PAD_ID", "as_f32_queries", "brute_force_topk",
     "empty_retset", "exact_from_fast", "gathered_dists", "init_retset",
     "knn_graph_exact", "mask_internal_dups", "merge_into_retset",
-    "merge_into_retset_sorted", "pairwise_dists", "point_dists", "recall",
+    "merge_into_retset_sorted", "normalize", "pairwise_dists", "point_dists", "recall",
     "squared_norms", "topk_smallest",
 ]

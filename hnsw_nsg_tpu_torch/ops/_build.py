@@ -108,6 +108,8 @@ def load_library() -> ctypes.CDLL:
         ci, ci, ci, ci, vp,              # Q, L, C, expand, stream
     ]
     lib.merge_select.restype = ci
+    lib.merge_select_general.argtypes = lib.merge_select.argtypes
+    lib.merge_select_general.restype = ci
     lib.merge_select_occupancy.argtypes = [ci, ci]      # L, C
     lib.merge_select_occupancy.restype = ci
     lib.cluster_join.argtypes = [

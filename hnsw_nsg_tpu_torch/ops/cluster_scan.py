@@ -18,9 +18,10 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. ``launches`` counts kernel launches.
-The kernel takes k <= ``MAX_K`` = 32 and, for bf16 x bf16 (its
-tensor-core path keeps the 32 query rows of a block in shared memory),
-d <= ``MAX_D_BF16`` = 1920; the JAX functions have neither limit.
+The kernel takes k <= ``MAX_K`` = 32, a limit the JAX functions do not
+have. bf16 x bf16 runs on tensor cores up to d = ``MAX_D_BF16`` = 1920
+(that path keeps the 32 query rows of a block in shared memory) and on
+the CUDA-core kernel of the other dtype pairs above it.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
@@ -52,7 +53,7 @@ _PAIRS = {
     (torch.bfloat16, torch.int8),
 }
 MAX_K = 32
-MAX_D_BF16 = 1920   # bf16 x bf16 on the card
+MAX_D_BF16 = 1920   # bf16 x bf16 on tensor cores; wider d: CUDA cores
 
 
 def _check(qc, qidx, slabs, bias, k):
@@ -98,8 +99,6 @@ def _launch(qc, qidx, slabs, bias, k: int, scale: float):
     c, cap = qidx.shape
     qn, d = qc.shape
     maxc = slabs.shape[1]
-    if qc.dtype == slabs.dtype == torch.bfloat16 and d > MAX_D_BF16:
-        raise ValueError(f"d={d} above the bf16 kernel's {MAX_D_BF16}")
     vals = torch.empty((c, cap, k), dtype=torch.float32, device=qc.device)
     idx = torch.empty((c, cap, k), dtype=torch.int32, device=qc.device)
     if c == 0 or cap == 0 or qn == 0:
@@ -178,8 +177,7 @@ def grouped_cluster_topk_reference(qv, slabs, bias, k: int, scale: float):
 def grouped_cluster_topk_gq(qc, qidx, slabs, bias, k: int, scale: float):
     """qc [qn, d], qidx [C, cap] (-1 pad), slabs [C, maxc, d], bias [C, maxc]
     f32 (+inf on pad slots) -> (vals, idx) [C, cap, k]. Rows with qidx < 0
-    carry unspecified results the caller must mask. On the card k <= 32,
-    and d <= 1920 for bf16 x bf16."""
+    carry unspecified results the caller must mask. On the card k <= 32."""
     if _on_cpu(qc, qidx, slabs, bias):
         return grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                  scale)

@@ -59,6 +59,17 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
     return (xf * xf).sum(-1)
 
 
+def normalize(x, eps: float = 1e-30):
+    """Row-normalize vectors (cosine support, ref bindings.cpp:241-249):
+    x / sqrt(max(||x||^2, eps)), in f32, returned in x's dtype. Takes a
+    tensor, or numpy (and then returns numpy, computed on the host)."""
+    if not isinstance(x, torch.Tensor):
+        return normalize(torch.from_numpy(np.ascontiguousarray(x)),
+                         eps).numpy()
+    n = torch.sqrt(squared_norms(x).clamp(min=eps))
+    return (x.float() / n[..., None]).to(x.dtype)
+
+
 def f32_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., m, d] x b [..., n, d]^T -> f32 [..., m, n]: operands upcast
     to f32 (exact for bf16 and int8 values), product in f32 without TF32.

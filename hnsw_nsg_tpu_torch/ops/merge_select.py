@@ -9,14 +9,20 @@
 including the tie order (retset before candidates, then position), the
 PAD_DIST/PAD_ID handling and PAD_ID in invalid select slots. CPU tensors
 take that composition (``merge_select_reference``); CUDA tensors launch
-the hand-written kernel ``csrc/merge_select.cu`` (a warp per query: the
-retset ids in the lanes' registers, every candidate broadcast and
-compared with them, a rank sort of the kept candidates, a merge path), or
-the wrapper raises. ``launches`` counts kernel launches and
-``launches_by_shape`` splits the same count by (Q, L, C, expand). The
-kernel takes L <= ``MAX_L`` = 512 (16 retset ids a lane; the widest
-retset of a ported path is the NSG build's pool of 500) and
-C <= ``MAX_C`` = 1024; the JAX function has neither limit.
+one of the two hand-written kernels of ``csrc/merge_select.cu``, or the
+wrapper raises:
+
+  * L <= ``MAX_L`` = 512 and C <= ``MAX_C`` = 1024: a warp per query, the
+    retset ids in the lanes' registers, every candidate broadcast and
+    compared with them, a rank sort of the kept candidates, a merge path;
+  * anything wider, up to L <= ``GENERAL_MAX_L`` = 16384 and
+    C <= ``GENERAL_MAX_C`` = 4096 (an HNSW search with ``ef`` above 512,
+    a beam whose expand * R passes 1024): the general kernel, a block per
+    query with the retset in shared memory, simple and not tuned.
+
+``launches`` counts the launches of both, ``launches_by_shape`` splits
+the same count by (Q, L, C, expand) and ``general_launches`` is the
+general kernel's share. The JAX function has no limit on L or C.
 
 Not carried over from the TPU wrapper, none of which changes a result:
 the power-of-two padding of L + C and the 16-bit position/expanded
@@ -37,7 +43,9 @@ from .topk import merge_into_retset
 # kernel launches made by fused_merge_select (CUDA tensors only)
 launches = 0
 launches_by_shape: Counter = Counter()   # (Q, L, C, expand) -> launches
-MAX_L, MAX_C = 512, 1024                 # the kernel's retset, candidates
+general_launches = 0                     # of them, the general kernel's
+MAX_L, MAX_C = 512, 1024                 # the warp-per-query kernel
+GENERAL_MAX_L, GENERAL_MAX_C = 16384, 4096   # the general kernel
 
 
 def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -64,13 +72,13 @@ def _check(r_d, r_i, r_e, c_d, c_i, expand: int):
         raise ValueError("c_d, c_i must share one [Q, C] shape")
     if not 1 <= expand <= l:
         raise ValueError(f"expand={expand} outside [1, L={l}]")
-    if l > MAX_L or c_d.shape[1] > MAX_C:
-        raise ValueError(f"L={l}, C={c_d.shape[1]} above the kernel's "
-                         f"{MAX_L}, {MAX_C}")
+    if l > GENERAL_MAX_L or c_d.shape[1] > GENERAL_MAX_C:
+        raise ValueError(f"L={l}, C={c_d.shape[1]} above the general "
+                         f"kernel's {GENERAL_MAX_L}, {GENERAL_MAX_C}")
 
 
 def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
-    global launches
+    global launches, general_launches
     from ._build import load_library
 
     q, l = r_d.shape
@@ -83,7 +91,9 @@ def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
     if q == 0:
         return o_d, o_i, o_e, sel_i, sel_v
     lib = load_library()
-    rc = lib.merge_select(
+    general = l > MAX_L or c_d.shape[1] > MAX_C
+    kernel = lib.merge_select_general if general else lib.merge_select
+    rc = kernel(
         r_d.data_ptr(), r_i.data_ptr(), r_e.data_ptr(), c_d.data_ptr(),
         c_i.data_ptr(), o_d.data_ptr(), o_i.data_ptr(), o_e.data_ptr(),
         sel_i.data_ptr(), sel_v.data_ptr(), q, l, c_d.shape[1], expand,
@@ -92,14 +102,15 @@ def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
     if rc != 0:
         raise RuntimeError(f"merge_select kernel launch failed: CUDA error {rc}")
     launches += 1
+    general_launches += general
     launches_by_shape[(q, l, c_d.shape[1], expand)] += 1
     return o_d, o_i, o_e, sel_i, sel_v
 
 
 def occupancy(l: int, c: int) -> int:
     """Queries (warps) that one SM holds at once for retset width ``l`` and
-    ``c`` candidates, as the CUDA runtime reports it for the kernel's
-    launch. Needs the card."""
+    ``c`` candidates, as the CUDA runtime reports it for the launch of the
+    warp-per-query kernel (L <= 512, C <= 1024). Needs the card."""
     from ._build import load_library
 
     warps = load_library().merge_select_occupancy(l, c)
@@ -114,7 +125,8 @@ def fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand: int):
     r_d/r_i/r_e: [Q, L] retset (f32 ascending, int32 PAD-padded, bool
     expanded). c_d/c_i: [Q, C] candidates (PAD_ID and duplicates allowed).
     Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand]).
-    On the card L <= 512 and C <= 1024, else ValueError."""
+    On the card L <= 16384 and C <= 4096 (the general kernel's limits),
+    else ValueError."""
     if _on_cpu(r_d, r_i, r_e, c_d, c_i):
         return merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand)
     _check(r_d, r_i, r_e, c_d, c_i, expand)

@@ -49,14 +49,13 @@ class HNSWConfig:
     allow_replace_deleted: bool = False
     # frontier nodes expanded per lockstep hop during construction beams;
     # >1 trades a few extra distance evals for proportionally fewer
-    # sequential hops (TPU-specific knob, no reference equivalent)
+    # sequential hops (a knob of the batched beam, no hnswlib equivalent)
     insert_expand: int = 4
     # maintain the level-0 link-distance cache (hnsw.adj0_d). Off by
-    # default: with reverse-edge insertion fused into one jitted program
-    # the in-jit recompute (a gathered distance pass) is cheaper than the
-    # cache's per-batch full-array copy traffic — measured 1,423 vs
-    # 1,138 pts/s at 200k (round-4 insert A/B). Kept as an option for
-    # workloads where the recompute dominates (very wide links or dims).
+    # default, as in the JAX package: the reverse-edge round recomputes
+    # the existing links' distances with one gathered pass. Kept as an
+    # option for workloads where the recompute dominates (very wide
+    # links or dims).
     link_dist_cache: bool = False
 
     @property

@@ -14,7 +14,10 @@ import torch
 
 torch.set_num_threads(1)
 
+from hnsw_nsg_tpu_torch.api import Index  # noqa: E402
 from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
+from hnsw_nsg_tpu_torch.models.hnsw import HNSWIndex  # noqa: E402
+from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG  # noqa: E402
 from hnsw_nsg_tpu_torch.models.kmeans import kmeans  # noqa: E402
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
 from hnsw_nsg_tpu_torch.models.nsg import build_nsg  # noqa: E402
@@ -22,7 +25,8 @@ from hnsw_nsg_tpu_torch.ops import cluster_scan as cs  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import merge_select as ms  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
 from hnsw_nsg_tpu_torch.ops.topk import init_retset  # noqa: E402
-from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig  # noqa: E402,E501
+from hnsw_nsg_tpu_torch.utils.params import (  # noqa: E402
+    CNNSConfig, HNSWConfig, NSGBuildConfig)
 from hnsw_nsg_tpu_torch.utils.synth import (  # noqa: E402
     MERGE_STATE_KINDS, adversarial_merge_state, make_data)
 
@@ -185,11 +189,33 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
                                    scale)
     with pytest.raises(ValueError):           # mixed devices
         cs.grouped_cluster_topk_gq(qc.cpu(), qidx, slabs, bias, 10, scale)
-    d = cs.MAX_D_BF16 + 8                     # past the bf16 kernel's d
-    wide = [torch.zeros(s, dtype=torch.bfloat16, device=card)
-            for s in ((20, d), (4, 64, d))]
-    with pytest.raises(ValueError):
-        cs.grouped_cluster_topk_gq(wide[0], qidx, wide[1], bias, 10, scale)
+
+
+@pytest.mark.cuda
+def test_bf16_scan_past_the_tensor_core_width(card):
+    """bf16 x bf16 with d above MAX_D_BF16 runs on the CUDA-core kernel
+    (f32 sums of exact bf16 products in another order: rtol 1e-5, atol
+    1e-2 at |bias| ~ 2d); a slot that differs scores its value."""
+    d = cs.MAX_D_BF16 + 8
+    qc, qidx, slabs, bias, scale = _case(41, torch.bfloat16, torch.bfloat16,
+                                         "l2", 4, 20, 96, d, 50)
+    before = cs.launches
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), 10, scale)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    rv, _ = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, 10,
+                                                 scale)
+    kv, ki = kv.cpu(), ki.cpu()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    fin = live & torch.isfinite(rv)
+    assert torch.equal(torch.isinf(kv[live]), torch.isinf(rv[live]))
+    tol = dict(rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
 
 
 @pytest.mark.cuda
@@ -304,11 +330,54 @@ def test_merge_select_kernel_unaligned_views(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("l,c", [(ms.MAX_L + 1, 50), (64, ms.MAX_C + 1)])
 def test_merge_select_raises_past_the_kernel_limits(card, l, c):
-    state = [t.to(card) for t in _merge_state(1, 4, l, c)]
-    before = ms.launches
+    """Past the warp-per-query kernel's L and C the general kernel is
+    launched, and all five outputs equal the plain version's; past the
+    general kernel's own limits the wrapper raises and launches nothing."""
+    state = _merge_state(1, 4, l, c)
+    want = ms.merge_select_reference(*state, 1)
+    before, g_before = ms.launches, ms.general_launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), 1)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1
+    assert ms.general_launches == g_before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    wide = [t.to(card) for t in _merge_state(
+        1, 2, ms.GENERAL_MAX_L + 1 if l > 64 else 64,
+        50 if l > 64 else ms.GENERAL_MAX_C + 1)]
     with pytest.raises(ValueError):
-        ms.fused_merge_select(*state, 1)
-    assert ms.launches == before
+        ms.fused_merge_select(*wide, 1)
+    assert ms.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l,c,expand", [
+    (33, 513, 50, 1), (16, 1024, 128, 4), (9, 4096, 128, 1),
+    (20, 200, 1025, 4), (5, 4096, 2048, 8), (12, 600, 32, 600)])
+def test_merge_select_general_kernel_bit_identical(card, q, l, c, expand):
+    state = _merge_state(q + l + c, q, l, c, n_ids=3 * l)
+    want = ms.merge_select_reference(*state, expand)
+    g_before = ms.general_launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    assert ms.general_launches == g_before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,c,expand", [(513, 50, 1), (1024, 128, 4),
+                                        (200, 1025, 2)])
+@pytest.mark.parametrize("kind", MERGE_STATE_KINDS)
+def test_merge_select_general_kernel_adversarial_states(card, kind, l, c,
+                                                        expand):
+    state = [torch.from_numpy(a) for a in adversarial_merge_state(
+        kind, l * 7 + c + expand, 11, l, c)]
+    want = ms.merge_select_reference(*state, expand)
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -447,3 +516,96 @@ def test_nsg_build_and_search_on_card(card):
     assert ms.launches > m1
     _, gt = brute_force_topk(qd, xd, 10)
     assert recall(ids, gt) >= 0.9
+
+
+@pytest.mark.cuda
+def test_hnsw_two_card_builds_of_one_seed_are_one_graph(card):
+    """The reverse-edge round picks, among proposals that collide on one
+    (destination, column), the last in flattened order: two card builds
+    of a seed are the same graph at every level, and it is the CPU's
+    levels and enterpoint too."""
+    x, _ = make_data(6000, 32, 8, "l2", seed=6)
+    built = []
+    for dev in (None, None, "cpu"):
+        idx = HNSWIndex(32, 6000, HNSWConfig(M=8, ef_construction=48),
+                        device=dev)
+        idx.add_items(x, batch_size=2048)
+        built.append(idx)
+    a, b, c = built
+    assert a.adj0.device.type == "cuda"
+    assert torch.equal(a.adj0, b.adj0) and len(a.adj_up) == len(b.adj_up)
+    assert all(torch.equal(u, v) for u, v in zip(a.adj_up, b.adj_up))
+    assert a.check_integrity()
+    np.testing.assert_array_equal(a.levels, c.levels)
+    assert (a.ep, a.max_level) == (c.ep, c.max_level)
+
+
+@pytest.fixture(scope="module")
+def hnsw_file(tmp_path_factory):
+    """One graph built on the CPU and its queries, as an .npz."""
+    if not torch.cuda.is_available():      # made before `card` can skip
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    x, q = make_data(5000, 32, 256, "l2", seed=7)
+    idx = HNSWIndex(32, 5000, HNSWConfig(M=8, ef_construction=48),
+                    device="cpu")
+    idx.add_items(x, batch_size=2048)
+    path = str(tmp_path_factory.mktemp("hnsw") / "h.npz")
+    idx.save(path)
+    return path, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "deleted", "filtered", "ef=600"])
+def test_hnsw_query_on_card_matches_cpu(card, hnsw_file, mode):
+    """One graph (built on the CPU, carried by the .npz) searched on the
+    card and on the CPU: labels equal at >= 99.9% of the slots (f32 sums
+    in another order may swap a near-tie), distances allclose 1e-4."""
+    path, q = hnsw_file
+    gpu, cpu = HNSWIndex.load(path), HNSWIndex.load(path, device="cpu")
+    assert gpu.data.device.type == "cuda"
+    kw = dict(k=10, ef=600 if mode == "ef=600" else 64)
+    if mode == "deleted":
+        for lab in range(0, 400, 3):
+            gpu.mark_deleted(lab)
+            cpu.mark_deleted(lab)
+    if mode == "filtered":
+        kw["filter_ids"] = np.arange(5000) % 4 != 1
+    m0, g0 = ms.launches, ms.general_launches
+    for entry in ("routed", "descend"):
+        gl, gd = gpu.knn_query(q, entry=entry, **kw)
+        cl, cd = cpu.knn_query(q, entry=entry, **kw)
+        same = gl == cl
+        assert same.mean() >= 0.999
+        np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+    if mode in ("plain", "ef=600"):
+        assert ms.launches > m0            # the beam ran the kernel
+        assert (ms.general_launches > g0) == (mode == "ef=600")
+    else:
+        assert ms.launches == m0           # the filtered beam is plain ops
+
+
+@pytest.mark.cuda
+def test_api_and_hybrid_default_to_the_card(card):
+    x, q = make_data(9000, 16, 64, "l2", seed=8)
+    p = Index("l2", 16)
+    p.init_index(9000, M=8, ef_construction=40)
+    p.add_items(x)
+    idx = p._index
+    assert {idx.data.device.type, idx.adj0.device.type,
+            idx.adj_up[0].device.type} == {"cuda"}
+    labels, dists = p.knn_query(x[:64], k=1, ef=40)
+    assert isinstance(labels, np.ndarray)
+    assert (labels[:, 0] == np.arange(64)).mean() >= 0.95
+    h = HybridHNSWNSG(16, 9000, HNSWConfig(M=8, ef_construction=40),
+                      NSGBuildConfig(L=24, R=16, C=100))
+    h.add_points(x)
+    with pytest.raises(NotImplementedError, match="rptree"):
+        h.build_nsg_layer()
+    h.build_nsg_layer(knn_adj=knn_graph_ivf(h.hnsw.data[: h.n], 34,
+                                            n_clusters=12, probes=4,
+                                            as_device=True))
+    assert h.nsg.adj.device.type == h.hnsw.data.device.type == "cuda"
+    hl, _ = h.search_knn(q, k=10, l_search=64)
+    _, gt = brute_force_topk(torch.from_numpy(q).to(card),
+                             torch.from_numpy(x).to(card), 10)
+    assert recall(hl, gt) >= 0.9

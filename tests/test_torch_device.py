@@ -8,12 +8,16 @@ import torch
 
 torch.set_num_threads(1)
 
+from hnsw_nsg_tpu_torch import api  # noqa: E402
 from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
+from hnsw_nsg_tpu_torch.models import hnsw  # noqa: E402
+from hnsw_nsg_tpu_torch.models import hybrid  # noqa: E402
 from hnsw_nsg_tpu_torch.models import nsg  # noqa: E402
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
 from hnsw_nsg_tpu_torch.utils import io as io_utils  # noqa: E402
 from hnsw_nsg_tpu_torch.utils.device import resolve_device  # noqa: E402
-from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig  # noqa: E402,E501
+from hnsw_nsg_tpu_torch.utils.params import (  # noqa: E402
+    CNNSConfig, HNSWConfig, NSGBuildConfig)
 
 
 def _data(n=600, d=8, seed=0):
@@ -68,6 +72,94 @@ def _load_nsg_reference_format(tmp_path):
     return [idx.data, idx.adj]
 
 
+def _hnsw_arrays(idx):
+    return [idx.data, idx.norms, idx.adj0, *idx.adj_up]
+
+
+def _small_hnsw(device="cpu"):
+    idx = hnsw.HNSWIndex(8, 300, HNSWConfig(M=4, ef_construction=16),
+                         device=device)
+    idx.add_items(_data(300))
+    return idx
+
+
+def _hnsw_index(tmp_path):
+    return _hnsw_arrays(_small_hnsw(device=None))
+
+
+def _hnsw_load(tmp_path):
+    p = str(tmp_path / "h.npz")
+    _small_hnsw().save(p)
+    return _hnsw_arrays(hnsw.HNSWIndex.load(p))
+
+
+def _hnsw_load_hnswlib_format(tmp_path):
+    p = str(tmp_path / "h.bin")
+    _small_hnsw().save_hnswlib_format(p)
+    return _hnsw_arrays(hnsw.HNSWIndex.load_hnswlib_format(p))
+
+
+def _hybrid_index(tmp_path):
+    h = hybrid.HybridHNSWNSG(8, 300, HNSWConfig(M=4, ef_construction=16),
+                             NSGBuildConfig(L=16, R=8, C=40))
+    h.add_points(_data(300))
+    h.build_nsg_layer()
+    return [*_hnsw_arrays(h.hnsw), h.nsg.data, h.nsg.adj]
+
+
+def _hybrid_load(tmp_path):
+    h = hybrid.HybridHNSWNSG(8, 300, HNSWConfig(M=4, ef_construction=16),
+                             NSGBuildConfig(L=16, R=8, C=40), device="cpu")
+    h.add_points(_data(300))
+    h.build_nsg_layer()
+    h.save(str(tmp_path / "hy"))
+    back = hybrid.HybridHNSWNSG.load(str(tmp_path / "hy"))
+    return [*_hnsw_arrays(back.hnsw), back.nsg.data, back.nsg.adj]
+
+
+def _api_index(tmp_path):
+    p = api.Index("l2", 8)
+    p.init_index(300, M=4, ef_construction=16)
+    p.add_items(_data(300))
+    return _hnsw_arrays(p._index)
+
+
+def _api_load_index(tmp_path):
+    path = str(tmp_path / "a.bin")
+    _small_hnsw().save_hnswlib_format(path)
+    p = api.Index("l2", 8)
+    p.load_index(path)
+    return _hnsw_arrays(p._index)
+
+
+def _api_unpickle(tmp_path):
+    import pickle
+
+    src = api.Index("l2", 8, device="cpu")
+    src.init_index(300, M=4, ef_construction=16)
+    src.add_items(_data(300))
+    state = src.__getstate__()
+    state["device"] = None              # as a pickle made on the card has it
+    p = api.Index.__new__(api.Index)
+    p.__setstate__(pickle.loads(pickle.dumps(state)))
+    return _hnsw_arrays(p._index)
+
+
+def _api_lazy_index(tmp_path):
+    p = api.LazyIndex("l2", 8, max_elements=300, M=4, ef_construction=16)
+    p.add_items(_data(100))
+    return _hnsw_arrays(p._index)
+
+
+def _api_bf_index(tmp_path):
+    bf = api.BFIndex("l2", 8)
+    bf.init_index(300)
+    bf.add_items(_data(300))
+    labels, _ = bf.knn_query(_data(4), k=2)   # the query resolves the device
+    assert labels.shape == (4, 2)
+    return []
+
+
 ENTRY_POINTS = {
     "build_cnns": _build_cnns,
     "CNNSIndex.load": _load_cnns,
@@ -75,6 +167,16 @@ ENTRY_POINTS = {
     "build_nsg": _build_nsg,
     "NSGIndex.load": _load_nsg,
     "NSGIndex.load_reference_format": _load_nsg_reference_format,
+    "HNSWIndex": _hnsw_index,
+    "HNSWIndex.load": _hnsw_load,
+    "HNSWIndex.load_hnswlib_format": _hnsw_load_hnswlib_format,
+    "HybridHNSWNSG": _hybrid_index,
+    "HybridHNSWNSG.load": _hybrid_load,
+    "api.Index": _api_index,
+    "api.Index.load_index": _api_load_index,
+    "api.Index unpickled": _api_unpickle,
+    "api.LazyIndex": _api_lazy_index,
+    "api.BFIndex": _api_bf_index,
 }
 
 
