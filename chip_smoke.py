@@ -6,17 +6,23 @@ Phases, each of which fails the run (non-zero exit) on its own:
   1. device and build: require CUDA, print the card's name and power
      limit, compile the kernels from ``hnsw_nsg_tpu_torch/csrc`` (one nvcc
      per source, in parallel);
-  2. the grouped-scan kernel versus its plain PyTorch version on the card,
-     per dtype pair, metric and shape (the bench shape at k=10, the CNNS
-     search's own call at k=20, d=960, d=1928 on the CUDA-core kernel,
-     cap=80 with k=32, d=100), with the
-     tolerance and the count of near-tie ids stated beside each case, and
-     both times and the bound of each;
+  2. the grouped-scan kernels versus their plain PyTorch version on the
+     card, per dtype pair, metric and shape (the bench shape at k=10, the
+     CNNS search's own call at k=20, d=960, d=1928 on the CUDA-core
+     kernel, cap=80 with k=32, d=100), with the tolerance and the count
+     of near-tie ids stated beside each case, and both times and the
+     bound of each; the general kernel (k > 32) at k = 33, 64, 100, 256
+     on the bench shape and k = maxc on a small one, every dtype pair,
+     and at the CNNS search's own call at k=100 (k=200, bf16), timed
+     there and at k=100;
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
-     ``CNNSIndex.search`` (Q=8192, k=10) until recall@10 >= 0.95, with the
-     kernel's launch count read around it;
+     ``CNNSIndex.search`` (Q=8192, k=10) until recall@10 >= 0.95; at that
+     nprobe one search at the entry point's default k=100 (the general
+     kernel), whose first 10 columns must keep recall@10 within 0.002,
+     with recall@100 and its batch time; both kernels' launch counts are
+     read around it;
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
@@ -29,7 +35,7 @@ Phases, each of which fails the run (non-zero exit) on its own:
      cluster-join kernel versus its plain version at small shapes (f32:
      l2 group 1, an inf tail; bf16 on tensor cores: ip group 4, group 8
      with a ragged bucket tile, d=960, d=100, maxc=200, k=64, a sparse
-     last cluster);
+     last cluster; the general kernel at k = 65 and 102, bf16 and f32);
   5. the HNSW path at 1M points through the hnswlib-compatible API:
      ``Index("l2", 128)``, ``init_index(N, M=16, ef_construction=200)``,
      ``add_items`` (seconds, points/s, each insert phase's seconds),
@@ -38,7 +44,17 @@ Phases, each of which fails the run (non-zero exit) on its own:
      ``knn_query`` (Q=8192, k=10) with ``set_ef`` over 16..256 and one
      batch at ef=1024, which runs the general merge+select kernel on real
      beam states. It fails unless recall@10 >= 0.95 at some ef <= 256 and
-     ef=1024 is no lower than ef=256;
+     ef=1024 is no lower than ef=256. Then ``build_accel`` (seconds,
+     bytes) and the same ef sweep over the packed int8 records (recall
+     beside the plain path's, batch ms, expansions and evaluations),
+     gated the same and failing unless merge+select launched; one plain
+     and one records search at ef=96 under torch.profiler (device ms a
+     hop, the gather's and the products' shares, the idle share, bytes
+     gathered a hop);
+ 5b. ``add_items(accel=True)`` on the first 250,000 points: seconds,
+     points/s and each stage; the maintained record rows must equal a
+     fresh pack of the final graph at the same scale; recall at ef=96
+     against the cut's brute force;
   6. the hybrid path on the same data: ``HybridHNSWNSG(128, N,
      nsg_cfg=NSGBuildConfig())``, ``add_points`` (a second insert of the
      same seed: its graph must equal phase 5's at every level),
@@ -50,13 +66,18 @@ Phases, each of which fails the run (non-zero exit) on its own:
      from sampled entries; then ``search_knn`` over the same sweep with
      ``entry="routed"`` and at l_search=64 with ``entry="descend"``. It
      fails unless the routed entry reaches recall@10 >= 0.95 at some
-     l_search <= 256. Both kernels' launch counts are set to 0 before and
-     read after each path, merge+select's also by shape and by kernel;
+     l_search <= 256. Then ``build_accel`` and the routed sweep over the
+     records, gated the same, profiled as in phase 5; and a kNN graph at
+     k=100 through ``knn_graph_ivf`` (the general join kernel, with its
+     recall). The kernels' launch counts are set to 0 before and read
+     after each path, merge+select's also by shape and by kernel;
   7. the cluster-join kernel versus its plain version at the build shape
-     (C from phase 6, maxc 2112, M=8, d=128, bf16, k=52): both times,
-     the id mismatches at near-ties, the bound (the products of the
-     finite-bias slots only) and the kernel's share of it;
-  8. the kernels line (times, launches, errors and each kernel's bound:
+     (C from phase 6, maxc 2112, M=8, d=128, bf16, k=52, and the general
+     kernel at k=102): both times, the id mismatches at near-ties, the
+     bound (the products of the finite-bias slots only) and the kernel's
+     share of it;
+  8. the kernels line (six entries: times, launches, errors and each
+     kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      989 TFLOP/s bf16 peak), and the last line:
      ``{"ok": true, "device": ...}``.
@@ -230,19 +251,49 @@ def phase_kernels(gen):
         ("d=100 bf16 l2", 256, 1000, 100, 32, 2048, bf, bf, "l2", 10,
          1e-5, 1e-3),
     ]
+    # the general kernel (k > 32): the bench shape at k = 33, 64, 100 and
+    # 256 and a small case at k = maxc, every dtype pair, with the
+    # tolerances of the cases above
+    pair_tol = {(bf, bf): (1e-5, 1e-3), (f32, f32): (1e-5, 1e-3),
+                (i8, i8): (0.0, 0.0), (bf, i8): (1e-5, 0.5)}
+    for (qdt, sdt), (rtol, atol) in pair_tol.items():
+        tag = "int8xint8" if qdt == i8 else "SQ8" if sdt == i8 else \
+            str(qdt).split(".")[-1]
+        for k in (33, 64, 100, 256):
+            cases.append((f"general {tag} l2 k={k}", b["c"], b["maxc"],
+                          b["d"], b["cap"], b["qn"], qdt, sdt, "l2", k,
+                          rtol, atol))
+        cases.append((f"general {tag} l2 k=maxc=300", 16, 300, 64, 32, 500,
+                      qdt, sdt, "l2", 300, rtol, atol))
+    # the CNNS search's own call at its default k = 100: k = 2 * 100 of a
+    # replicated index (each row's buffer 2k + 32 keys, one block an SM)
+    cases.append(("main path bf16 l2 k=200", b["c"], b["maxc"], b["d"],
+                  b["cap"], b["qn"], bf, bf, "l2", 200, 1e-5, 1e-3))
+    timed_general = ("general bfloat16 l2 k=100", "main path bf16 l2 k=200")
     bench_err = None
     main = None   # (kernel ms, plain ms, bound) at the main path's k = 20
+    general = None   # the same of the general kernel at the main path's k
+    general_err = 0.0
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
          atol) in cases:
         qc, qidx, slabs, bias, scale = make_case(
             gen, c, maxc, d, cap, qn, qdt, sdt, metric)
         args = (qc, qidx, slabs, bias, k, scale)
+        g0 = cs.general_launches
         got = cs.grouped_cluster_topk_gq(*args)
         torch.cuda.synchronize()
+        if cs.general_launches != g0 + (k > cs.MAX_K):
+            raise AssertionError(f"{name}: k={k} ran the wrong kernel")
         want = cs.grouped_cluster_topk_gq_reference(*args)
         full = bias[:, None, :] - scale * cs._dots_reference(
             cs._gather_queries(qc, qidx), slabs)
         err = check_scan(name, got, want, full, qidx >= 0, rtol, atol)
+        if k > cs.MAX_K:
+            general_err = max(general_err, err)
+            if name not in timed_general:
+                del qc, qidx, slabs, bias, got, want, full, args
+                torch.cuda.empty_cache()
+                continue
         k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args), reps=10)
         p_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq_reference(*args),
                        reps=3)
@@ -254,8 +305,11 @@ def phase_kernels(gen):
               f"(median); bound {b_case[0]:.4f} ms ({b_case[1]}), kernel "
               f"at {b_case[0] / k_ms:.1%} of it")
         if name.startswith("main path"):
-            bench_err = max(bench_err, err)
-            main = (k_ms, p_ms, b_case)
+            if k > cs.MAX_K:
+                general = (k_ms, p_ms, b_case)
+            else:
+                bench_err = max(bench_err, err)
+                main = (k_ms, p_ms, b_case)
         if name == "bench bf16 l2":
             bench_err = err
             # the d-blocked and pre-gathered entry points, same inputs
@@ -277,7 +331,7 @@ def phase_kernels(gen):
             del qv
         del qc, qidx, slabs, bias, got, want, full, args
         torch.cuda.empty_cache()
-    return (bench_err, *main)
+    return bench_err, main, general_err, general
 
 
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
@@ -300,10 +354,13 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
     t0 = time.perf_counter()
     _, gt = brute_force_topk(qd, xd, k, "l2")
     gt = gt.cpu()
-    print(f"ground truth (f32, TF32 off): {time.perf_counter() - t0:.1f} s")
+    _, gt100 = brute_force_topk(qd, xd, 100, "l2")
+    gt100 = gt100.cpu()
+    print(f"ground truth (f32, TF32 off), k=10 and k=100: "
+          f"{time.perf_counter() - t0:.1f} s")
     del xd
 
-    cs.launches = 0
+    cs.launches = cs.general_launches = 0
     sync()
     t0 = time.perf_counter()
     idx = build_cnns(
@@ -337,13 +394,29 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
         if r >= TARGET_RECALL:
             reached = nprobe
             break
-    launches = cs.launches
-    print(f"kernel launches during build + sweep: {launches}")
-    if launches <= 0:
-        raise AssertionError("the search never launched the grouped scan kernel")
     if reached is None or reached > 4:
         raise AssertionError(
             f"recall@10 >= {TARGET_RECALL} not reached at nprobe <= 4: {sweep}")
+    # the entry point's own default, k = 100 (the general kernel): its
+    # first 10 columns are the same exact top-10 of the probed slabs
+    d100, i100 = idx.search(qd, k=100, nprobe=reached)
+    r10, r100 = recall(i100[:, :10].cpu(), gt), recall(i100.cpu(), gt100)
+    med, lo, hi = timed_query(
+        lambda: idx.search(qd, k=100, nprobe=reached)[1].cpu())
+    print(f"nprobe={reached} k=100: recall@10={r10:.4f} (k=10 run: "
+          f"{sweep[-1]['recall']:.4f}) recall@100={r100:.4f} median "
+          f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, max "
+          f"{hi * 1e3:.3f} ms) [{card}]")
+    if tuple(i100.shape) != (nq, 100) or abs(r10 - sweep[-1]["recall"]) > 0.002:
+        raise AssertionError(f"k=100 gives shape {tuple(i100.shape)}, "
+                             f"recall@10 {r10} against {sweep[-1]['recall']}")
+    if not bool(torch.isfinite(d100).all()):
+        raise AssertionError("non-finite distances at k=100")
+    launches, general = cs.launches, cs.general_launches
+    print(f"kernel launches during build + sweep + k=100: {launches}, of "
+          f"them {general} by the general kernel")
+    if launches - general <= 0 or general <= 0:
+        raise AssertionError("the search did not launch both scan kernels")
 
     # output check: shape, finiteness, order, in-range ids, and the
     # returned distances against exact f32 distances of the returned ids
@@ -361,7 +434,7 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
            - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
     if not torch.allclose(ddh[:256], ex, rtol=1e-2, atol=1e-1):
         raise AssertionError("returned distances disagree with exact ones")
-    return launches
+    return launches, general
 
 
 def merge_state(seed, q, l, c, expand, n_ids=20000, fill=0.7):
@@ -580,9 +653,11 @@ def phase_join_small():
     (the query streams); d = 100 (padded to 104); maxc = 200, not a
     multiple of the 128-row tile; k = 64 (MAX_JOIN_K); a sparse last
     cluster whose finite buckets are fewer than k. f32 sums of d exact
-    products in another order: atol covers a few ulps of |bias| (~2d)."""
+    products in another order: atol covers a few ulps of |bias| (~2d).
+    Returns the worst |vals error| of the fast kernels' cases and that of
+    the general kernel's (k > 64)."""
     f32, bf = torch.float32, torch.bfloat16
-    worst = 0.0
+    worst = {False: 0.0, True: 0.0}   # by kernel: fast, general (k > 64)
     # (name, join_case args (seed, c, maxc, mm, d, dtype, metric[,
     # sparse_last]), k, (rtol, atol))
     for name, args, k, tol in [
@@ -604,16 +679,32 @@ def phase_join_small():
          (1e-5, 1e-3)),
         ("bf16 l2 sparse last cluster", (10, 3, 64, 512, 128, bf, "l2", 5),
          20, (1e-5, 1e-3)),
+        # the general kernel (k > 64): 8 rows a block at g = 2048, 4 at
+        # g = 4096; a sparse last cluster with fewer finite buckets than k
+        ("general bf16 l2 k=65", (11, 4, 200, 4096, 128, bf, "l2"), 65,
+         (1e-5, 1e-3)),
+        ("general bf16 l2 k=102 sparse last", (12, 3, 150, 8192, 128, bf,
+                                               "l2", 40), 102, (1e-5, 1e-3)),
+        ("general f32 ip k=65", (13, 2, 100, 2048, 64, f32, "ip"), 65,
+         (1e-5, 1e-4)),
+        ("general f32 l2 k=102", (14, 2, 100, 4096, 64, f32, "l2"), 102,
+         (1e-5, 1e-3)),
     ]:
         qv, st, bias, scale = join_case(*args)
         err, _, _ = check_join(name, qv, st, bias, k, scale, *tol)
-        worst = max(worst, err)
-    return worst
+        general = k > 64
+        worst[general] = max(worst[general], err)
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    if cs.join_general_launches != 4:
+        raise AssertionError("a k > 64 case did not run the general join")
+    return worst[False], worst[True]
 
 
 def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52):
-    """Kernel B vs plain at the build shape of phase 5 (the plain version
-    runs chunked over clusters: the whole f32 block would be ~140 GB).
+    """Kernel B vs plain at the build shape of phase 6 (the plain version
+    runs chunked over clusters: the whole f32 block would be ~140 GB), at
+    the hybrid's join k = 52 (the tensor-core kernel) or, with k = 102,
+    the k of phase 6's kNN graph at k = 100 (the general kernel).
     Returns (max |vals error|, kernel ms, plain ms, (bound ms, bound by))."""
     qv, st, bias, scale = join_case(4, n_slabs, maxc, probes * maxc, d,
                                     torch.bfloat16, "l2")
@@ -704,6 +795,76 @@ def reset_counts(cs, ms):
     cs.launches = cs.join_launches = 0
     ms.launches = ms.general_launches = 0
     ms.launches_by_shape.clear()
+
+
+def profile_search(label, fn, wall_ms, row_bytes, card):
+    """One search under torch.profiler: device time (the kernels' self
+    time), its lockstep hops (merge+select launches), device ms a hop, the
+    share of the gather kernels (names with "index" or "gather") and of
+    the products (cuBLAS "gemv"/"gemm"), the idle share against
+    ``wall_ms`` (the median of the unprofiled runs), and the bytes
+    gathered a hop: rows gathered (the Q of every launch, dead rows
+    included) times ``row_bytes``, over the hops. On the host side: the
+    self CPU time of the host events (aten ops and CUDA runtime calls,
+    inflated by the profiler's own cost) a hop, apart from the time spent
+    waiting in synchronize calls; the aten calls and kernel launches a
+    hop; and the events that take the most host time. Returns the dict it
+    prints."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+
+    torch.cuda.synchronize()
+    m0 = ms.launches
+    shapes0 = dict(ms.launches_by_shape)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hops = ms.launches - m0
+    rows = sum(q_ * (cnt - shapes0.get((q_, l_, c_, e_), 0)) * e_
+               for (q_, l_, c_, e_), cnt in ms.launches_by_shape.items())
+    total = gather = prod = host = wait = 0.0
+    top, host_top = [], []
+    aten_calls = launch_calls = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            cpu = ev.self_cpu_time_total / 1e3
+            if "Synchronize" in ev.key:
+                wait += cpu
+                continue
+            host += cpu
+            aten_calls += ev.count if ev.key.startswith("aten::") else 0
+            launch_calls += ev.count if ev.key == "cudaLaunchKernel" else 0
+            host_top.append((cpu, ev.count, ev.key[:40]))
+            continue
+        dev = ev.self_device_time_total / 1e3
+        total += dev
+        key = ev.key.lower()
+        if "index" in key or "gather" in key:
+            gather += dev
+        elif "gemv" in key or "gemm" in key:
+            prod += dev
+        top.append((dev, ev.count, ev.key[:70]))
+    top.sort(reverse=True)
+    host_top.sort(reverse=True)
+    per_hop = max(hops, 1)
+    out = dict(search=label, device_ms=total, wall_ms=wall_ms,
+               idle_share=1.0 - total / wall_ms, lockstep_hops=hops,
+               device_ms_per_hop=total / per_hop,
+               gather_share=gather / max(total, 1e-9),
+               product_share=prod / max(total, 1e-9),
+               bytes_gathered_per_hop=rows * row_bytes / per_hop,
+               top=[dict(ms=t, calls=c, kernel=k) for t, c, k in top[:6]],
+               host_ms_per_hop=host / per_hop, host_wait_ms=wait,
+               aten_calls_per_hop=aten_calls / per_hop,
+               launches_per_hop=launch_calls / per_hop,
+               host_top=[dict(ms=t, calls=c, event=k)
+                         for t, c, k in host_top[:8]],
+               card=card)
+    print("profile " + json.dumps(out))
+    return out
 
 
 def timed_query(fn, reps=10):
@@ -825,9 +986,114 @@ def phase_hnsw(card, x, queries, gt):
     print(f"HNSW recall@10 >= {TARGET_RECALL} first at ef={reached}")
     launches = build_launches + ms.launches
     general = build_general + ms.general_launches
-    del p, idx
+    plain_ms = {}
+    for ef in (96, 256):
+        p.set_ef(ef)
+        plain_ms[ef] = timed_query(lambda: p.knn_query(queries, k=k))[0] * 1e3
+    # a plain level-0 hop gathers the adjacency row, R data rows and R
+    # norms of each frontier node (R = 2M = 32, f32 rows)
+    r0 = idx.adj0.shape[1]
+    p.set_ef(96)
+    profile_search("HNSW plain ef=96", lambda: p.knn_query(queries, k=k),
+                   plain_ms[96], r0 * 4 + r0 * (4 * d + 4), card)
+
+    # the packed int8 records (build_accel) and the same sweep over them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.build_accel()
+    torch.cuda.synchronize()
+    g = idx._records
+    print(f"HNSW build_accel: {time.perf_counter() - t0:.2f} s, records "
+          f"{g.nbytes() / 1e9:.4f} GB ({g.n} rows of {g.s * 512} B, R={g.r}) "
+          f"[{card}]")
+    reset_counts(cs, ms)
+    rec, reached_rec = {}, None
+    for ef in EF_SWEEP:
+        p.set_ef(ef)
+        h0, e0 = idx.metric_hops, idx.metric_distance_computations
+        labels, dists = p.knn_query(queries, k=k)
+        hops, evals = (idx.metric_hops - h0,
+                       idx.metric_distance_computations - e0)
+        r = recall(labels, gt)
+        med, lo, hi = timed_query(lambda: p.knn_query(queries, k=k))
+        rec[ef] = (r, med * 1e3)
+        print(f"records ef={ef}: recall@10={r:.4f} (plain {sweep[ef]:.4f}) "
+              f"median {med * 1e3:.3f} ms QPS={nq / med:.1f} (min "
+              f"{lo * 1e3:.3f}, max {hi * 1e3:.3f} ms); expansions {hops}, "
+              f"distance evaluations {evals} [{card}]")
+        if r >= TARGET_RECALL and reached_rec is None:
+            reached_rec = ef
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    launch_split(ms, "HNSW records search")
+    rec_launches = ms.launches
+    if rec_launches <= 0:
+        raise AssertionError("the records search did not launch merge_select")
+    if reached_rec is None:
+        raise AssertionError(f"HNSW records recall@10 >= {TARGET_RECALL} not "
+                             f"reached at ef <= 256: {rec}")
+    print(f"HNSW records recall@10 >= {TARGET_RECALL} first at ef="
+          f"{reached_rec} (plain: ef={reached})")
+    p.set_ef(96)
+    profile_search("HNSW records ef=96", lambda: p.knn_query(queries, k=k),
+                   rec[96][1], g.s * 512, card)
+    print(f"HNSW ef=96 a batch: plain {plain_ms[96]:.3f} ms, records "
+          f"{rec[96][1]:.3f} ms; ef=256: plain {plain_ms[256]:.3f}, records "
+          f"{rec[256][1]:.3f} [{card}]")
+    launches += rec_launches
+    general += ms.general_launches
+    del p, idx, g
     torch.cuda.empty_cache()
-    return launches, general, graph
+    return launches, general, graph, rec_launches
+
+
+def phase_accel_insert(card, x, queries, n=250_000):
+    """add_items(accel=True) on the first ``n`` points: the records are
+    maintained through the inserts and the level-0 beams walk them. The
+    maintained rows must equal a fresh pack of the final graph at the
+    same scale. Returns merge+select's launches."""
+    from hnsw_nsg_tpu_torch.models.hnsw import HNSWIndex
+    from hnsw_nsg_tpu_torch.models.records import build_record_graph
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.utils.params import HNSWConfig
+
+    d = x.shape[1]
+    reset_counts(cs, ms)
+    idx = HNSWIndex(d, n, HNSWConfig(M=16, ef_construction=200))
+    idx.stage_seconds = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.add_items(x[:n], accel=True)
+    torch.cuda.synchronize()
+    ins_s = time.perf_counter() - t0
+    stages = ", ".join(f"{nm} {sec:.2f}" for nm, sec in
+                       idx.stage_seconds.items())
+    print(f"HNSW add_items(accel=True) at N={n}: {ins_s:.2f} s, "
+          f"{n / ins_s:.1f} points/s; seconds by phase: {stages} [{card}]")
+    idx.stage_seconds = None
+    launch_split(ms, "HNSW accel insert")
+    g = idx._records
+    fresh = build_record_graph(idx.data, idx.adj0[:, : g.r], idx.norms,
+                               scale=g.scale)
+    if not torch.equal(fresh.rows, g.rows):
+        raise AssertionError("the maintained records differ from a fresh "
+                             "pack of the final graph")
+    print(f"maintained records ({g.nbytes() / 1e9:.4f} GB, scale "
+          f"{g.scale:.6g}) equal a fresh pack of the final adj0[:, :{g.r}]")
+    if not idx.check_integrity():
+        raise AssertionError("the accel-built HNSW fails check_integrity")
+    qd = torch.from_numpy(queries).cuda()
+    _, gt = brute_force_topk(qd, idx.data[:n], 10)
+    labels, _ = idx.knn_query(queries, k=10, ef=96)
+    print(f"accel-built N={n}, records search ef=96: recall@10="
+          f"{recall(labels, gt.cpu()):.4f} (against the cut's brute force)")
+    launches = ms.launches
+    if launches <= 0:
+        raise AssertionError("the accel insert did not launch merge_select")
+    del idx, g, fresh, qd
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_hybrid(card, x, queries, gt, hnsw_graph):
@@ -835,6 +1101,7 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
     and, on its NSG, the NSG path from the medoid. Returns (join launches,
     merge launches, general launches, n_slabs)."""
     from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG
+    from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
     from hnsw_nsg_tpu_torch.ops import recall
@@ -955,10 +1222,75 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
           f"(N={n})")
     m_launches = build_counts[1] + nsg_counts[0] + ms.launches
     g_launches = build_counts[2] + nsg_counts[1] + ms.general_launches
+    plain_ms = {ls: timed_query(lambda: hyb.search_knn(
+        queries, k=k, l_search=ls))[0] * 1e3 for ls in (64, 256)}
+    # a plain NSG hop gathers the adjacency row, R data rows and R norms of
+    # each frontier node (R = 50, f32 rows)
+    r_nsg = idx.adj.shape[1]
+    profile_search("hybrid plain l_search=64",
+                   lambda: hyb.search_knn(queries, k=k, l_search=64),
+                   plain_ms[64], r_nsg * 4 + r_nsg * (4 * d + 4), card)
+
+    # the NSG layer packed into records, and the routed sweep over them
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyb.build_accel()
+    torch.cuda.synchronize()
+    g = idx.records
+    print(f"hybrid build_accel: {time.perf_counter() - t0:.2f} s, records "
+          f"{g.nbytes() / 1e9:.4f} GB ({g.n} rows of {g.s * 512} B, R={g.r}) "
+          f"[{card}]")
+    reset_counts(cs, ms)
+    rec, reached_rec = {}, None
+    for ls in L_SWEEP:
+        labels, dists = hyb.search_knn(queries, k=k, l_search=ls)
+        r = recall(labels, gt)
+        med, lo, hi = timed_query(
+            lambda: hyb.search_knn(queries, k=k, l_search=ls))
+        rec[ls] = (r, med * 1e3)
+        print(f"hybrid records routed, l_search={ls}: recall@10={r:.4f} "
+              f"(plain {sweep[ls]:.4f}) median {med * 1e3:.3f} ms QPS="
+              f"{nq / med:.1f} (min {lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) "
+              f"[{card}]")
+        if r >= TARGET_RECALL and reached_rec is None:
+            reached_rec = ls
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    launch_split(ms, "hybrid records search")
+    rec_launches = ms.launches
+    if rec_launches <= 0:
+        raise AssertionError("the records search did not launch merge_select")
+    if reached_rec is None:
+        raise AssertionError(f"hybrid records recall@10 >= {TARGET_RECALL} "
+                             f"not reached at l_search <= 256: {rec}")
+    print(f"hybrid records recall@10 >= {TARGET_RECALL} first at l_search="
+          f"{reached_rec} (plain: {reached})")
+    profile_search("hybrid records l_search=64",
+                   lambda: hyb.search_knn(queries, k=k, l_search=64),
+                   rec[64][1], g.s * 512, card)
+    print(f"hybrid l_search=64 a batch: plain {plain_ms[64]:.3f} ms, records "
+          f"{rec[64][1]:.3f} ms; l_search=256: plain {plain_ms[256]:.3f}, "
+          f"records {rec[256][1]:.3f} [{card}]")
+    m_launches += rec_launches
+    g_launches += ms.general_launches
     n_slabs = stats["n_slabs"]
-    del hyb, idx, h, xd, qd
+    del hyb, idx, h, qd, g
+
+    # the kNN graph at k = 100 (join k = 102, the general join kernel)
     torch.cuda.empty_cache()
-    return build_counts[0], m_launches, g_launches, n_slabs
+    reset_counts(cs, ms)
+    t0 = time.perf_counter()
+    adj100 = knn_graph_ivf(xd, 100, as_device=True)
+    torch.cuda.synchronize()
+    knn100_s = time.perf_counter() - t0
+    print(f"kNN graph k=100: {knn100_s:.2f} s, recall on a 10k-node sample "
+          f"{exact_knn_recall(xd, adj100):.4f} [{card}]")
+    gj_launches = cs.join_general_launches
+    if gj_launches <= 0:
+        raise AssertionError("the k=100 kNN graph did not run the general join")
+    del adj100, xd
+    torch.cuda.empty_cache()
+    return (build_counts[0], m_launches, g_launches, n_slabs, rec_launches,
+            gj_launches)
 
 
 def main() -> int:
@@ -976,14 +1308,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    print("grouped scan kernel vs plain PyTorch version:")
-    max_err, ms, plain_ms, scan_bound = phase_kernels(gen)
+    print("grouped scan kernels vs plain PyTorch version:")
+    max_err, (ms, plain_ms, scan_bound), gen_err, gen_times = \
+        phase_kernels(gen)
 
-    launches = phase_main_path(card)
+    launches, gen_launches = phase_main_path(card)
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
-    join_err = phase_join_small()
+    join_err, gen_join_err = phase_join_small()
 
     from hnsw_nsg_tpu_torch.ops import brute_force_topk
     from hnsw_nsg_tpu_torch.utils.synth import make_data
@@ -996,31 +1329,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"graph phases' data: {GRAPH_N}x128 + 8192 queries and the f32 "
           f"ground truth in {time.perf_counter() - t0:.1f} s")
-    h_launches, h_general, hnsw_graph = phase_hnsw(card, x, queries, gt)
-    j_launches, y_launches, y_general, n_slabs = phase_hybrid(
-        card, x, queries, gt, hnsw_graph)
-    m_launches = h_launches + y_launches
+    h_launches, h_general, hnsw_graph, h_rec = phase_hnsw(card, x, queries,
+                                                          gt)
+    a_launches = phase_accel_insert(card, x, queries)
+    (j_launches, y_launches, y_general, n_slabs, y_rec,
+     gj_launches) = phase_hybrid(card, x, queries, gt, hnsw_graph)
+    m_launches = h_launches + a_launches + y_launches
     g_launches = h_general + y_general
     print(f"merge_select launches over the HNSW and hybrid paths: "
           f"{m_launches}, of them {g_launches} "
-          f"({g_launches / m_launches:.3%}) by the general kernel")
+          f"({g_launches / m_launches:.3%}) by the general kernel; on the "
+          f"records paths: HNSW search {h_rec}, accel insert {a_launches}, "
+          f"hybrid search {y_rec}")
     del x, queries
     build_err, join_ms, join_plain_ms, join_bound = phase_join_build(
         card, n_slabs)
+    gj_err, gj_ms, gj_plain_ms, gj_bound = phase_join_build(
+        card, n_slabs, k=102)
 
     # no single PyTorch call computes any of the functions, so none has a
     # library time; the grouped scan's times are at the call the main path
-    # makes (k = 20), merge+select's at the NSG build's collect pool
-    # (L = 500) and, for its general kernel, at L = 1024 (the ef = 1024
-    # search's shape)
+    # makes (k = 20), its general kernel's at the call that the entry
+    # point's default k = 100 makes (k = 200), merge+select's at the NSG build's
+    # collect pool (L = 500) and, for its general kernel, at L = 1024 (the
+    # ef = 1024 search's shape), the join's at the 1M build shape at k = 52
+    # and, for its general kernel, k = 102 (the k = 100 kNN graph's)
     ms_ms, ms_plain, ms_bound, ms_by = ms_times["collect pool"]
     g_ms, g_plain, g_bound, g_by = ms_times["general L=1024"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches - gen_launches, "max_abs_err": max_err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": scan_bound[0],
         "bound_by": scan_bound[1], "library_ms": None,
+    }, {
+        "name": "grouped_cluster_topk_gq (general kernel: k > 32)",
+        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": gen_launches, "max_abs_err": gen_err,
+        "ms": gen_times[0], "plain_ms": gen_times[1],
+        "bound_ms": gen_times[2][0], "bound_by": gen_times[2][1],
+        "library_ms": None,
     }, {
         "name": "fused_merge_select", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
@@ -1043,6 +1391,14 @@ def main() -> int:
         "launches": j_launches, "max_abs_err": max(join_err, build_err),
         "ms": join_ms, "plain_ms": join_plain_ms,
         "bound_ms": join_bound[0], "bound_by": join_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "cluster_join_topk (general kernel: k > 64)", "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
+        "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
+        "launches": gj_launches, "max_abs_err": max(gen_join_err, gj_err),
+        "ms": gj_ms, "plain_ms": gj_plain_ms,
+        "bound_ms": gj_bound[0], "bound_by": gj_bound[1],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

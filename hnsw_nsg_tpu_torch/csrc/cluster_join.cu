@@ -16,8 +16,9 @@
 // come back. Entries past the finite buckets are +inf with idx 0; the
 // caller masks them.
 //
-// Two kernels, one per operand type, both exact products summed in f32
-// as pallas_scan.py:_dots specifies:
+// Two kernels for k <= 64, one per operand type, and a general kernel for
+// any k (at the end of this file), all exact products summed in f32 as
+// pallas_scan.py:_dots specifies:
 //
 // bf16 x bf16 (the build path), join_mma_kernel: tensor cores.
 //   A block takes one cluster and 128 member rows and walks the buckets in
@@ -78,6 +79,7 @@
 #include <stdint.h>
 
 #include "mma_helpers.cuh"
+#include "select_topk.cuh"
 
 namespace {
 
@@ -97,6 +99,66 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kRows = 32;       // member rows per block: 4 per warp
 constexpr int kTileB = 128;     // buckets per tile: 4 per lane
 constexpr int kDC = 32;         // d elements per shared-memory chunk
+
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// acc = the products of the warp's 4 member rows (r0 + warp * 4 + i; zero
+// past maxc) with this lane's 4 buckets' stack rows (e_row0 + b0 + lane +
+// 32 u; zero past g) over all of d, exact products summed in f32 FMAs, the
+// rows staged through shared memory 32 d values at a time. Starts with a
+// barrier, so the caller's last reads of q_s / s_s come first.
+template <typename T>
+__device__ __forceinline__ void tile_products(
+    float (&acc)[4][4], float (*q_s)[kDC + 1], float (*s_s)[kDC + 1],
+    const T* __restrict__ qv, const T* __restrict__ stacks, long long q_row0,
+    int r0, int maxc, long long e_row0, int b0, int g, int d, int t) {
+  const int lane = t & 31;
+  const int warp = t >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int d0 = 0; d0 < d; d0 += kDC) {
+    __syncthreads();  // previous chunk consumed
+#pragma unroll
+    for (int p = 0; p < (kRows * kDC) / kThreads; ++p) {
+      const int el = t + p * kThreads;
+      const int row = el / kDC, col = el % kDC;
+      const int r = r0 + row;
+      float v = 0.f;
+      if (r < maxc && d0 + col < d)
+        v = as_f32(qv[(q_row0 + r) * d + d0 + col]);
+      q_s[row][col] = v;
+    }
+#pragma unroll
+    for (int p = 0; p < (kTileB * kDC) / kThreads; ++p) {
+      const int el = t + p * kThreads;
+      const int row = el / kDC, col = el % kDC;
+      const int b = b0 + row;
+      float v = 0.f;
+      if (b < g && d0 + col < d)
+        v = as_f32(stacks[(e_row0 + b) * d + d0 + col]);
+      s_s[row][col] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < kDC; ++j) {
+      float a[4], s[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = q_s[warp * 4 + i][j];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[u] = s_s[lane + 32 * u][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][u] = fmaf(a[i], s[u], acc[i][u]);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 join_fma_kernel(const float* __restrict__ qv, const float* __restrict__ stacks,
@@ -141,47 +203,8 @@ join_fma_kernel(const float* __restrict__ qv, const float* __restrict__ stacks,
 
     for (int e = 0; e < group; ++e) {
       float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-      for (int d0 = 0; d0 < d; d0 += kDC) {
-        __syncthreads();  // previous chunk consumed
-#pragma unroll
-        for (int p = 0; p < (kRows * kDC) / kThreads; ++p) {
-          const int el = t + p * kThreads;
-          const int row = el / kDC, col = el % kDC;
-          const int r = r0 + row;
-          float v = 0.f;
-          if (r < maxc && d0 + col < d) v = qv[(q_row0 + r) * d + d0 + col];
-          q_s[row][col] = v;
-        }
-#pragma unroll
-        for (int p = 0; p < (kTileB * kDC) / kThreads; ++p) {
-          const int el = t + p * kThreads;
-          const int row = el / kDC, col = el % kDC;
-          const int b = b0 + row;
-          float v = 0.f;
-          if (b < g && d0 + col < d)
-            v = stacks[(s_row0 + static_cast<long long>(e) * g + b) * d + d0
-                       + col];
-          s_s[row][col] = v;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int j = 0; j < kDC; ++j) {
-          float a[4], s[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = q_s[warp * 4 + i][j];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) s[u] = s_s[lane + 32 * u][j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int u = 0; u < 4; ++u) acc[i][u] = fmaf(a[i], s[u], acc[i][u]);
-        }
-      }
+      tile_products(acc, q_s, s_s, qv, stacks, q_row0, r0, maxc,
+                    s_row0 + static_cast<long long>(e) * g, b0, g, d, t);
 
       // fold slot e * g + b into bucket b: strict <, so the lowest e wins
 #pragma unroll
@@ -697,6 +720,142 @@ int launch_mma(const void* qv, const void* stacks, const void* bias,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- any k: the general kernel ---------------------------------------------
+//
+// The two kernels above hold each row's k best in two entries a lane or in
+// heaps sized for k <= 64. For k > 64 (a kNN graph of k > 62, which an NSG
+// with L > 52 asks for) this kernel takes any 1 <= k <= g, f32 or bf16.
+// Its products and fold are join_fma_kernel's (tile_products: a block
+// takes one cluster and 32 member rows, walks 128-bucket tiles through
+// shared memory in 32-wide d chunks, each thread a 4 x 4 register tile of
+// exact products summed in f32 on CUDA cores, folded into per-bucket
+// minima with the lowest e winning a tie), each distance rounded as the
+// plain version rounds bias - scale * dot. The top-k is select_topk.cuh's
+// running one over (value, b * 8 + e) keys, which order as (value, b): a
+// warp keeps its 4 rows' candidates below their bar in buffers of 2k + 32
+// keys, shared memory up to k = 396 and global scratch above, and sorts
+// each row's k smallest at the end. A bucket whose every slot is +inf
+// comes out as (+inf, b), as it does from the plain version. Simple and
+// not tuned.
+
+// the kernel's own shared memory: the member-row and bucket tiles
+constexpr size_t kGeneralSmem = (kRows + kTileB) * (kDC + 1) * 4;
+
+// two blocks an SM (at most 128 registers a thread): with one, 8 warps
+// could not hide the shared-memory and load latency of the products
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+join_general_kernel(const T* __restrict__ qv, const T* __restrict__ stacks,
+                    const float* __restrict__ bias, float* __restrict__ vals,
+                    int* __restrict__ idx, Key* scratch, int maxc, int d,
+                    int mm, int k, int group, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_g[];
+  const int n_tiles = (maxc + kRows - 1) / kRows;
+  const int c = blockIdx.x / n_tiles;
+  const int r0 = (blockIdx.x - c * n_tiles) * kRows;
+  Key* bufs = topk_block_bufs(smem_g, scratch, kRows, k);
+  unsigned char* rest = smem_g + topk_own_offset(scratch, kRows, k);
+  float (*q_s)[kDC + 1] = reinterpret_cast<float (*)[kDC + 1]>(rest);
+  float (*s_s)[kDC + 1] =
+      reinterpret_cast<float (*)[kDC + 1]>(rest + kRows * (kDC + 1) * 4);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int g = mm / group;
+  const long long q_row0 = static_cast<long long>(c) * maxc;
+  const long long s_row0 = static_cast<long long>(c) * mm;
+
+  Key* buf[4];
+  int size[4];
+  Key bar[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    buf[i] = bufs + static_cast<long long>(warp * 4 + i) * topk_buf(k);
+    size[i] = 0;
+    bar[i] = kNoKey;
+  }
+
+  for (int b0 = 0; b0 < g; b0 += kTileB) {
+    float bmin[4][4];
+    int be[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        bmin[i][u] = INFINITY;
+        be[i][u] = 0;
+      }
+    for (int e = 0; e < group; ++e) {
+      float acc[4][4];
+      const long long e_row0 = s_row0 + static_cast<long long>(e) * g;
+      tile_products(acc, q_s, s_s, qv, stacks, q_row0, r0, maxc, e_row0, b0,
+                    g, d, t);
+      // fold slot e * g + b into bucket b: strict <, so the lowest e wins
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int b = b0 + lane + 32 * u;
+        if (b < g) {
+          const float bs = bias[e_row0 + b];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float dist = __fsub_rn(bs, __fmul_rn(scale, acc[i][u]));
+            if (dist < bmin[i][u]) {
+              bmin[i][u] = dist;
+              be[i][u] = e;
+            }
+          }
+        }
+      }
+    }
+    // the tile's bucket minima, pushed in bucket order (u outer, lane inner)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int b = b0 + lane + 32 * u;
+        warp_push(buf[i], size[i], bar[i], k,
+                  make_key(bmin[i][u], b * 8 + be[i][u]), b < g, lane);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + warp * 4 + i;
+    if (r >= maxc) continue;   // warp-uniform
+    const long long o = (q_row0 + r) * k;
+    warp_emit_smallest(buf[i], size[i], k, lane, [&](int rank, Key key) {
+      const int p = static_cast<int>(key & 0xffffffffu);
+      vals[o + rank] = key_value(key);
+      idx[o + rank] = (p & 7) * g + (p >> 3);
+    });
+  }
+}
+
+template <typename T>
+int launch_general(const void* qv, const void* stacks, const void* bias,
+                   void* vals, void* idx, void* scratch, int n_clusters,
+                   int maxc, int d, int mm, int k, int group, float scale,
+                   cudaStream_t st) {
+  if (topk_needs_scratch(kRows, k, kGeneralSmem) != (scratch != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = topk_smem_bytes(kRows, k, kGeneralSmem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      join_general_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(n_clusters) * ((maxc + kRows - 1) / kRows);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  join_general_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
+                           st>>>(
+      static_cast<const T*>(qv), static_cast<const T*>(stacks),
+      static_cast<const float*>(bias), static_cast<float*>(vals),
+      static_cast<int*>(idx), static_cast<Key*>(scratch), maxc, d, mm, k,
+      group, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers:
@@ -733,4 +892,37 @@ extern "C" int cluster_join(const void* qv, const void* stacks,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The general kernel's entry point (any 1 <= k <= mm / group): the
+// arguments of cluster_join, and `scratch`, global memory for the rows'
+// buffers of cluster_join_general_scratch(n_clusters, maxc, k) bytes when
+// that is not 0, else null. No alignment or d condition.
+extern "C" int cluster_join_general(const void* qv, const void* stacks,
+                                    const void* bias, void* vals, void* idx,
+                                    void* scratch, int n_clusters, int maxc,
+                                    int d, int mm, int k, int group,
+                                    float scale, int dtype, void* stream) {
+  if (n_clusters < 1 || maxc < 1 || d < 1 || mm < 1 || k < 1 || group < 1 ||
+      group > 8 || mm % group != 0 || k > mm / group ||
+      static_cast<long long>(mm / group) * 8 + 7 > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_general<float>(qv, stacks, bias, vals, idx, scratch,
+                                 n_clusters, maxc, d, mm, k, group, scale, st);
+  if (dtype == kBF16)
+    return launch_general<__nv_bfloat16>(qv, stacks, bias, vals, idx, scratch,
+                                         n_clusters, maxc, d, mm, k, group,
+                                         scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of global scratch cluster_join_general needs for this shape: 0
+// when the rows' buffers fit shared memory.
+extern "C" long long cluster_join_general_scratch(int n_clusters, int maxc,
+                                                  int k) {
+  return topk_scratch_bytes(
+      static_cast<long long>(n_clusters) * ((maxc + kRows - 1) / kRows), kRows,
+      k, kGeneralSmem);
 }

@@ -24,7 +24,8 @@
 // bandwidth: a design has to keep enough slab bytes in flight on every SM
 // and do the products and the top-k in the shadow of the loads.
 //
-// Two kernels, by operand type.
+// Two kernels for k <= 32, by operand type, and a general kernel for any
+// k <= maxc (at the end of this file, with its own notes).
 //
 // bf16 x bf16 (the CNNS path) up to d = 1920, scan_mma_kernel (above that
 // the query tile does not fit and the pair runs on grouped_scan_kernel
@@ -77,6 +78,7 @@
 #include <stdint.h>
 
 #include "mma_helpers.cuh"
+#include "select_topk.cuh"
 
 namespace {
 
@@ -108,6 +110,65 @@ __device__ __forceinline__ int as_acc<int, int8_t>(int8_t v) {
 // (value, slot) lexicographic order: the lower slot wins a tie.
 __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
+}
+
+// acc = the products of the warp's 4 query rows (warp * 4 + i of the
+// block's 32; zero for pad rows) with this lane's 4 slab rows (m0 + lane +
+// 32 e; zero past maxc) over all of d, the query rows and the [128 x 32]
+// slab tile staged through shared memory 32 d values at a time. Starts
+// with a barrier, so the caller's last reads of q_s / s_s and its writes
+// of qrow_s are ordered before the staging.
+template <typename QT, typename ST, typename AT>
+__device__ __forceinline__ void tile_products(
+    AT (&acc)[4][4], AT (*q_s)[kDC + 1], AT (*s_s)[kDC + 1],
+    const int* qrow_s, const QT* __restrict__ qc,
+    const ST* __restrict__ slabs, long long slab_row0, int m0, int d,
+    int maxc, int t) {
+  const int lane = t & 31;
+  const int warp = t >> 5;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = AT(0);
+
+  for (int d0 = 0; d0 < d; d0 += kDC) {
+    __syncthreads();  // previous chunk consumed (and qrow_s written)
+    // gathered query rows, zero for pad slots and past d
+#pragma unroll
+    for (int p = 0; p < (kRows * kDC) / kThreads; ++p) {
+      const int el = t + p * kThreads;
+      const int row = el / kDC, col = el % kDC;
+      const int qi = qrow_s[row];
+      AT v = AT(0);
+      if (qi >= 0 && d0 + col < d)
+        v = as_acc<AT>(qc[static_cast<long long>(qi) * d + d0 + col]);
+      q_s[row][col] = v;
+    }
+    // slab tile rows m0.., zero past maxc and past d
+#pragma unroll
+    for (int p = 0; p < (kTileM * kDC) / kThreads; ++p) {
+      const int el = t + p * kThreads;
+      const int row = el / kDC, col = el % kDC;
+      const int m = m0 + row;
+      AT v = AT(0);
+      if (m < maxc && d0 + col < d)
+        v = as_acc<AT>(slabs[(slab_row0 + m) * d + d0 + col]);
+      s_s[row][col] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < kDC; ++j) {
+      AT qv[4], sv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = q_s[warp * 4 + i][j];  // broadcast
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sv[e] = s_s[lane + 32 * e][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] += qv[i] * sv[e];
+    }
+  }
 }
 
 template <typename QT, typename ST, typename AT>
@@ -146,49 +207,8 @@ grouped_scan_kernel(const QT* __restrict__ qc, const int* __restrict__ qidx,
 
   for (int m0 = 0; m0 < maxc; m0 += kTileM) {
     AT acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = AT(0);
-
-    for (int d0 = 0; d0 < d; d0 += kDC) {
-      __syncthreads();  // previous chunk consumed (and qrow_s written)
-      // gathered query rows, zero for pad slots and past d
-#pragma unroll
-      for (int p = 0; p < (kRows * kDC) / kThreads; ++p) {
-        const int el = t + p * kThreads;
-        const int row = el / kDC, col = el % kDC;
-        const int qi = qrow_s[row];
-        AT v = AT(0);
-        if (qi >= 0 && d0 + col < d)
-          v = as_acc<AT>(qc[static_cast<long long>(qi) * d + d0 + col]);
-        q_s[row][col] = v;
-      }
-      // slab tile rows m0.., zero past maxc and past d
-#pragma unroll
-      for (int p = 0; p < (kTileM * kDC) / kThreads; ++p) {
-        const int el = t + p * kThreads;
-        const int row = el / kDC, col = el % kDC;
-        const int m = m0 + row;
-        AT v = AT(0);
-        if (m < maxc && d0 + col < d)
-          v = as_acc<AT>(slabs[(slab_row0 + m) * d + d0 + col]);
-        s_s[row][col] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int j = 0; j < kDC; ++j) {
-        AT qv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = q_s[warp * 4 + i][j];  // broadcast
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sv[e] = s_s[lane + 32 * e][j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] += qv[i] * sv[e];
-      }
-    }
+    tile_products(acc, q_s, s_s, qrow_s, qc, slabs, slab_row0, m0, d, maxc,
+                  t);
 
     // distances of this lane's 4 slots; past maxc they never win
     float bv4[4];
@@ -677,6 +697,128 @@ int launch_mma_d(const void* qc, const void* qidx, const void* slabs,
                                            scale, st);
 }
 
+// ---- any k: the general kernel ---------------------------------------------
+//
+// The two kernels above keep each row's running k best in a warp's lanes or
+// in heaps sized for k <= 32. For k > 32 (CNNSIndex.search's own default is
+// k = 100) this kernel takes any 1 <= k <= maxc, every dtype pair, any d.
+// Its products are grouped_scan_kernel's (tile_products: a block takes one
+// cluster and 32 query rows, streams the slab through shared memory in
+// [128 x 32] tiles, and each thread forms a 4 x 4 register tile on CUDA
+// cores, with the arithmetic of _dots); each distance is rounded as the
+// plain version rounds bias - scale * dot. The top-k is select_topk.cuh's
+// running one: a warp keeps its 4 rows' candidates below their bar in
+// buffers of 2k + 32 (value, slot) keys, shared memory up to k = 396 and
+// global scratch above, and sorts each row's k smallest at the end. Simple
+// and not tuned: the products run on CUDA cores.
+
+// the kernel's own shared memory: the query and slab tiles, the row ids
+constexpr size_t kGeneralSmem = (kRows + kTileM) * (kDC + 1) * 4 + kRows * 4;
+
+// two blocks an SM (at most 128 registers a thread; shared memory allows
+// two up to k = 168): with one, 8 warps could not hide the shared-memory
+// and load latency of the products
+template <typename QT, typename ST, typename AT>
+__global__ void __launch_bounds__(kThreads, 2)
+scan_general_kernel(const QT* __restrict__ qc, const int* __restrict__ qidx,
+                    const ST* __restrict__ slabs,
+                    const float* __restrict__ bias, float* __restrict__ vals,
+                    int* __restrict__ idx, Key* scratch, int cap, int qn,
+                    int d, int maxc, int k, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_g[];
+  const int n_tiles = (cap + kRows - 1) / kRows;
+  const int c = blockIdx.x / n_tiles;
+  const int r0 = (blockIdx.x - c * n_tiles) * kRows;
+  Key* bufs = topk_block_bufs(smem_g, scratch, kRows, k);
+  unsigned char* rest = smem_g + topk_own_offset(scratch, kRows, k);
+  AT (*q_s)[kDC + 1] = reinterpret_cast<AT (*)[kDC + 1]>(rest);
+  AT (*s_s)[kDC + 1] =
+      reinterpret_cast<AT (*)[kDC + 1]>(rest + kRows * (kDC + 1) * 4);
+  int* qrow_s = reinterpret_cast<int*>(rest + (kRows + kTileM) * (kDC + 1)
+                                       * 4);
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const long long slab_row0 = static_cast<long long>(c) * maxc;
+
+  if (t < kRows) {
+    const int r = r0 + t;
+    const int qi = r < cap ? qidx[static_cast<long long>(c) * cap + r] : -1;
+    qrow_s[t] = (qi >= 0 && qi < qn) ? qi : -1;
+  }
+
+  // the warp's 4 rows: buffers, their sizes and bars (warp-uniform)
+  Key* buf[4];
+  int size[4];
+  Key bar[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    buf[i] = bufs + static_cast<long long>(warp * 4 + i) * topk_buf(k);
+    size[i] = 0;
+    bar[i] = kNoKey;
+  }
+
+  for (int m0 = 0; m0 < maxc; m0 += kTileM) {
+    AT acc[4][4];
+    tile_products(acc, q_s, s_s, qrow_s, qc, slabs, slab_row0, m0, d, maxc,
+                  t);
+
+    // this lane's 4 slots, pushed in slot order (e outer, lane inner)
+    float bv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + lane + 32 * e;
+      bv[e] = m < maxc ? bias[slab_row0 + m] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + lane + 32 * e;
+        const float dist =
+            __fsub_rn(bv[e], __fmul_rn(scale, static_cast<float>(acc[i][e])));
+        warp_push(buf[i], size[i], bar[i], k, make_key(dist, m), m < maxc,
+                  lane);
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + warp * 4 + i;
+    if (r >= cap) continue;   // warp-uniform
+    const long long o = (static_cast<long long>(c) * cap + r) * k;
+    warp_emit_smallest(buf[i], size[i], k, lane, [&](int rank, Key key) {
+      vals[o + rank] = key_value(key);
+      idx[o + rank] = static_cast<int>(key & 0xffffffffu);
+    });
+  }
+}
+
+template <typename QT, typename ST, typename AT>
+int launch_general(const void* qc, const void* qidx, const void* slabs,
+                   const void* bias, void* vals, void* idx, void* scratch,
+                   int n_clusters, int cap, int qn, int d, int maxc, int k,
+                   float scale, cudaStream_t st) {
+  if (topk_needs_scratch(kRows, k, kGeneralSmem) != (scratch != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = topk_smem_bytes(kRows, k, kGeneralSmem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan_general_kernel<QT, ST, AT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(n_clusters) * ((cap + kRows - 1) / kRows);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  scan_general_kernel<QT, ST, AT>
+      <<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+          static_cast<const QT*>(qc), static_cast<const int*>(qidx),
+          static_cast<const ST*>(slabs), static_cast<const float*>(bias),
+          static_cast<float*>(vals), static_cast<int*>(idx),
+          static_cast<Key*>(scratch), cap, qn, d, maxc, k, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers;
@@ -724,4 +866,46 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The general kernel's entry point (any 1 <= k <= maxc): the arguments of
+// grouped_scan, and `scratch`, global memory for the rows' buffers of
+// grouped_scan_general_scratch(n_clusters, cap, k) bytes when that is not
+// 0, else null.
+extern "C" int grouped_scan_general(const void* qc, const void* qidx,
+                                    const void* slabs, const void* bias,
+                                    void* vals, void* idx, void* scratch,
+                                    int n_clusters, int cap, int qn, int d,
+                                    int maxc, int k, float scale, int q_dtype,
+                                    int s_dtype, void* stream) {
+  if (n_clusters < 1 || cap < 1 || qn < 1 || d < 1 || maxc < 1 || k < 1 ||
+      k > maxc)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_dtype == kF32 && s_dtype == kF32)
+    return launch_general<float, float, float>(
+        qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
+        maxc, k, scale, st);
+  if (q_dtype == kBF16 && s_dtype == kBF16)
+    return launch_general<__nv_bfloat16, __nv_bfloat16, float>(
+        qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
+        maxc, k, scale, st);
+  if (q_dtype == kI8 && s_dtype == kI8)
+    return launch_general<int8_t, int8_t, int>(
+        qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
+        maxc, k, scale, st);
+  if (q_dtype == kBF16 && s_dtype == kI8)
+    return launch_general<__nv_bfloat16, int8_t, float>(
+        qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
+        maxc, k, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of global scratch grouped_scan_general needs for this shape: 0 when
+// the rows' buffers fit shared memory.
+extern "C" long long grouped_scan_general_scratch(int n_clusters, int cap,
+                                                  int k) {
+  return topk_scratch_bytes(
+      static_cast<long long>(n_clusters) * ((cap + kRows - 1) / kRows), kRows,
+      k, kGeneralSmem);
 }

@@ -72,6 +72,7 @@
 // bytes of spill in any instantiation.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -362,13 +363,14 @@ cudaError_t allow(Kernel kernel, int bytes) {
 //     rows;
 //   * select: the first warp reads the new flags back (ballot + prefix
 //     popcount, 32 slots a step).
-// Shared memory is 8 L + 16 C bytes a block: 64 KB at L = 4096, C = 2048,
-// the largest shape asked of it so far; the entry point takes up to
-// L = 16384 and C = 4096 (192 KB).
+// It needs 8 L + 16 C bytes a query: 64 KB at L = 4096, C = 2048. Up to
+// the 227 KB a block may have they are shared memory; past that (L ~ 29,000
+// at C = 50) the same arrays lie in global scratch that the wrapper
+// allocates, Q x (8 L + 16 C) bytes, so any L and C are taken, the JAX
+// function's contract.
 
 constexpr int kGenThreads = 256;
-constexpr int kGenMaxL = 16384;
-constexpr int kGenMaxC = 4096;
+constexpr int kGenSmemMax = 232448;
 
 __host__ __device__ inline int general_bytes(int l, int c) {
   return 8 * l + 16 * c;
@@ -398,11 +400,14 @@ merge_select_general_kernel(
     const uint8_t* __restrict__ r_e, const float* __restrict__ c_d,
     const int* __restrict__ c_i, float* __restrict__ o_d,
     int* __restrict__ o_i, uint8_t* o_e, int* __restrict__ sel_i,
-    uint8_t* __restrict__ sel_v, int l, int c, int expand) {
+    uint8_t* __restrict__ sel_v, unsigned char* scratch, int l, int c,
+    int expand) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const long long q = blockIdx.x;
-  float* rd = reinterpret_cast<float*>(smem);   // [l] retset dists
+  unsigned char* base =
+      scratch != nullptr ? scratch + q * general_bytes(l, c) : smem;
+  float* rd = reinterpret_cast<float*>(base);   // [l] retset dists
   int* ri = reinterpret_cast<int*>(rd + l);     // [l] retset ids
   float* md = reinterpret_cast<float*>(ri + l); // [c] masked candidates
   int* mi = reinterpret_cast<int*>(md + c);
@@ -530,18 +535,28 @@ extern "C" int merge_select_occupancy(int l, int c) {
   return blocks * kWarps;
 }
 
-// The general kernel's entry point, same arguments: any L <= 16384 and
-// C <= 4096 (one instantiation; a block a query).
+// Bytes of global scratch a query of the general kernel needs: 0 when its
+// arrays fit shared memory.
+extern "C" long long merge_select_general_scratch(int l, int c) {
+  const long long bytes = 8ll * l + 16ll * c;
+  return bytes > kGenSmemMax ? bytes : 0;
+}
+
+// The general kernel's entry point: the arguments of merge_select, any L
+// and C, and `scratch`, Q x merge_select_general_scratch(l, c) bytes of
+// global memory when that is not 0, else null (one instantiation; a block
+// a query).
 extern "C" int merge_select_general(const void* r_d, const void* r_i,
                                     const void* r_e, const void* c_d,
                                     const void* c_i, void* o_d, void* o_i,
                                     void* o_e, void* sel_i, void* sel_v,
-                                    int nq, int l, int c, int expand,
-                                    void* stream) {
-  if (nq < 1 || l < 1 || l > kGenMaxL || c < 0 || c > kGenMaxC ||
-      expand < 1 || expand > l)
+                                    void* scratch, int nq, int l, int c,
+                                    int expand, void* stream) {
+  if (nq < 1 || l < 1 || c < 0 || expand < 1 || expand > l ||
+      8ll * l + 16ll * c > INT_MAX ||
+      (merge_select_general_scratch(l, c) > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = general_bytes(l, c);
+  const int bytes = scratch != nullptr ? 0 : general_bytes(l, c);
   if (bytes > kSmallSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         merge_select_general_kernel,
@@ -554,6 +569,7 @@ extern "C" int merge_select_general(const void* r_d, const void* r_i,
       static_cast<const uint8_t*>(r_e), static_cast<const float*>(c_d),
       static_cast<const int*>(c_i), static_cast<float*>(o_d),
       static_cast<int*>(o_i), static_cast<uint8_t*>(o_e),
-      static_cast<int*>(sel_i), static_cast<uint8_t*>(sel_v), l, c, expand);
+      static_cast<int*>(sel_i), static_cast<uint8_t*>(sel_v),
+      static_cast<unsigned char*>(scratch), l, c, expand);
   return static_cast<int>(cudaGetLastError());
 }

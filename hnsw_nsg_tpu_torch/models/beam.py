@@ -108,23 +108,43 @@ def beam_search_chunked(
     one device. Returns distances in FastL2 form for metric="l2" (exact =
     + ||q||^2). Converged queries leave the batch between chunks once the
     live count (at least ``min_compact``) is at most half the batch."""
-    q = queries
-    qn = q.shape[0]
     init_ids = init_ids.to(torch.int32)
-    (_, r_d, r_i, r_e, sel_ids, sel_valid, hops,
-     evals) = _start(q, data, norms, init_ids, width, metric, expand)
+    state = _start(queries, data, norms, init_ids, width, metric, expand)[1:]
+
+    def hop(q, sel_ids, sel_valid):
+        nbrs = _expand(adj, sel_ids, sel_valid)
+        return gathered_dists(q, data, nbrs, metric, norms), nbrs
+
+    return run_chunks(queries, state, hop, width, max_hops, expand,
+                      chunk_hops, min_compact)
+
+
+def run_chunks(q, state, hop, width: int, max_hops: int, expand: int,
+               chunk_hops: int, min_compact: int) -> BeamResult:
+    """The expand-first hop loop of the chunked beams, with compaction.
+
+    ``state`` = (r_d, r_i, r_e, sel_ids, sel_valid, hops, evals) after the
+    first frontier pick; ``hop(q, sel_ids, sel_valid)`` returns the
+    frontier's candidates (dists [Q', C], ids [Q', C], PAD where invalid)
+    for the rows of ``q``, a per-query tensor that is compacted with the
+    state. Each hop folds them in with ``fused_merge_select``. One host
+    check a chunk; converged rows leave the batch once the live count (at
+    least ``min_compact``) is at most half of it, and are scattered back
+    to their slots at the end."""
+    r_d, r_i, r_e, sel_ids, sel_valid, hops, evals = state
+    qn = q.shape[0]
+    dev = q.device
     final = None
-    orig = torch.arange(qn, device=q.device)
+    orig = torch.arange(qn, device=dev)
     cur_q = qn
     hops_left = max_hops
     while hops_left > 0:
         n_hops = min(chunk_hops, hops_left)
         for _ in range(n_hops):
-            nbrs = _expand(adj, sel_ids, sel_valid)
-            cd = gathered_dists(q, data, nbrs, metric, norms)
-            _hop_counts(hops, evals, sel_valid, nbrs)
+            cd, ci = hop(q, sel_ids, sel_valid)
+            _hop_counts(hops, evals, sel_valid, ci)
             r_d, r_i, r_e, sel_ids, sel_valid = fused_merge_select(
-                r_d, r_i, r_e, cd, nbrs, expand)
+                r_d, r_i, r_e, cd, ci, expand)
         hops_left -= n_hops
         act = sel_valid.any(1)
         n_act = int(act.sum())
@@ -132,11 +152,11 @@ def beam_search_chunked(
             break
         if max(min_compact, n_act) <= cur_q // 2 and hops_left > 0:
             if final is None:
-                final = (torch.zeros((qn, width), device=q.device),
+                final = (torch.zeros((qn, width), device=dev),
                          torch.full((qn, width), PAD_ID, dtype=torch.int32,
-                                    device=q.device),
-                         torch.zeros(qn, dtype=torch.int32, device=q.device),
-                         torch.zeros(qn, dtype=torch.int32, device=q.device))
+                                    device=dev),
+                         torch.zeros(qn, dtype=torch.int32, device=dev),
+                         torch.zeros(qn, dtype=torch.int32, device=dev))
             for buf, val in zip(final, (r_d, r_i, hops, evals)):
                 buf[orig] = val
             keep = act.nonzero()[:, 0]

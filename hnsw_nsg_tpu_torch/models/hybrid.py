@@ -18,7 +18,8 @@ as the reference's test program does (hnsw_nsg/tests/test_hnsw_nsg_search.cpp:
 does: exact up to 8,192 points and the cluster join above 200,000 are
 ported; between them the JAX package runs its rp-tree construction
 (``models/rptree.py``), which is not ported, so there a ``knn_adj`` must
-be passed. ``build_accel`` waits for ``models/records.py``.
+be passed. ``build_accel`` packs the NSG layer into the int8 records
+(``models/records.py``), which its searches then traverse.
 """
 
 from __future__ import annotations
@@ -102,10 +103,12 @@ class HybridHNSWNSG:
                              device=self.device, stage_seconds=stats)
 
     def build_accel(self) -> None:
-        raise NotImplementedError(
-            "HybridHNSWNSG.build_accel needs the packed int8 record layout "
-            "(models/records.py), which is not ported yet (ROADMAP.md "
-            "Queue 1 step 3)")
+        """Pack the NSG base layer into the int8 record layout
+        (models/records.py): one row gather a frontier expansion. The HNSW
+        side needs no packing: the routed entry is one product."""
+        if self.nsg is None:
+            raise RuntimeError("call build_nsg_layer() before build_accel")
+        self.nsg.build_accel()
 
     def search_knn(
         self, queries, k: int = 10, ef: int = 100, l_search: int | None = None,

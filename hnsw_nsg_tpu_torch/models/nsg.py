@@ -17,7 +17,9 @@ Reference: ``IndexNSG`` (CNNS/src/nsg/index_nsg.cpp). Build (``Build``,
      representatives.
 
 Search (``Search``, :506-568): init = the medoid's neighbors plus a
-random fill to L_search, then the lockstep beam (``models/beam.py``).
+random fill to L_search, then the lockstep beam (``models/beam.py``), or,
+after ``build_accel``, the beam over the packed int8 records
+(``models/records.py``) and an exact re-rank of the retset head.
 
 Everything but stages 4-5 runs on the device of the data. Not carried
 over from the JAX package: ``pad_to_bucket`` (a compile-cache workaround)
@@ -41,7 +43,9 @@ from ..utils import io as io_utils
 from ..utils.device import resolve_device
 from ..utils.params import NSGBuildConfig
 from .beam import beam_search_chunked, beam_search_collect_chunked
+from .inline_graph import rerank_exact
 from .prune import occlusion_prune, occlusion_prune_padded
+from .records import beam_search_records, build_record_graph
 
 
 def _as_tensor(x, device=None, dtype=None) -> torch.Tensor:
@@ -69,6 +73,9 @@ class NSGIndex:
     adj: torch.Tensor      # [N, R] int32, PAD_ID-padded
     ep: int                # medoid entry point
     metric: str = "l2"
+    # packed int8 record layout (models/records.py): one row gather per
+    # expansion instead of R; made by build_accel()
+    records: object = dataclasses.field(default=None, compare=False)
 
     @property
     def n(self) -> int:
@@ -83,14 +90,27 @@ class NSGIndex:
         return self.data.device
 
     def build_accel(self, chunk: int = 1 << 16) -> None:
-        raise NotImplementedError(
-            "NSGIndex.build_accel needs the packed int8 record layout "
-            "(models/records.py), which is not ported yet (ROADMAP.md "
-            "Queue 1 step 8, the records slice)")
+        """Derive the packed int8 record layout over the NSG adjacency
+        (the OptimizeGraph analogue, index_nsg.cpp:570-657: each node's
+        search state repacked into one contiguous block). Later searches
+        traverse the records (one row gather an expansion, R*(d+8) bytes,
+        instead of R scattered f32 rows plus separate id and norm loads)
+        and re-rank the retset head exactly."""
+        self.records = build_record_graph(self.data, self.adj, self.norms,
+                                          chunk=chunk)
 
     def _beam(self, q, init, k, l_search, expand, max_hops):
-        """One lockstep beam over the padded adjacency. Returns (exact
-        dists, ids) [Q, k]."""
+        """One lockstep beam, over the records when built, else over the
+        padded adjacency. Returns (exact dists, ids) [Q, k]."""
+        if self.records is not None:
+            res = beam_search_records(
+                q, self.data, self.norms, self.records, init,
+                width=l_search, metric=self.metric, expand=expand,
+                max_hops=max_hops,
+            )
+            head = min(l_search, k + 16)
+            return rerank_exact(q, self.data, self.norms,
+                                res.ids[:, :head], k, metric=self.metric)
         res = beam_search_chunked(
             q, self.data, self.norms, self.adj, init, width=l_search,
             metric=self.metric, max_hops=max_hops, expand=expand,

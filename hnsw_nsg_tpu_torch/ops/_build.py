@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -55,6 +57,16 @@ def library_path() -> Path:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return BUILD_DIR / f"libhnsw_nsg_kernels_{h.hexdigest()[:16]}.so"
+
+
+def scratch(n_bytes: int, device):
+    """The global scratch a general kernel asks for (its ``*_scratch``
+    entry point's bytes) as (tensor, pointer), or (None, None) when it
+    needs none. The caller holds the tensor until the launch is queued."""
+    if not n_bytes:
+        return None, None
+    buf = torch.empty(n_bytes, dtype=torch.uint8, device=device)
+    return buf, buf.data_ptr()
 
 
 def load_library() -> ctypes.CDLL:
@@ -102,14 +114,29 @@ def load_library() -> ctypes.CDLL:
         cf, ci, ci, vp,                  # scale, q dtype, slab dtype, stream
     ]
     lib.grouped_scan.restype = ci
+    lib.grouped_scan_general.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp,      # qc, qidx, slabs, bias, vals, idx,
+                                         # scratch
+        ci, ci, ci, ci, ci, ci,          # C, cap, qn, d, maxc, k
+        cf, ci, ci, vp,                  # scale, q dtype, slab dtype, stream
+    ]
+    lib.grouped_scan_general.restype = ci
+    lib.grouped_scan_general_scratch.argtypes = [ci, ci, ci]   # C, cap, k
+    lib.grouped_scan_general_scratch.restype = ctypes.c_longlong
     lib.merge_select.argtypes = [
         vp, vp, vp, vp, vp,              # r_d, r_i, r_e, c_d, c_i
         vp, vp, vp, vp, vp,              # o_d, o_i, o_e, sel_i, sel_v
         ci, ci, ci, ci, vp,              # Q, L, C, expand, stream
     ]
     lib.merge_select.restype = ci
-    lib.merge_select_general.argtypes = lib.merge_select.argtypes
+    lib.merge_select_general.argtypes = [
+        vp, vp, vp, vp, vp,              # r_d, r_i, r_e, c_d, c_i
+        vp, vp, vp, vp, vp, vp,          # o_d, o_i, o_e, sel_i, sel_v, scratch
+        ci, ci, ci, ci, vp,              # Q, L, C, expand, stream
+    ]
     lib.merge_select_general.restype = ci
+    lib.merge_select_general_scratch.argtypes = [ci, ci]    # L, C
+    lib.merge_select_general_scratch.restype = ctypes.c_longlong
     lib.merge_select_occupancy.argtypes = [ci, ci]      # L, C
     lib.merge_select_occupancy.restype = ci
     lib.cluster_join.argtypes = [
@@ -118,6 +145,14 @@ def load_library() -> ctypes.CDLL:
         cf, ci, vp,                      # scale, dtype, stream
     ]
     lib.cluster_join.restype = ci
+    lib.cluster_join_general.argtypes = [
+        vp, vp, vp, vp, vp, vp,          # qv, stacks, bias, vals, idx, scratch
+        ci, ci, ci, ci, ci, ci,          # C, maxc, d, mm, k, group
+        cf, ci, vp,                      # scale, dtype, stream
+    ]
+    lib.cluster_join_general.restype = ci
+    lib.cluster_join_general_scratch.argtypes = [ci, ci, ci]   # C, maxc, k
+    lib.cluster_join_general_scratch.restype = ctypes.c_longlong
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

@@ -17,20 +17,27 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
-the kernel, or the wrapper raises. ``launches`` counts kernel launches.
-The kernel takes k <= ``MAX_K`` = 32, a limit the JAX functions do not
-have. bf16 x bf16 runs on tensor cores up to d = ``MAX_D_BF16`` = 1920
-(that path keeps the 32 query rows of a block in shared memory) and on
-the CUDA-core kernel of the other dtype pairs above it.
+the kernel, or the wrapper raises. Any 1 <= k <= maxc is taken, as by
+the JAX functions. For k <= ``MAX_K`` = 32 the fast kernels run: bf16 x
+bf16 on tensor cores up to d = ``MAX_D_BF16`` = 1920 (that path keeps the
+32 query rows of a block in shared memory), the other dtype pairs and
+wider bf16 on CUDA cores. For k > 32 (``CNNSIndex.search``'s default
+k = 100) the general kernel runs, which keeps each row's running k
+smallest in a buffer (in global scratch that the wrapper allocates when
+k passes what shared memory holds). ``launches`` counts kernel
+launches, ``general_launches`` the general kernel's share of them.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
 member row of each cluster against the cluster's stacked candidate slabs
 and returns the k smallest per-bucket minima (``csrc/cluster_join.cu``:
-bf16 on tensor cores, f32 in exact FMAs; ``join_launches`` counts its
-launches). The TPU's row-chunk shrink for scoped VMEM
-(pallas_scan.py:197-200) is not carried over; the bucket rule
-(``join_group``) is, because it decides which slots can come back.
+for k <= ``MAX_JOIN_K`` = 64 bf16 on tensor cores and f32 in exact
+FMAs, for any larger k up to the bucket count a general kernel of the
+scan's kind; ``join_launches`` counts its launches,
+``join_general_launches`` the general kernel's share). The TPU's
+row-chunk shrink for scoped VMEM (pallas_scan.py:197-200) is not carried
+over; the bucket rule (``join_group``) is, because it decides which slots
+can come back.
 """
 
 from __future__ import annotations
@@ -40,9 +47,9 @@ import torch
 from .distance import f32_dots
 
 # kernel launches made by the wrappers of this module (CUDA tensors only):
-# the grouped scan, and the cluster join
-launches = 0
-join_launches = 0
+# the grouped scan, and the cluster join; of each, the general kernel's
+launches = general_launches = 0
+join_launches = join_general_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (query dtype, slab dtype) pairs of pallas_scan.py:_dots
@@ -52,7 +59,7 @@ _PAIRS = {
     (torch.int8, torch.int8),
     (torch.bfloat16, torch.int8),
 }
-MAX_K = 32
+MAX_K = 32          # the fast kernels' k; the general kernel takes any k
 MAX_D_BF16 = 1920   # bf16 x bf16 on tensor cores; wider d: CUDA cores
 
 
@@ -70,8 +77,8 @@ def _check(qc, qidx, slabs, bias, k):
             f"slabs {tuple(slabs.shape)}, bias {tuple(bias.shape)}")
     if bias.dtype != torch.float32:
         raise TypeError("bias must be float32")
-    if not 1 <= k <= min(MAX_K, maxc):
-        raise ValueError(f"k={k} outside [1, min({MAX_K}, maxc={maxc})]")
+    if not 1 <= k <= maxc:
+        raise ValueError(f"k={k} outside [1, maxc={maxc}]")
 
 
 def _on_cpu(*ts) -> bool:
@@ -87,8 +94,8 @@ def _on_cpu(*ts) -> bool:
 def _launch(qc, qidx, slabs, bias, k: int, scale: float):
     """Run the CUDA kernel on device tensors. Raises on anything it does
     not take, and if the launch reports a CUDA error."""
-    global launches
-    from ._build import load_library
+    global launches, general_launches
+    from ._build import load_library, scratch
 
     if qidx.dtype != torch.int32:
         raise TypeError("qidx must be int32")
@@ -105,14 +112,21 @@ def _launch(qc, qidx, slabs, bias, k: int, scale: float):
         return vals.fill_(float("inf")), idx.zero_()
     lib = load_library()
     stream = torch.cuda.current_stream(qc.device).cuda_stream
-    rc = lib.grouped_scan(
-        qc.data_ptr(), qidx.data_ptr(), slabs.data_ptr(), bias.data_ptr(),
-        vals.data_ptr(), idx.data_ptr(), c, cap, qn, d, maxc, k,
-        float(scale), _DTYPE_CODE[qc.dtype], _DTYPE_CODE[slabs.dtype], stream,
-    )
+    ptrs = (qc.data_ptr(), qidx.data_ptr(), slabs.data_ptr(),
+            bias.data_ptr(), vals.data_ptr(), idx.data_ptr())
+    shape = (c, cap, qn, d, maxc, k, float(scale), _DTYPE_CODE[qc.dtype],
+             _DTYPE_CODE[slabs.dtype], stream)
+    general = k > MAX_K
+    if general:
+        buf, buf_ptr = scratch(lib.grouped_scan_general_scratch(c, cap, k),
+                               qc.device)
+        rc = lib.grouped_scan_general(*ptrs, buf_ptr, *shape)
+    else:
+        rc = lib.grouped_scan(*ptrs, *shape)
     if rc != 0:
         raise RuntimeError(f"grouped_scan kernel launch failed: CUDA error {rc}")
     launches += 1
+    general_launches += general
     return vals, idx
 
 
@@ -176,8 +190,8 @@ def grouped_cluster_topk_reference(qv, slabs, bias, k: int, scale: float):
 
 def grouped_cluster_topk_gq(qc, qidx, slabs, bias, k: int, scale: float):
     """qc [qn, d], qidx [C, cap] (-1 pad), slabs [C, maxc, d], bias [C, maxc]
-    f32 (+inf on pad slots) -> (vals, idx) [C, cap, k]. Rows with qidx < 0
-    carry unspecified results the caller must mask. On the card k <= 32."""
+    f32 (+inf on pad slots) -> (vals, idx) [C, cap, k], 1 <= k <= maxc.
+    Rows with qidx < 0 carry unspecified results the caller must mask."""
     if _on_cpu(qc, qidx, slabs, bias):
         return grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                  scale)
@@ -213,7 +227,7 @@ def grouped_cluster_topk(qv, slabs, bias, k: int, scale: float):
 
 # ---- cluster join (kNN-graph build) ----------------------------------------
 
-MAX_JOIN_K = 64
+MAX_JOIN_K = 64     # the fast kernels' k; the general kernel takes any k
 _JOIN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -243,8 +257,8 @@ def _check_join(qv, stacks, bias, k):
     if bias.dtype != torch.float32:
         raise TypeError("bias must be float32")
     g = mm // join_group(mm, k)
-    if not 1 <= k <= min(MAX_JOIN_K, g):
-        raise ValueError(f"k={k} outside [1, min({MAX_JOIN_K}, buckets={g})]")
+    if not 1 <= k <= g:
+        raise ValueError(f"k={k} outside [1, buckets={g}]")
 
 
 def cluster_join_topk_reference(qv, stacks, bias, k: int, scale: float,
@@ -274,13 +288,14 @@ def cluster_join_topk_reference(qv, stacks, bias, k: int, scale: float,
 
 
 def _launch_join(qv, stacks, bias, k: int, scale: float):
-    global join_launches
-    from ._build import load_library
+    global join_launches, join_general_launches
+    from ._build import load_library, scratch
 
     for name, t in (("qv", qv), ("stacks", stacks), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if qv.dtype == torch.bfloat16:
+    general = k > MAX_JOIN_K
+    if qv.dtype == torch.bfloat16 and not general:
         # the tensor-core kernel copies 16-byte row pieces: pad d to a
         # multiple of 8 with zeros (no dot changes) and align the bases
         pad = -qv.shape[2] % 8
@@ -296,15 +311,22 @@ def _launch_join(qv, stacks, bias, k: int, scale: float):
     if c == 0 or maxc == 0:
         return vals, idx
     lib = load_library()
-    rc = lib.cluster_join(
-        qv.data_ptr(), stacks.data_ptr(), bias.data_ptr(), vals.data_ptr(),
-        idx.data_ptr(), c, maxc, d, mm, k, join_group(mm, k), float(scale),
-        _JOIN_DTYPE_CODE[qv.dtype],
-        torch.cuda.current_stream(qv.device).cuda_stream,
-    )
+    group = join_group(mm, k)
+    ptrs = (qv.data_ptr(), stacks.data_ptr(), bias.data_ptr(),
+            vals.data_ptr(), idx.data_ptr())
+    shape = (c, maxc, d, mm, k, group, float(scale),
+             _JOIN_DTYPE_CODE[qv.dtype],
+             torch.cuda.current_stream(qv.device).cuda_stream)
+    if general:
+        buf, buf_ptr = scratch(lib.cluster_join_general_scratch(c, maxc, k),
+                               qv.device)
+        rc = lib.cluster_join_general(*ptrs, buf_ptr, *shape)
+    else:
+        rc = lib.cluster_join(*ptrs, *shape)
     if rc != 0:
         raise RuntimeError(f"cluster_join kernel launch failed: CUDA error {rc}")
     join_launches += 1
+    join_general_launches += general
     return vals, idx
 
 

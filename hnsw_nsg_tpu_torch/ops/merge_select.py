@@ -15,14 +15,16 @@ wrapper raises:
   * L <= ``MAX_L`` = 512 and C <= ``MAX_C`` = 1024: a warp per query, the
     retset ids in the lanes' registers, every candidate broadcast and
     compared with them, a rank sort of the kept candidates, a merge path;
-  * anything wider, up to L <= ``GENERAL_MAX_L`` = 16384 and
-    C <= ``GENERAL_MAX_C`` = 4096 (an HNSW search with ``ef`` above 512,
-    a beam whose expand * R passes 1024): the general kernel, a block per
-    query with the retset in shared memory, simple and not tuned.
+  * anything wider (an HNSW search with ``ef`` above 512, a beam whose
+    expand * R passes 1024): the general kernel, a block per query with
+    the retset and candidates in shared memory, or in global scratch that
+    this wrapper allocates when they pass the 227 KB a block may have
+    (L above ~29,000 at C = 50). Simple and not tuned. Any L and C are
+    taken, as by the JAX function.
 
 ``launches`` counts the launches of both, ``launches_by_shape`` splits
 the same count by (Q, L, C, expand) and ``general_launches`` is the
-general kernel's share. The JAX function has no limit on L or C.
+general kernel's share.
 
 Not carried over from the TPU wrapper, none of which changes a result:
 the power-of-two padding of L + C and the 16-bit position/expanded
@@ -45,7 +47,6 @@ launches = 0
 launches_by_shape: Counter = Counter()   # (Q, L, C, expand) -> launches
 general_launches = 0                     # of them, the general kernel's
 MAX_L, MAX_C = 512, 1024                 # the warp-per-query kernel
-GENERAL_MAX_L, GENERAL_MAX_C = 16384, 4096   # the general kernel
 
 
 def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -72,14 +73,11 @@ def _check(r_d, r_i, r_e, c_d, c_i, expand: int):
         raise ValueError("c_d, c_i must share one [Q, C] shape")
     if not 1 <= expand <= l:
         raise ValueError(f"expand={expand} outside [1, L={l}]")
-    if l > GENERAL_MAX_L or c_d.shape[1] > GENERAL_MAX_C:
-        raise ValueError(f"L={l}, C={c_d.shape[1]} above the general "
-                         f"kernel's {GENERAL_MAX_L}, {GENERAL_MAX_C}")
 
 
 def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
     global launches, general_launches
-    from ._build import load_library
+    from ._build import load_library, scratch
 
     q, l = r_d.shape
     dev = r_d.device
@@ -91,19 +89,24 @@ def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
     if q == 0:
         return o_d, o_i, o_e, sel_i, sel_v
     lib = load_library()
-    general = l > MAX_L or c_d.shape[1] > MAX_C
-    kernel = lib.merge_select_general if general else lib.merge_select
-    rc = kernel(
-        r_d.data_ptr(), r_i.data_ptr(), r_e.data_ptr(), c_d.data_ptr(),
-        c_i.data_ptr(), o_d.data_ptr(), o_i.data_ptr(), o_e.data_ptr(),
-        sel_i.data_ptr(), sel_v.data_ptr(), q, l, c_d.shape[1], expand,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    c = c_d.shape[1]
+    ptrs = (r_d.data_ptr(), r_i.data_ptr(), r_e.data_ptr(), c_d.data_ptr(),
+            c_i.data_ptr(), o_d.data_ptr(), o_i.data_ptr(), o_e.data_ptr(),
+            sel_i.data_ptr(), sel_v.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    general = l > MAX_L or c > MAX_C
+    if general:
+        buf, buf_ptr = scratch(q * lib.merge_select_general_scratch(l, c),
+                               dev)
+        rc = lib.merge_select_general(*ptrs, buf_ptr, q, l, c, expand,
+                                      stream)
+    else:
+        rc = lib.merge_select(*ptrs, q, l, c, expand, stream)
     if rc != 0:
         raise RuntimeError(f"merge_select kernel launch failed: CUDA error {rc}")
     launches += 1
     general_launches += general
-    launches_by_shape[(q, l, c_d.shape[1], expand)] += 1
+    launches_by_shape[(q, l, c, expand)] += 1
     return o_d, o_i, o_e, sel_i, sel_v
 
 
@@ -124,9 +127,7 @@ def fused_merge_select(r_d, r_i, r_e, c_d, c_i, expand: int):
 
     r_d/r_i/r_e: [Q, L] retset (f32 ascending, int32 PAD-padded, bool
     expanded). c_d/c_i: [Q, C] candidates (PAD_ID and duplicates allowed).
-    Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand]).
-    On the card L <= 16384 and C <= 4096 (the general kernel's limits),
-    else ValueError."""
+    Returns (r_d, r_i, r_e, sel_ids [Q, expand], sel_valid [Q, expand])."""
     if _on_cpu(r_d, r_i, r_e, c_d, c_i):
         return merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand)
     _check(r_d, r_i, r_e, c_d, c_i, expand)

@@ -104,6 +104,25 @@ def test_gq_plain_matches_pallas(qd, sd, metric):
              _full(qc, qidx, slabs, bias, scale))
 
 
+@pytest.mark.parametrize("k", [33, 100, "maxc"])
+@pytest.mark.parametrize("qd,sd", PAIRS)
+def test_gq_plain_matches_pallas_past_k32(qd, sd, k):
+    """k past the fast kernels' 32 (the general kernel's range on the
+    card): the plain version takes any k <= maxc, as the JAX function
+    does, and agrees with it."""
+    qc, qidx, slabs, bias, scale = _case(16, qd, sd, "l2", maxc=130)
+    k = 130 if k == "maxc" else k
+    want = jps.grouped_cluster_topk_gq(
+        _to_j(qc, qd), jnp.asarray(qidx), _to_j(slabs, sd),
+        jnp.asarray(bias), k, scale, interpret=True)
+    got = cs.grouped_cluster_topk_gq(
+        _to_t(qc, qd), torch.from_numpy(qidx), _to_t(slabs, sd),
+        torch.from_numpy(bias), k, scale)
+    assert got[0].shape == (4, 16, k)
+    _compare(got, want, qidx, "bf16" in (qd, sd),
+             _full(qc, qidx, slabs, bias, scale))
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("qd,sd", PAIRS)
 def test_gq_dblk_plain_matches_pallas(qd, sd, metric):
@@ -179,8 +198,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):        # f32 queries x int8 slabs
         cs.grouped_cluster_topk_gq(t[0], t[1], t[2].to(torch.int8), t[3],
                                    10, scale)
-    with pytest.raises(ValueError):       # k above the kernel's 32
-        cs.grouped_cluster_topk_gq(*t, 33, scale)
+    vals, idx = cs.grouped_cluster_topk_gq(*t, 33, scale)   # any k <= maxc
+    assert vals.shape == idx.shape == (*t[1].shape, 33)
+    with pytest.raises(ValueError):       # k above maxc
+        cs.grouped_cluster_topk_gq(*t, t[2].shape[1] + 1, scale)
     with pytest.raises(ValueError):       # bias shape
         cs.grouped_cluster_topk_gq(t[0], t[1], t[2], t[3][:, :-1], 10, scale)
     with pytest.raises(ValueError):       # a device the port has no path for

@@ -331,8 +331,10 @@ def test_merge_select_kernel_unaligned_views(card):
 @pytest.mark.parametrize("l,c", [(ms.MAX_L + 1, 50), (64, ms.MAX_C + 1)])
 def test_merge_select_raises_past_the_kernel_limits(card, l, c):
     """Past the warp-per-query kernel's L and C the general kernel is
-    launched, and all five outputs equal the plain version's; past the
-    general kernel's own limits the wrapper raises and launches nothing."""
+    launched, and all five outputs equal the plain version's; so it is
+    past the general kernel's former limits (L = 16384, C = 4096), where
+    the wrapper raised. What the wrapper still raises on is a malformed
+    call, and then it launches nothing."""
     state = _merge_state(1, 4, l, c)
     want = ms.merge_select_reference(*state, 1)
     before, g_before = ms.launches, ms.general_launches
@@ -342,12 +344,32 @@ def test_merge_select_raises_past_the_kernel_limits(card, l, c):
     assert ms.general_launches == g_before + 1
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
-    wide = [t.to(card) for t in _merge_state(
-        1, 2, ms.GENERAL_MAX_L + 1 if l > 64 else 64,
-        50 if l > 64 else ms.GENERAL_MAX_C + 1)]
-    with pytest.raises(ValueError):
-        ms.fused_merge_select(*wide, 1)
-    assert ms.launches == before + 1
+    wide = _merge_state(1, 2, 16385 if l > 64 else 64,
+                        50 if l > 64 else 4097, n_ids=40000)
+    want = ms.merge_select_reference(*wide, 1)
+    got = ms.fused_merge_select(*(t.to(card) for t in wide), 1)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    with pytest.raises(ValueError):       # expand above L
+        ms.fused_merge_select(*(t.to(card) for t in wide), 16386)
+    assert ms.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,l,c,expand", [
+    (6, 20000, 50, 1),       # past the former L limit, in shared memory
+    (3, 40000, 64, 2),       # past shared memory: the arrays in scratch
+    (2, 300, 16000, 4)])     # C past shared memory
+def test_merge_select_general_kernel_any_width(card, q, l, c, expand):
+    state = _merge_state(q + l + c, q, l, c, n_ids=3 * l + c)
+    want = ms.merge_select_reference(*state, expand)
+    g_before = ms.general_launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    assert ms.general_launches == g_before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -609,3 +631,241 @@ def test_api_and_hybrid_default_to_the_card(card):
     _, gt = brute_force_topk(torch.from_numpy(q).to(card),
                              torch.from_numpy(x).to(card), 10)
     assert recall(hl, gt) >= 0.9
+
+
+# -- the general kernels (k > 32 scan, k > 64 join) and the records --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,sdt", PAIRS)
+@pytest.mark.parametrize("k", [33, 100, 200, "maxc"])
+def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
+    """k > 32 runs the general kernel: vals within f32 summation order
+    (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an int8
+    slab's |bias| ~ 7e5); ids equal except where a near-tie swaps, and a
+    returned slot scores its value. The +inf tail comes back with the
+    plain version's slots."""
+    c, cap, maxc, d, qn = 5, 40, 260, 72, 150
+    k = maxc if k == "maxc" else k
+    qc, qidx, slabs, bias, scale = _case(k + 31, qdt, sdt, "l2", c, cap,
+                                         maxc, d, qn)
+    bias[1, 20:] = float("inf")               # fewer live slots than k
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                  scale)
+    before, g0 = cs.launches, cs.general_launches
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1 and cs.general_launches == g0 + 1
+    kv, ki = kv.cpu(), ki.cpu()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    fin = live & torch.isfinite(rv)
+    assert torch.equal(torch.isinf(kv[live]), torch.isinf(rv[live]))
+    exact = qdt == sdt == torch.int8
+    tol = dict(rtol=0.0, atol=0.0) if exact else dict(rtol=1e-5, atol=1e-3)
+    if sdt == torch.int8 and not exact:
+        tol["atol"] = 0.5
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
+    inf = live & torch.isinf(rv)
+    assert torch.equal(ki[inf], ri[inf])
+    if exact:
+        assert torch.equal(ki[live], ri[live])
+    else:
+        assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_general_scan_kernel_large_k_in_scratch(card):
+    """k past what shared memory holds of the rows' buffers (k > 396):
+    the buffers go to global scratch."""
+    qc, qidx, slabs, bias, scale = _case(77, torch.bfloat16, torch.bfloat16,
+                                         "l2", 3, 40, 900, 32, 60)
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, 500,
+                                                  scale)
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), 500, scale)
+    torch.cuda.synchronize()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    torch.testing.assert_close(kv.cpu()[live], rv[live], rtol=1e-5,
+                               atol=1e-3)
+    assert (ki.cpu()[live] == ri[live]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mm,k", [(2048, 65), (4224, 102), (8192, 200),
+                                  (1024, 450)])          # k = 450: scratch
+def test_general_join_kernel_matches_plain(card, dtype, mm, k):
+    """k > 64 runs the general join kernel: vals allclose (f32 sums of
+    exact products in another order: rtol 1e-5, atol 1e-3 at |bias| ~ 2d),
+    the +inf pattern and its buckets equal, ids equal but for near-ties
+    whose slot scores the plain value."""
+    rng = np.random.default_rng(mm + k)
+    c, maxc, d = 3, 45, 40
+    qv = torch.from_numpy(rng.standard_normal((c, maxc, d)).astype(
+        np.float32)).to(dtype)
+    st = torch.from_numpy(rng.standard_normal((c, mm, d)).astype(
+        np.float32)).to(dtype)
+    valid = torch.from_numpy(rng.random((c, mm)) < 0.8)
+    valid[-1, k // 2:] = False          # fewer finite buckets than k
+    bias = torch.where(valid, (st.float() ** 2).sum(-1), float("inf"))
+    rv, ri = cs.cluster_join_topk(qv, st, bias, k, 2.0)
+    before, g0 = cs.join_launches, cs.join_general_launches
+    kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
+                                  k, 2.0)
+    torch.cuda.synchronize()
+    assert cs.join_launches == before + 1
+    assert cs.join_general_launches == g0 + 1
+    kv, ki = kv.cpu(), ki.cpu()
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(kv), fin)
+    assert torch.equal(ki[~fin], ri[~fin])
+    tol = dict(rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - 2.0 * cs.f32_dots(qv, st)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
+    assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+def test_cnns_search_at_its_default_k_on_card(card, tmp_path):
+    """CNNSIndex.search(k=100), the entry point's default, on the card
+    through the general kernel, against the same index on the CPU."""
+    x, q = make_data(20000, 32, 256, "l2", seed=9)
+    cpu_idx = cnns.build_cnns(
+        x, CNNSConfig(n_clusters=20, m=4, kmeans_iters=5, replicate=True),
+        slab_dtype=torch.float32, device="cpu")
+    cpu_idx.save(str(tmp_path / "i.npz"))
+    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"))
+    g0 = cs.general_launches
+    gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), nprobe=3,
+                            group=True)
+    assert cs.general_launches > g0 and tuple(gi.shape) == (256, 100)
+    cd, ci = cpu_idx.search(torch.from_numpy(q), nprobe=3, group=True)
+    assert (gi.cpu() == ci).float().mean() >= 0.99
+    torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_knn_graph_and_nsg_past_the_join_limit(card):
+    """knn_graph_ivf(x, 70) (join k = 72) and an NSG with L = 60 build on
+    the card through the general join kernel."""
+    x, q = make_data(30000, 32, 128, "l2", seed=10)
+    xd = torch.from_numpy(x).to(card)
+    g0 = cs.join_general_launches
+    adj = knn_graph_ivf(xd, 70, as_device=True)
+    assert tuple(adj.shape) == (30000, 70)
+    assert cs.join_general_launches > g0
+    idx = build_nsg(xd, adj[:, :70], NSGBuildConfig(L=60, R=24, C=200))
+    _, ids = idx.search(torch.from_numpy(q).to(card), k=10, l_search=64)
+    _, gt = brute_force_topk(torch.from_numpy(q).to(card), xd, 10)
+    assert recall(ids, gt) >= 0.9
+
+
+def _records_case(seed, n=3000, d=20, r=14, nq=64):
+    """Integer-valued data (every int8 and bf16 product and f32 sum exact),
+    its exact r-NN graph and random initial ids."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-6, 7, (n, d)).astype(np.float32)
+    q = rng.integers(-6, 7, (nq, d)).astype(np.float32)
+    _, knn = brute_force_topk(torch.from_numpy(x), torch.from_numpy(x),
+                              r + 1)
+    init = rng.integers(0, n, (nq, 8)).astype(np.int32)
+    return x, q, knn[:, 1:].to(torch.int32), init
+
+
+@pytest.mark.cuda
+def test_beam_search_records_on_card_equals_cpu(card):
+    """On integer-valued data the records beam gives the same ids, dists,
+    hops and evals on the card as on the CPU, and launches merge+select."""
+    from hnsw_nsg_tpu_torch.models.records import (beam_search_records,
+                                                   build_record_graph)
+
+    x, q, adj, init = _records_case(21)
+    out = []
+    for dev in ("cpu", card):
+        xt = torch.from_numpy(x).to(dev)
+        norms = (xt * xt).sum(1)
+        g = build_record_graph(xt, adj.to(dev), norms, scale=1.0)
+        m0 = ms.launches
+        res = beam_search_records(torch.from_numpy(q).to(dev), xt, norms, g,
+                                  torch.from_numpy(init).to(dev), width=32,
+                                  max_hops=128)
+        assert (ms.launches > m0) == (dev != "cpu")
+        out.append([t.cpu() for t in (g.rows, *res)])
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["derived", "insert"])
+def test_record_rows_on_card_equal_cpu_at_a_real_scale(card, scale):
+    """Float data packed at the scale build_record_graph derives
+    (max|x| / 127) or at the accelerated insert's (1.25 max|x| / 127):
+    quantize_rows rounds x / scale alike on the card and the CPU (a
+    division, not a reciprocal), so with the same norms the rows are
+    equal byte for byte."""
+    from hnsw_nsg_tpu_torch.models.records import (_layout,
+                                                   build_record_graph,
+                                                   quantize_rows)
+
+    x, _ = make_data(3000, 36, 1, "l2", seed=23)
+    xt = torch.from_numpy(x)
+    _, knn = brute_force_topk(xt, xt, 15)
+    adj = knn[:, 1:].to(torch.int32)
+    norms = (xt * xt).sum(1)     # one summation order for both devices
+    s = None if scale == "derived" else \
+        1.25 * float(np.abs(x[:1000]).max()) / 127.0
+    out = []
+    for dev in ("cpu", card):
+        g = build_record_graph(xt.to(dev), adj.to(dev), norms.to(dev),
+                               scale=s)
+        q = quantize_rows(xt.to(dev), g.scale, _layout(g.r, g.d)[0])
+        out.append((q.cpu(), g.rows.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.cuda
+def test_hnsw_records_query_launches_merge_select(card, hnsw_file):
+    """build_accel + knn_query on the card: merge+select launched on the
+    records path, labels equal to the CPU's at >= 99.9% of the slots
+    (exact re-rank of the same retsets), distances allclose 1e-4."""
+    path, q = hnsw_file
+    gpu, cpu = HNSWIndex.load(path), HNSWIndex.load(path, device="cpu")
+    for idx in (gpu, cpu):
+        idx.build_accel()
+    m0 = ms.launches
+    gl, gd = gpu.knn_query(q, k=10, ef=64)
+    assert ms.launches > m0
+    cl, cd = cpu.knn_query(q, k=10, ef=64)
+    same = gl == cl
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hnsw_accel_insert_on_card(card):
+    """add_items(accel=True) on the card keeps rows equal to a fresh pack
+    of the final graph, and recall stays within 0.02 of a plain insert."""
+    from hnsw_nsg_tpu_torch.models.records import build_record_graph
+
+    x, q = make_data(6000, 32, 128, "l2", seed=11)
+    _, gt = brute_force_topk(torch.from_numpy(q).to(card),
+                             torch.from_numpy(x).to(card), 10)
+    got = []
+    for accel in (True, False):
+        idx = HNSWIndex(32, 6000, HNSWConfig(M=8, ef_construction=48))
+        idx.add_items(x, batch_size=2048, accel=accel)
+        if accel:
+            g = idx._records
+            fresh = build_record_graph(idx.data, idx.adj0[:, : g.r],
+                                       idx.norms, scale=g.scale)
+            assert torch.equal(fresh.rows, g.rows)
+        labels, _ = idx.knn_query(q, k=10, ef=64)
+        got.append(recall(labels, gt.cpu()))
+    assert got[0] >= got[1] - 0.02

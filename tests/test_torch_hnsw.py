@@ -368,9 +368,6 @@ def test_resize_get_items_and_ids(built):
 
 
 @pytest.mark.parametrize("call,module", [
-    (lambda i: i.add_items(np.zeros((1, D), np.float32), accel=True),
-     "records"),
-    (lambda i: i.build_accel(), "records"),
     (lambda i: i.epsilon_query(np.zeros((1, D), np.float32), 1.0, 8),
      "extensions"),
     (lambda i: i.replace_point(0, np.zeros(D, np.float32), 1),
@@ -384,7 +381,9 @@ def test_what_waits_names_its_module(built, call, module):
 def test_new_port_modules_import_without_jax():
     mods = ["hnsw_nsg_tpu_torch.models.hnsw",
             "hnsw_nsg_tpu_torch.models.hybrid", "hnsw_nsg_tpu_torch.api",
-            "hnsw_nsg_tpu_torch.utils.hnswlib_format"]
+            "hnsw_nsg_tpu_torch.utils.hnswlib_format",
+            "hnsw_nsg_tpu_torch.models.records",
+            "hnsw_nsg_tpu_torch.models.inline_graph"]
     code = ("import sys; sys.modules['jax'] = None; import importlib; "
             f"[importlib.import_module(m) for m in {mods!r}]")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

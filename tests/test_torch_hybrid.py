@@ -124,7 +124,7 @@ def test_load_without_a_base_layer(built, tmp_path):
 def test_knn_graph_source_by_size(built):
     """The kNN graph's source follows N as in the JAX package: exact up
     to 8,192; the rp-tree range raises until that module is ported,
-    unless a graph is passed; build_accel waits for the records."""
+    unless a graph is passed."""
     x, _, _, _, th, _ = built
     big = HybridHNSWNSG.__new__(HybridHNSWNSG)
     big.hnsw = type("H", (), {"n": 9000, "data": torch.zeros((9000, 2)),
@@ -132,8 +132,6 @@ def test_knn_graph_source_by_size(built):
     big.nsg_cfg, big.metric, big.nsg = NSGBuildConfig(**NSG), "l2", None
     with pytest.raises(NotImplementedError, match="rptree"):
         big.build_nsg_layer()
-    with pytest.raises(NotImplementedError, match="records"):
-        th.build_accel()
     knn = th.nsg.adj.numpy()                  # any [N, K] graph is taken
     th2 = HybridHNSWNSG.__new__(HybridHNSWNSG)
     th2.hnsw, th2.nsg_cfg, th2.metric = th.hnsw, th.nsg_cfg, "l2"

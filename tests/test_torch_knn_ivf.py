@@ -13,9 +13,11 @@ from hnsw_nsg_tpu.ops import knn_graph_exact as j_knn_exact  # noqa: E402
 from hnsw_nsg_tpu.ops.pallas_scan import (  # noqa: E402
     cluster_join_topk as j_join)
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
+from hnsw_nsg_tpu_torch.models.nsg import build_nsg  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import cluster_scan as cs  # noqa: E402
-from hnsw_nsg_tpu_torch.ops import recall  # noqa: E402
 from hnsw_nsg_tpu_torch.ops.bruteforce import knn_graph_exact  # noqa: E402
+from hnsw_nsg_tpu_torch.utils.params import NSGBuildConfig  # noqa: E402
 
 # f32 sums of d = 16 products in another order: values agree to a few
 # ulps of |bias| (~2d for N(0,1) rows)
@@ -60,6 +62,21 @@ def test_cluster_join_matches_jax_interpret(group, mm, k, dtype):
     qv, st, bias, scale = _join_case(group * 10 + len(dtype), 3, 16, mm, 16,
                                      dtype, "l2")
     (jv, ji), (tv, ti) = _run_both(qv, st, bias, k, scale, dtype)
+    fin = np.isfinite(jv)
+    np.testing.assert_array_equal(np.isfinite(tv), fin)
+    np.testing.assert_allclose(tv[fin], jv[fin], **TOL)
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+
+
+@pytest.mark.parametrize("group,mm,k", [(1, 2048, 65), (4, 8192, 65),
+                                        (1, 4096, 102)])
+def test_cluster_join_past_k64_matches_jax_interpret(group, mm, k):
+    """k past the fast kernels' 64 (the general kernel's range on the
+    card): the plain version takes any k up to the bucket count."""
+    assert cs.join_group(mm, k) == group
+    qv, st, bias, scale = _join_case(k + group, 2, 8, mm, 16, "f32", "l2")
+    (jv, ji), (tv, ti) = _run_both(qv, st, bias, k, scale, "f32")
+    assert tv.shape == (2, 8, k)
     fin = np.isfinite(jv)
     np.testing.assert_array_equal(np.isfinite(tv), fin)
     np.testing.assert_allclose(tv[fin], jv[fin], **TOL)
@@ -114,3 +131,20 @@ def test_knn_graph_ivf_quality(clustered):
     assert adj.dtype == np.int32 and adj.shape == (n, 10)
     assert (adj != np.arange(n)[:, None]).all()
     assert adj.max() < n and adj.min() >= 0
+
+
+def test_knn_graph_and_nsg_past_the_join_limit(clustered):
+    """knn_graph_ivf(x, 70) joins at k = 72, past the fast kernels' 64,
+    and an NSG with L = 60 builds on it and searches (1000 points: the
+    plain merge of the NSG's collect beam is slow on the CPU)."""
+    x = clustered[:1000]
+    adj = knn_graph_ivf(x, 70, n_clusters=4, probes=3, seed=0, device="cpu")
+    assert adj.dtype == np.int32 and adj.shape == (len(x), 70)
+    gt = knn_graph_exact(torch.from_numpy(x), 70, query_block=1024)
+    r = recall(adj, gt)
+    assert r >= 0.9, f"cluster-join graph recall {r}"
+    idx = build_nsg(x, adj, NSGBuildConfig(L=60, R=16, C=80), device="cpu")
+    q = x[:100] + 0.1
+    _, ids = idx.search(q, k=10, l_search=64)
+    _, want = brute_force_topk(torch.from_numpy(q), torch.from_numpy(x), 10)
+    assert recall(ids, want) >= 0.9

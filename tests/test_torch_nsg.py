@@ -157,16 +157,12 @@ def test_medoid_matches_jax(rng):
     assert tnsg.find_medoid(x, device="cpu") == jnsg.find_medoid(x)
 
 
-def test_build_accel_names_the_records_slice(built):
-    with pytest.raises(NotImplementedError, match="records"):
-        built[4].build_accel()
-
-
 PORT_MODULES = [
     "hnsw_nsg_tpu_torch.utils.io", "hnsw_nsg_tpu_torch.ops.merge_select",
     "hnsw_nsg_tpu_torch.ops.cluster_scan", "hnsw_nsg_tpu_torch.models.beam",
     "hnsw_nsg_tpu_torch.models.prune", "hnsw_nsg_tpu_torch.models.knn_ivf",
-    "hnsw_nsg_tpu_torch.models.nsg",
+    "hnsw_nsg_tpu_torch.models.nsg", "hnsw_nsg_tpu_torch.models.records",
+    "hnsw_nsg_tpu_torch.models.inline_graph",
 ]
 
 
