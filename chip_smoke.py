@@ -29,22 +29,25 @@ Phases, each of which fails the run (non-zero exit) on its own:
      one id, an all-PAD retset), at the search, collect-pool, build-retset
      and wide-expand shapes, the HNSW insert and search shapes, a ragged
      Q, all-PAD candidates and a converged retset, with its resident warps
-     per SM; its general kernel (L > 512 or C > 1024) at (L, C) = (513,
-     50), (1024, 128), (4096, 128), (200, 1025) on the same kinds of
-     states, timed at L=1024; and the
-     cluster-join kernel versus its plain version at small shapes (f32:
-     l2 group 1, an inf tail; bf16 on tensor cores: ip group 4, group 8
-     with a ragged bucket tile, d=960, d=100, maxc=200, k=64, a sparse
-     last cluster; the general kernel at k = 65 and 102, bf16 and f32);
+     per SM; its 32-slot build (513 <= L <= 1024) on the same kinds of
+     states at L = 513, 800, 1024, timed at (Q, L, C) = (8192, 1024, 32);
+     its general kernel (L > 1024 or C > 1024) at (L, C) = (1025, 50),
+     (4096, 128), (200, 1025), timed at L = 1025 and 2048; and the
+     cluster-join kernels versus their plain versions at small shapes
+     (f32 on CUDA cores: l2 group 1, an inf tail, k = 65, 102; bf16 on
+     tensor cores: ip group 4, group 8 with a ragged bucket tile, d=960,
+     d=100, maxc=200, k=64, a sparse last cluster, k = 65, 102 with a
+     sparse last cluster, 202, and 450 with its heaps in global scratch);
   5. the HNSW path at 1M points through the hnswlib-compatible API:
      ``Index("l2", 128)``, ``init_index(N, M=16, ef_construction=200)``,
      ``add_items`` (seconds, points/s, each insert phase's seconds),
      ``check_integrity``, a BFS from the enterpoint that must reach every
      node, the mean level-0 degree and the count of level >= 1 nodes; then
      ``knn_query`` (Q=8192, k=10) with ``set_ef`` over 16..256 and one
-     batch at ef=1024, which runs the general merge+select kernel on real
-     beam states. It fails unless recall@10 >= 0.95 at some ef <= 256 and
-     ef=1024 is no lower than ef=256. Then ``build_accel`` (seconds,
+     batch at ef=1024, which runs merge+select's warp kernel at 32 slots a
+     lane on real beam states, and one at ef=2048, its general kernel. It
+     fails unless recall@10 >= 0.95 at some ef <= 256 and ef=1024 and
+     ef=2048 are no lower than ef=256. Then ``build_accel`` (seconds,
      bytes) and the same ef sweep over the packed int8 records (recall
      beside the plain path's, batch ms, expansions and evaluations),
      gated the same and failing unless merge+select launched; one plain
@@ -67,16 +70,19 @@ Phases, each of which fails the run (non-zero exit) on its own:
      ``entry="routed"`` and at l_search=64 with ``entry="descend"``. It
      fails unless the routed entry reaches recall@10 >= 0.95 at some
      l_search <= 256. Then ``build_accel`` and the routed sweep over the
-     records, gated the same, profiled as in phase 5; and a kNN graph at
-     k=100 through ``knn_graph_ivf`` (the general join kernel, with its
-     recall). The kernels' launch counts are set to 0 before and read
-     after each path, merge+select's also by shape and by kernel;
-  7. the cluster-join kernel versus its plain version at the build shape
-     (C from phase 6, maxc 2112, M=8, d=128, bf16, k=52, and the general
-     kernel at k=102): both times, the id mismatches at near-ties, the
-     bound (the products of the finite-bias slots only) and the kernel's
-     share of it;
-  8. the kernels line (six entries: times, launches, errors and each
+     records, gated the same, profiled as in phase 5; kNN graphs through
+     ``knn_graph_ivf`` at k=100 (join k = 102: the tensor-core join at 128
+     rows a block) and k=200 (join k = 202: 64 rows a block), with their
+     recall, and one at k=50 with f32 slabs (the CUDA-core join). The
+     kernels' launch counts are set to 0 before and read after each
+     path, merge+select's also by shape and by kernel, the join's by
+     kernel;
+  7. the cluster-join kernels versus their plain versions at the build
+     shape (C from phase 6, maxc 2112, M=8, d=128; bf16 at k=52, 102 and
+     202, f32 at k=52): both times, the rows a block, the id mismatches
+     at near-ties, the bound (the products of the finite-bias slots
+     only) and the kernel's share of it;
+  8. the kernels line (eight entries: times, launches, errors and each
      kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      989 TFLOP/s bf16 peak), and the last line:
@@ -102,7 +108,8 @@ TARGET_RECALL = 0.95
 # the graph phases' point count: the sift1m shape (bench.py:65)
 GRAPH_N = 1_000_000
 EF_SWEEP = (16, 32, 64, 96, 128, 256)
-EF_WIDE = 1024     # past the warp-per-query merge+select kernel's L = 512
+EF_WIDE = 1024     # merge+select's warp kernel at 32 slots a lane
+EF_WIDER = 2048    # past the warp kernel's L = 1024: the general kernel
 L_SWEEP = (16, 24, 32, 48, 64, 96, 128, 192, 256)
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
@@ -463,10 +470,31 @@ def merge_state(seed, q, l, c, expand, n_ids=20000, fill=0.7):
             torch.from_numpy(c_i).to(dev)]
 
 
+# phase_merge_select's states, each made by merge_state(100 + its index):
+# (name, Q, L, C, expand, mutation, timed)
+MERGE_CASES = [
+    ("search shape", 8192, 100, 50, 1, None, True),
+    ("collect pool", 4096, 500, 50, 1, None, True),
+    ("build retset", 4096, 40, 50, 1, None, True),
+    ("wide expand", 8192, 64, 120, 4, None, False),
+    ("ragged Q", 8195, 100, 50, 2, None, False),
+    ("all-PAD candidates", 1000, 100, 50, 1, "pad", False),
+    ("converged retset", 1000, 100, 50, 4, "converged", False),
+    ("hnsw insert", 4096, 200, 128, 4, None, True),
+    ("hnsw insert upper", 4096, 200, 64, 4, None, True),
+    ("hnsw search ef=96", 8192, 96, 32, 1, None, True),
+    ("warp kernel L=512", 8192, 512, 32, 1, None, True),
+    ("warp kernel L=513", 8192, 513, 32, 1, None, True),
+    ("warp kernel L=1024", 8192, 1024, 32, 1, None, True),
+    ("general L=1025", 8192, 1025, 32, 1, None, True),
+    ("general L=2048", 8192, 2048, 32, 1, None, True),
+]
+
+
 def phase_merge_select():
     """Kernel A against its plain version: torch.equal on all five
-    outputs. Returns (max |dists error| (0 when equal), kernel ms and
-    plain ms at the search and collect shapes)."""
+    outputs. Returns (max |dists error| (0 when equal) by kernel
+    (``ms_kernel``), and kernel ms, plain ms and bound by timed case)."""
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
 
     from hnsw_nsg_tpu_torch.utils.synth import (MERGE_STATE_KINDS,
@@ -494,13 +522,16 @@ def phase_merge_select():
           f"): {n_adv} cases, all five outputs equal")
     print("  merge_select resident queries (warps) per SM: "
           + ", ".join(f"L={l} C={c}: {ms.occupancy(l, c)}"
-                      for l, c in ((100, 50), (500, 50), (40, 50))))
+                      for l, c in ((100, 50), (500, 50), (40, 50),
+                                   (1024, 32), (1024, 128))))
 
-    # the general kernel (a block a query; L > 512 or C > 1024) on the
-    # same adversarial kinds and on random states
-    general = ((513, 50, 1), (1024, 128, 4), (4096, 128, 1), (200, 1025, 4))
+    # the warp kernel at 32 slots a lane (513 <= L <= 1024) and the
+    # general kernel (a block a query; L > 1024 or C > 1024) on the same
+    # adversarial kinds and on random states
+    wide = ((513, 50, 1), (800, 128, 4), (1024, 32, 1), (1024, 128, 4))
+    general = ((1025, 50, 1), (4096, 128, 1), (200, 1025, 4))
     g0 = ms.general_launches
-    for l, c, expand in general:
+    for l, c, expand in wide + general:
         states = [(kind, [torch.from_numpy(a).cuda() for a in
                           adversarial_merge_state(kind, l + c, 48, l, c)])
                   for kind in MERGE_STATE_KINDS]
@@ -519,30 +550,18 @@ def phase_merge_select():
         del states
     n_gen = ms.general_launches - g0
     if n_gen != len(general) * (len(MERGE_STATE_KINDS) + 1):
-        raise AssertionError("a wide shape did not reach the general kernel")
-    print(f"  merge_select general kernel at (L, C) = "
-          f"{[g[:2] for g in general]}: {n_gen} cases (adversarial and "
-          f"random states), all five outputs equal")
+        raise AssertionError("the general kernel ran a shape of the warp "
+                             "kernel, or missed one of its own")
+    print(f"  merge_select warp kernel at 32 slots a lane, (L, C) = "
+          f"{[w[:2] for w in wide]}, and general kernel at "
+          f"{[g[:2] for g in general]}: "
+          f"{(len(wide) + len(general)) * (len(MERGE_STATE_KINDS) + 1)} "
+          f"cases (adversarial and random states), all five outputs equal")
     torch.cuda.empty_cache()
 
-    cases = [  # (name, Q, L, C, expand, mutation, timed)
-        ("search shape", 8192, 100, 50, 1, None, True),
-        ("collect pool", 4096, 500, 50, 1, None, True),
-        ("build retset", 4096, 40, 50, 1, None, True),
-        ("wide expand", 8192, 64, 120, 4, None, False),
-        ("ragged Q", 8195, 100, 50, 2, None, False),
-        ("all-PAD candidates", 1000, 100, 50, 1, "pad", False),
-        ("converged retset", 1000, 100, 50, 4, "converged", False),
-        ("hnsw insert", 4096, 200, 128, 4, None, True),
-        ("hnsw insert upper", 4096, 200, 64, 4, None, True),
-        ("hnsw search ef=96", 8192, 96, 32, 1, None, True),
-        ("widest warp kernel L=512", 8192, 512, 32, 1, None, True),
-        ("general L=513", 8192, 513, 32, 1, None, True),
-        ("general L=1024", 8192, 1024, 32, 1, None, True),
-    ]
     times = {}
-    max_err = 0.0
-    for i, (name, q, l, c, expand, mut, timed) in enumerate(cases):
+    max_err = {"warp": 0.0, "warp, 32 slots": 0.0, "general": 0.0}
+    for i, (name, q, l, c, expand, mut, timed) in enumerate(MERGE_CASES):
         state = merge_state(100 + i, q, l, c, expand)
         if mut == "pad":
             state[3].fill_(3.4e37)
@@ -551,14 +570,19 @@ def phase_merge_select():
             state[2].fill_(True)
             state[3].fill_(3.4e37)
             state[4].fill_(-1)
+        g0 = ms.general_launches
         got = ms.fused_merge_select(*state, expand)
         torch.cuda.synchronize()
+        if ms.general_launches - g0 != (l > ms.MAX_L or c > ms.MAX_C):
+            raise AssertionError(f"merge_select {name}: the wrong kernel ran")
         want = ms.merge_select_reference(*state, expand)
         for nm, a, b in zip(names, got, want):
             if not torch.equal(a, b):
                 raise AssertionError(f"merge_select {name}: {nm} differs "
                                      f"from the plain version")
-        max_err = max(max_err, float((got[0] - want[0]).abs().max()))
+        kern = ms_kernel(ms, l, c)
+        max_err[kern] = max(max_err[kern],
+                            float((got[0] - want[0]).abs().max()))
         if mut == "converged" and bool(got[4].any()):
             raise AssertionError("a converged retset selected a frontier")
         line = f"  merge_select {name} (Q={q} L={l} C={c} expand={expand}): "
@@ -648,16 +672,21 @@ def check_join(name, qv, st, bias, k, scale, rtol, atol, time_it=False):
 
 def phase_join_small():
     """Kernel B vs plain at small shapes. f32 (the CUDA-core kernel): l2
-    with group 1, an inf tail. bf16 (the tensor-core kernel): ip group 4;
-    l2 group 8 with g = 200, not a multiple of the bucket tile; d = 960
-    (the query streams); d = 100 (padded to 104); maxc = 200, not a
-    multiple of the 128-row tile; k = 64 (MAX_JOIN_K); a sparse last
-    cluster whose finite buckets are fewer than k. f32 sums of d exact
-    products in another order: atol covers a few ulps of |bias| (~2d).
-    Returns the worst |vals error| of the fast kernels' cases and that of
-    the general kernel's (k > 64)."""
+    with group 1, an inf tail, k = 65 and 102. bf16 (the tensor-core
+    kernel): ip group 4; l2 group 8 with g = 200, not a multiple of the
+    bucket tile; d = 960 (the query streams); d = 100 (padded to 104);
+    maxc = 200, not a multiple of the 128-row tile; k = 64; a sparse last
+    cluster whose finite buckets are fewer than k; and k > 64: k = 65,
+    102 with a sparse last cluster (128 rows a block), 202 (64 rows), 450
+    (64 rows, the heaps in global scratch). f32 sums of d exact products
+    in another order: atol covers a few ulps of |bias| (~2d). Returns the
+    worst |vals error| by kernels-line entry (``join_entry``)."""
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+
     f32, bf = torch.float32, torch.bfloat16
-    worst = {False: 0.0, True: 0.0}   # by kernel: fast, general (k > 64)
+    worst = {128: 0.0, 64: 0.0, "f32": 0.0}   # by join_entry
+    before = dict(cs.join_launches_by_kernel)
+    n_cases = {f32: 0, bf: 0}
     # (name, join_case args (seed, c, maxc, mm, d, dtype, metric[,
     # sparse_last]), k, (rtol, atol))
     for name, args, k, tol in [
@@ -679,37 +708,59 @@ def phase_join_small():
          (1e-5, 1e-3)),
         ("bf16 l2 sparse last cluster", (10, 3, 64, 512, 128, bf, "l2", 5),
          20, (1e-5, 1e-3)),
-        # the general kernel (k > 64): 8 rows a block at g = 2048, 4 at
-        # g = 4096; a sparse last cluster with fewer finite buckets than k
-        ("general bf16 l2 k=65", (11, 4, 200, 4096, 128, bf, "l2"), 65,
+        # k > 64: the tensor-core kernel at 128 rows a block up to
+        # k = 110, 64 above, the heaps in global scratch past k = 285; a
+        # sparse last cluster with fewer finite buckets than k
+        ("bf16 l2 k=65", (11, 4, 200, 4096, 128, bf, "l2"), 65,
          (1e-5, 1e-3)),
-        ("general bf16 l2 k=102 sparse last", (12, 3, 150, 8192, 128, bf,
-                                               "l2", 40), 102, (1e-5, 1e-3)),
-        ("general f32 ip k=65", (13, 2, 100, 2048, 64, f32, "ip"), 65,
+        ("bf16 l2 k=102 sparse last", (12, 3, 150, 8192, 128, bf, "l2", 40),
+         102, (1e-5, 1e-3)),
+        ("bf16 l2 k=202", (15, 2, 100, 16384, 128, bf, "l2", 60), 202,
+         (1e-5, 1e-3)),
+        ("bf16 l2 k=450 heaps in scratch", (16, 2, 70, 8192, 64, bf, "l2",
+                                            30), 450, (1e-5, 1e-3)),
+        ("f32 ip k=65", (13, 2, 100, 2048, 64, f32, "ip"), 65,
          (1e-5, 1e-4)),
-        ("general f32 l2 k=102", (14, 2, 100, 4096, 64, f32, "l2"), 102,
+        ("f32 l2 k=102", (14, 2, 100, 4096, 64, f32, "l2"), 102,
          (1e-5, 1e-3)),
     ]:
         qv, st, bias, scale = join_case(*args)
         err, _, _ = check_join(name, qv, st, bias, k, scale, *tol)
-        general = k > 64
-        worst[general] = max(worst[general], err)
-    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
-    if cs.join_general_launches != 4:
-        raise AssertionError("a k > 64 case did not run the general join")
-    return worst[False], worst[True]
+        entry = join_entry(cs, args[4], k, qv.dtype)
+        worst[entry] = max(worst[entry], err)
+        n_cases[qv.dtype] += 1
+    for dt, n in n_cases.items():
+        kern = cs.JOIN_KERNELS[dt]
+        if cs.join_launches_by_kernel[kern] - before.get(kern, 0) != n:
+            raise AssertionError(f"the {dt} cases did not all run {kern}")
+    return worst
 
 
-def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52):
+def join_entry(cs, d, k, dtype):
+    """The kernels-line entry that a join call reports under: the rows a
+    block of the bf16 tensor-core kernel (128 or 64), or "f32"."""
+    if dtype == torch.bfloat16:
+        return cs.join_block_rows(d, k, dtype)
+    return "f32"
+
+
+def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52,
+                     dtype=torch.bfloat16):
     """Kernel B vs plain at the build shape of phase 6 (the plain version
     runs chunked over clusters: the whole f32 block would be ~140 GB), at
-    the hybrid's join k = 52 (the tensor-core kernel) or, with k = 102,
-    the k of phase 6's kNN graph at k = 100 (the general kernel).
+    the hybrid's join k = 52 (bf16: the tensor-core kernel at 128 rows a
+    block), k = 102, the k of phase 6's kNN graph at k = 100 (128 rows),
+    or k = 202, that of its graph at k = 200 (64 rows); f32 runs the
+    CUDA-core kernel. One launch a call.
     Returns (max |vals error|, kernel ms, plain ms, (bound ms, bound by))."""
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+
     qv, st, bias, scale = join_case(4, n_slabs, maxc, probes * maxc, d,
-                                    torch.bfloat16, "l2")
-    name = (f"build shape (C={n_slabs} maxc={maxc} M={probes} d={d} bf16 "
-            f"k={k})")
+                                    dtype, "l2")
+    rows = cs.join_block_rows(d, k, dtype)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    name = (f"build shape (C={n_slabs} maxc={maxc} M={probes} d={d} {tag} "
+            f"k={k}; {cs.JOIN_KERNELS[dtype]}, {rows} rows a block)")
     err, k_ms, p_ms = check_join(name, qv, st, bias, k, scale, 1e-5, 1e-3,
                                  time_it=True)
     # a slot with +inf bias scores +inf whatever its product: only the
@@ -719,7 +770,7 @@ def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52):
     out_bytes = n_slabs * maxc * k * 8          # vals f32 + idx int32
     flops = 2.0 * maxc * d * finite
     b = bound(nbytes(qv, bias) + finite * d * st.element_size() + out_bytes,
-              flops)
+              flops, PEAK_OPS[(dtype, dtype)])
     done = 2.0 * n_slabs * maxc * probes * maxc * d
     print(f"  cluster_join at the build shape: kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e12:.3f} "
@@ -771,16 +822,26 @@ def sampled_entries(qd, xd, sample: int = 4096, seed: int = 0):
     return pick[near[:, 0]].to(torch.int32)
 
 
-def launch_split(ms, what):
+def ms_kernel(ms, l, c):
+    """The merge+select kernel that (L, C) runs: the warp kernel (up to 16
+    retset slots a lane, L <= 512), its 32-slot build (512 < L <= 1024)
+    or the general kernel."""
+    if l > ms.MAX_L or c > ms.MAX_C:
+        return "general"
+    return "warp, 32 slots" if l > 512 else "warp"
+
+
+def launch_split(ms, what, tally):
     """Print merge+select's launches since the counts were last cleared,
-    by (L, C, expand) and by kernel. Returns (launches, general)."""
+    by (L, C, expand) and by kernel, and add them to ``tally`` by kernel."""
     split = {}
     for (q_, l_, c_, e_), cnt in ms.launches_by_shape.items():
         ent = split.setdefault((l_, c_, e_), [0, q_, q_])
         ent[0] += cnt
         ent[1], ent[2] = min(ent[1], q_), max(ent[2], q_)
     for (l_, c_, e_), (cnt, q_lo, q_hi) in sorted(split.items()):
-        kern = "general" if l_ > ms.MAX_L or c_ > ms.MAX_C else "warp"
+        kern = ms_kernel(ms, l_, c_)
+        tally[kern] = tally.get(kern, 0) + cnt
         print(f"  merge_select launches, {what}, L={l_} C={c_} expand={e_}: "
               f"{cnt} (Q {q_lo}..{q_hi}; {kern} kernel)")
     if sum(v[0] for v in split.values()) != ms.launches:
@@ -788,11 +849,11 @@ def launch_split(ms, what):
     share = ms.general_launches / max(ms.launches, 1)
     print(f"  merge_select launches, {what}: {ms.launches}, of them "
           f"{ms.general_launches} ({share:.2%}) by the general kernel")
-    return ms.launches, ms.general_launches
 
 
 def reset_counts(cs, ms):
     cs.launches = cs.join_launches = 0
+    cs.join_launches_by_kernel.clear()
     ms.launches = ms.general_launches = 0
     ms.launches_by_shape.clear()
 
@@ -893,10 +954,10 @@ def check_answers(labels, dists, x, queries, n, nq, k, rtol, atol):
         raise AssertionError("returned distances disagree with exact ones")
 
 
-def phase_hnsw(card, x, queries, gt):
+def phase_hnsw(card, x, queries, gt, tally):
     """The HNSW path through the hnswlib-compatible API, on the card by
-    default. Returns (merge launches, general launches, the graph's host
-    arrays for the hybrid phase to compare its own insert with)."""
+    default. Returns (the graph's host arrays for the hybrid phase to
+    compare its own insert with, merge launches of the records search)."""
     from hnsw_nsg_tpu_torch.api import Index
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
@@ -925,8 +986,7 @@ def phase_hnsw(card, x, queries, gt):
           f"{batches} batches; seconds by phase: {stages} (the rest: "
           f"connectivity repair and host bookkeeping) [{card}]")
     idx.stage_seconds = None
-    launch_split(ms, "HNSW build")
-    build_launches, build_general = ms.launches, ms.general_launches
+    launch_split(ms, "HNSW build", tally)
 
     t0 = time.perf_counter()
     if not idx.check_integrity():
@@ -963,29 +1023,38 @@ def phase_hnsw(card, x, queries, gt):
                               entry="descend")
     print(f"ef={reached or 256} with entry='descend': recall@10="
           f"{recall(labels, gt):.4f} (routed: {sweep[reached or 256]:.4f})")
-    if ms.general_launches:
-        raise AssertionError("an ef <= 512 search reached the general kernel")
     p.set_ef(EF_WIDE)
     t0 = time.perf_counter()
     labels, dists = p.knn_query(queries, k=k)
     wide_s = time.perf_counter() - t0
     r_wide = recall(labels, gt)
-    print(f"ef={EF_WIDE} (the general merge+select kernel): recall@10="
-          f"{r_wide:.4f}, one batch {wide_s * 1e3:.1f} ms [{card}]")
+    print(f"ef={EF_WIDE} (merge+select's warp kernel, 32 slots a lane): "
+          f"recall@10={r_wide:.4f}, one batch {wide_s * 1e3:.1f} ms [{card}]")
     check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
-    launch_split(ms, "HNSW search")
+    if ms.general_launches:
+        raise AssertionError(f"an ef <= {EF_WIDE} search reached the "
+                             f"general merge+select kernel")
+    p.set_ef(EF_WIDER)
+    t0 = time.perf_counter()
+    labels, dists = p.knn_query(queries, k=k)
+    wider_s = time.perf_counter() - t0
+    r_wider = recall(labels, gt)
+    print(f"ef={EF_WIDER} (the general merge+select kernel): recall@10="
+          f"{r_wider:.4f}, one batch {wider_s * 1e3:.1f} ms [{card}]")
+    check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
+    launch_split(ms, "HNSW search", tally)
     if ms.general_launches <= 0:
-        raise AssertionError(f"ef={EF_WIDE} did not launch the general kernel")
+        raise AssertionError(f"ef={EF_WIDER} did not launch the general "
+                             f"kernel")
     if reached is None:
         raise AssertionError(
             f"HNSW recall@10 >= {TARGET_RECALL} not reached at ef <= 256: "
             f"{sweep}")
-    if r_wide < sweep[256]:
-        raise AssertionError(f"recall at ef={EF_WIDE} ({r_wide}) is below "
-                             f"ef=256 ({sweep[256]})")
+    if min(r_wide, r_wider) < sweep[256]:
+        raise AssertionError(f"recall at ef={EF_WIDE} ({r_wide}) or "
+                             f"ef={EF_WIDER} ({r_wider}) is below ef=256 "
+                             f"({sweep[256]})")
     print(f"HNSW recall@10 >= {TARGET_RECALL} first at ef={reached}")
-    launches = build_launches + ms.launches
-    general = build_general + ms.general_launches
     plain_ms = {}
     for ef in (96, 256):
         p.set_ef(ef)
@@ -1024,7 +1093,7 @@ def phase_hnsw(card, x, queries, gt):
         if r >= TARGET_RECALL and reached_rec is None:
             reached_rec = ef
     check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
-    launch_split(ms, "HNSW records search")
+    launch_split(ms, "HNSW records search", tally)
     rec_launches = ms.launches
     if rec_launches <= 0:
         raise AssertionError("the records search did not launch merge_select")
@@ -1039,14 +1108,12 @@ def phase_hnsw(card, x, queries, gt):
     print(f"HNSW ef=96 a batch: plain {plain_ms[96]:.3f} ms, records "
           f"{rec[96][1]:.3f} ms; ef=256: plain {plain_ms[256]:.3f}, records "
           f"{rec[256][1]:.3f} [{card}]")
-    launches += rec_launches
-    general += ms.general_launches
     del p, idx, g
     torch.cuda.empty_cache()
-    return launches, general, graph, rec_launches
+    return graph, rec_launches
 
 
-def phase_accel_insert(card, x, queries, n=250_000):
+def phase_accel_insert(card, x, queries, tally, n=250_000):
     """add_items(accel=True) on the first ``n`` points: the records are
     maintained through the inserts and the level-0 beams walk them. The
     maintained rows must equal a fresh pack of the final graph at the
@@ -1072,7 +1139,7 @@ def phase_accel_insert(card, x, queries, n=250_000):
     print(f"HNSW add_items(accel=True) at N={n}: {ins_s:.2f} s, "
           f"{n / ins_s:.1f} points/s; seconds by phase: {stages} [{card}]")
     idx.stage_seconds = None
-    launch_split(ms, "HNSW accel insert")
+    launch_split(ms, "HNSW accel insert", tally)
     g = idx._records
     fresh = build_record_graph(idx.data, idx.adj0[:, : g.r], idx.norms,
                                scale=g.scale)
@@ -1096,10 +1163,13 @@ def phase_accel_insert(card, x, queries, n=250_000):
     return launches
 
 
-def phase_hybrid(card, x, queries, gt, hnsw_graph):
+def phase_hybrid(card, x, queries, gt, hnsw_graph, tally):
     """The hybrid path (HNSW upper levels routing into an NSG base layer)
-    and, on its NSG, the NSG path from the medoid. Returns (join launches,
-    merge launches, general launches, n_slabs)."""
+    and, on its NSG, the NSG path from the medoid; then two more kNN
+    graphs. Returns (the join launches at 128 rows a block: the NSG
+    build's and the k=100 graph's, n_slabs, the records search's merge
+    launches, the k=200 graph's join launches at 64 rows a block, the f32
+    graph's join launches)."""
     from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG
     from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
@@ -1164,10 +1234,14 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
     if (adj_np == np.arange(n)[:, None]).any():
         raise AssertionError("the NSG has a self edge")
     del adj_np
-    launch_split(ms, "hybrid build (HNSW insert + NSG build)")
+    launch_split(ms, "hybrid build (HNSW insert + NSG build)", tally)
     if ms.launches <= insert_launches or cs.join_launches <= 0:
         raise AssertionError("the NSG build did not launch both kernels")
-    build_counts = (cs.join_launches, ms.launches, ms.general_launches)
+    build_join = cs.join_launches_by_kernel["join_mma_kernel"]
+    if build_join != cs.join_launches or cs.join_block_rows(
+            d, stats["k"], torch.bfloat16) != 128:
+        raise AssertionError("the NSG build's join did not run the "
+                             "tensor-core kernel at 128 rows a block")
 
     # the NSG path from its single medoid entry (reported, not gated: the
     # 400 mixture components of the 1M data keep a beam from the medoid
@@ -1188,8 +1262,7 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
         _, ei = idx.search_from_enterpoint(qd, entries, k=k, l_search=ls)
         print(f"search_from_enterpoint (nearest of 4096 sampled points) "
               f"l_search={ls}: recall@10={recall(ei.cpu(), gt):.4f}")
-    launch_split(ms, "NSG search from the medoid")
-    nsg_counts = (ms.launches, ms.general_launches)
+    launch_split(ms, "NSG search from the medoid", tally)
 
     # the hybrid's own search: the routed entry, then SearchFromEnterpoint
     reset_counts(cs, ms)
@@ -1211,7 +1284,7 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
         queries, k=k, l_search=64, entry="descend"))
     print(f"hybrid descend, l_search=64: recall@10={recall(labels, gt):.4f} "
           f"median {med * 1e3:.3f} ms (routed: {sweep[64]:.4f}) [{card}]")
-    launch_split(ms, "hybrid search")
+    launch_split(ms, "hybrid search", tally)
     if ms.launches <= 0:
         raise AssertionError("the hybrid search did not launch merge_select")
     if reached is None:
@@ -1220,8 +1293,6 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
             f"<= 256: {sweep}")
     print(f"hybrid recall@10 >= {TARGET_RECALL} first at l_search={reached} "
           f"(N={n})")
-    m_launches = build_counts[1] + nsg_counts[0] + ms.launches
-    g_launches = build_counts[2] + nsg_counts[1] + ms.general_launches
     plain_ms = {ls: timed_query(lambda: hyb.search_knn(
         queries, k=k, l_search=ls))[0] * 1e3 for ls in (64, 256)}
     # a plain NSG hop gathers the adjacency row, R data rows and R norms of
@@ -1255,7 +1326,7 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
         if r >= TARGET_RECALL and reached_rec is None:
             reached_rec = ls
     check_answers(labels, dists, x, queries, n, nq, k, 1e-4, 1e-2)
-    launch_split(ms, "hybrid records search")
+    launch_split(ms, "hybrid records search", tally)
     rec_launches = ms.launches
     if rec_launches <= 0:
         raise AssertionError("the records search did not launch merge_select")
@@ -1270,33 +1341,45 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph):
     print(f"hybrid l_search=64 a batch: plain {plain_ms[64]:.3f} ms, records "
           f"{rec[64][1]:.3f} ms; l_search=256: plain {plain_ms[256]:.3f}, "
           f"records {rec[256][1]:.3f} [{card}]")
-    m_launches += rec_launches
-    g_launches += ms.general_launches
     n_slabs = stats["n_slabs"]
     del hyb, idx, h, qd, g
 
-    # the kNN graph at k = 100 (join k = 102, the general join kernel)
+    # the kNN graph at k = 100 (join k = 102: the tensor-core join at 128
+    # rows a block), at k = 200 (join k = 202: 64 rows a block), and at
+    # k = 50 with exact f32 slabs (the CUDA-core join)
+    graphs = {}
+    for kg, dt in ((100, torch.bfloat16), (200, torch.bfloat16),
+                   (50, torch.float32)):
+        torch.cuda.empty_cache()
+        reset_counts(cs, ms)
+        t0 = time.perf_counter()
+        adj = knn_graph_ivf(xd, kg, slab_dtype=dt, as_device=True)
+        torch.cuda.synchronize()
+        knn_s = time.perf_counter() - t0
+        kern = cs.JOIN_KERNELS[dt]
+        rows = cs.join_block_rows(d, kg + 2, dt)
+        print(f"kNN graph k={kg} ({str(dt).split('.')[-1]} slabs; {kern}, "
+              f"{rows} rows a block): {knn_s:.2f} s, recall on a 10k-node "
+              f"sample {exact_knn_recall(xd, adj):.4f} [{card}]")
+        graphs[kg] = cs.join_launches_by_kernel[kern]
+        if graphs[kg] <= 0 or graphs[kg] != cs.join_launches:
+            raise AssertionError(f"the k={kg} kNN graph did not run {kern}")
+        del adj
+    if [cs.join_block_rows(d, kj, torch.bfloat16) for kj in (102, 202)] != [
+            128, 64]:
+        raise AssertionError("join k=102 is not at 128 rows a block or "
+                             "k=202 not at 64")
+    del xd
     torch.cuda.empty_cache()
-    reset_counts(cs, ms)
-    t0 = time.perf_counter()
-    adj100 = knn_graph_ivf(xd, 100, as_device=True)
-    torch.cuda.synchronize()
-    knn100_s = time.perf_counter() - t0
-    print(f"kNN graph k=100: {knn100_s:.2f} s, recall on a 10k-node sample "
-          f"{exact_knn_recall(xd, adj100):.4f} [{card}]")
-    gj_launches = cs.join_general_launches
-    if gj_launches <= 0:
-        raise AssertionError("the k=100 kNN graph did not run the general join")
-    del adj100, xd
-    torch.cuda.empty_cache()
-    return (build_counts[0], m_launches, g_launches, n_slabs, rec_launches,
-            gj_launches)
+    return (build_join + graphs[100], n_slabs, rec_launches, graphs[200],
+            graphs[50])
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from hnsw_nsg_tpu_torch.ops import _build
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
 
     card = card_line()
     print(card)
@@ -1316,7 +1399,7 @@ def main() -> int:
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
-    join_err, gen_join_err = phase_join_small()
+    join_err = phase_join_small()
 
     from hnsw_nsg_tpu_torch.ops import brute_force_topk
     from hnsw_nsg_tpu_torch.utils.synth import make_data
@@ -1329,33 +1412,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"graph phases' data: {GRAPH_N}x128 + 8192 queries and the f32 "
           f"ground truth in {time.perf_counter() - t0:.1f} s")
-    h_launches, h_general, hnsw_graph, h_rec = phase_hnsw(card, x, queries,
-                                                          gt)
-    a_launches = phase_accel_insert(card, x, queries)
-    (j_launches, y_launches, y_general, n_slabs, y_rec,
-     gj_launches) = phase_hybrid(card, x, queries, gt, hnsw_graph)
-    m_launches = h_launches + a_launches + y_launches
-    g_launches = h_general + y_general
+    # merge+select's launches on the main paths, by kernel (ms_kernel)
+    tally = {"warp": 0, "warp, 32 slots": 0, "general": 0}
+    hnsw_graph, h_rec = phase_hnsw(card, x, queries, gt, tally)
+    a_launches = phase_accel_insert(card, x, queries, tally)
+    (j_launches, n_slabs, y_rec, j64_launches,
+     f32_launches) = phase_hybrid(card, x, queries, gt, hnsw_graph, tally)
+    m_launches = sum(tally.values())
     print(f"merge_select launches over the HNSW and hybrid paths: "
-          f"{m_launches}, of them {g_launches} "
-          f"({g_launches / m_launches:.3%}) by the general kernel; on the "
-          f"records paths: HNSW search {h_rec}, accel insert {a_launches}, "
-          f"hybrid search {y_rec}")
+          f"{m_launches}, by kernel "
+          + ", ".join(f"{kern} {n} ({n / m_launches:.3%})"
+                      for kern, n in tally.items())
+          + f"; on the records paths: HNSW search {h_rec}, accel insert "
+          f"{a_launches}, hybrid search {y_rec}")
+    if min(tally.values()) <= 0:
+        raise AssertionError(f"a merge_select kernel did not run on the "
+                             f"main paths: {tally}")
     del x, queries
-    build_err, join_ms, join_plain_ms, join_bound = phase_join_build(
-        card, n_slabs)
-    gj_err, gj_ms, gj_plain_ms, gj_bound = phase_join_build(
-        card, n_slabs, k=102)
+    builds = {(k, dt): phase_join_build(card, n_slabs, k=k, dtype=dt)
+              for k, dt in ((52, torch.bfloat16), (102, torch.bfloat16),
+                            (202, torch.bfloat16), (52, torch.float32))}
+    # (max |vals error|, kernel ms, plain ms, bound) of each
+    j128, j64, jf32 = (builds[(102, torch.bfloat16)],
+                       builds[(202, torch.bfloat16)],
+                       builds[(52, torch.float32)])
+    for (k, dt), b in builds.items():
+        entry = join_entry(cs, 128, k, dt)
+        join_err[entry] = max(join_err[entry], b[0])
 
     # no single PyTorch call computes any of the functions, so none has a
     # library time; the grouped scan's times are at the call the main path
     # makes (k = 20), its general kernel's at the call that the entry
-    # point's default k = 100 makes (k = 200), merge+select's at the NSG build's
-    # collect pool (L = 500) and, for its general kernel, at L = 1024 (the
-    # ef = 1024 search's shape), the join's at the 1M build shape at k = 52
-    # and, for its general kernel, k = 102 (the k = 100 kNN graph's)
+    # point's default k = 100 makes (k = 200), merge+select's at the NSG
+    # build's collect pool (L = 500), at L = 1024 for its 32-slot build
+    # (the ef = 1024 search's shape) and at L = 2048 for its general kernel
+    # (ef = 2048), the join's at the 1M build shape: bf16 at k = 102 (128
+    # rows a block; the k = 100 kNN graph's call) and k = 202 (64 rows a
+    # block; the k = 200 graph's), f32 at k = 52
     ms_ms, ms_plain, ms_bound, ms_by = ms_times["collect pool"]
-    g_ms, g_plain, g_bound, g_by = ms_times["general L=1024"]
+    w_ms, w_plain, w_bound, w_by = ms_times["warp kernel L=1024"]
+    g_ms, g_plain, g_bound, g_by = ms_times["general L=2048"]
     kernels = [{
         "name": "grouped_cluster_topk_gq", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -1370,36 +1466,55 @@ def main() -> int:
         "bound_ms": gen_times[2][0], "bound_by": gen_times[2][1],
         "library_ms": None,
     }, {
-        "name": "fused_merge_select", "route": "cuda",
-        "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
-        "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
-        "launches": m_launches - g_launches, "max_abs_err": ms_err,
-        "ms": ms_ms, "plain_ms": ms_plain, "bound_ms": ms_bound,
-        "bound_by": ms_by, "library_ms": None,
-    }, {
-        "name": "fused_merge_select (general kernel: L > 512 or C > 1024)",
+        "name": "fused_merge_select (warp kernel: L <= 512, C <= 1024)",
         "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
         "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
-        "launches": g_launches, "max_abs_err": ms_err,
+        "launches": tally["warp"], "max_abs_err": ms_err["warp"],
+        "ms": ms_ms, "plain_ms": ms_plain, "bound_ms": ms_bound,
+        "bound_by": ms_by, "library_ms": None,
+    }, {
+        "name": "fused_merge_select (warp kernel, 32 slots a lane: "
+                "512 < L <= 1024)",
+        "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
+        "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
+        "launches": tally["warp, 32 slots"],
+        "max_abs_err": ms_err["warp, 32 slots"],
+        "ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+        "bound_by": w_by, "library_ms": None,
+    }, {
+        "name": "fused_merge_select (general kernel: L > 1024 or C > 1024)",
+        "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",
+        "replaces": "hnsw_nsg_tpu/ops/merge_select.py:92",
+        "launches": tally["general"], "max_abs_err": ms_err["general"],
         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
         "bound_by": g_by, "library_ms": None,
     }, {
-        "name": "cluster_join_topk", "route": "cuda",
+        "name": "cluster_join_topk (bf16 tensor cores, 128 rows a block: "
+                "k <= 110)", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
         "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
-        "launches": j_launches, "max_abs_err": max(join_err, build_err),
-        "ms": join_ms, "plain_ms": join_plain_ms,
-        "bound_ms": join_bound[0], "bound_by": join_bound[1],
-        "library_ms": None,
+        "launches": j_launches, "max_abs_err": join_err[128],
+        "ms": j128[1], "plain_ms": j128[2],
+        "bound_ms": j128[3][0], "bound_by": j128[3][1], "library_ms": None,
     }, {
-        "name": "cluster_join_topk (general kernel: k > 64)", "route": "cuda",
+        "name": "cluster_join_topk (bf16 tensor cores, 64 rows a block: "
+                "k > 110)", "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
         "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
-        "launches": gj_launches, "max_abs_err": max(gen_join_err, gj_err),
-        "ms": gj_ms, "plain_ms": gj_plain_ms,
-        "bound_ms": gj_bound[0], "bound_by": gj_bound[1],
-        "library_ms": None,
+        "launches": j64_launches, "max_abs_err": join_err[64],
+        "ms": j64[1], "plain_ms": j64[2],
+        "bound_ms": j64[3][0], "bound_by": j64[3][1], "library_ms": None,
+    }, {
+        "name": "cluster_join_topk (f32 CUDA cores: join_general_kernel)",
+        "route": "cuda",
+        "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
+        "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",
+        "launches": f32_launches, "max_abs_err": join_err["f32"],
+        "ms": jf32[1], "plain_ms": jf32[2],
+        "bound_ms": jf32[3][0], "bound_by": jf32[3][1], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,8 +30,8 @@
 // retset is already sorted, so one warp per query orders only the
 // candidates it keeps and merges:
 //   * the lanes hold the retset ids in registers, slot lane + 32 k in
-//     register k (the kernel is compiled for 2, 4, 8 and 16 slots a
-//     lane, so L <= 512; wider retsets and C > 1024 go to the general
+//     register k (the kernel is compiled for 2, 4, 8, 16 and 32 slots a
+//     lane, so L <= 1024; wider retsets and C > 1024 go to the general
 //     kernel at the end of this file),
 //     and the expanded flags as one bit mask; only the dists go to
 //     shared memory;
@@ -69,7 +69,13 @@
 // merge_select_occupancy: 40 at L = 500 (48 registers; the first design
 // held 20), so the collect pool's 4096 queries are one wave, and 48 at
 // L = 100 and L = 40 (40 registers). nvcc -Xptxas -v shows at most 32
-// bytes of spill in any instantiation.
+// bytes of spill in any instantiation. The 32-slot build (L = 513..1024,
+// an HNSW search with ef up to 1024) keeps 32 ids a lane in registers
+// under a cap of 128 (two blocks an SM; it takes 96, no spill): at
+// L = 1024, C = 32 a block takes 77 KB of shared memory, so two blocks,
+// 16 queries, are what an SM holds whatever the cap. Measured at
+// Q = 8192, L = 1024, C = 32 (PERF.md): 0.080 ms, where the general
+// kernel took 0.66.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -81,7 +87,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kPadDist = 3.4e37f;  // ops/distance.py PAD_DIST
 constexpr int kPadId = -1;           // ops/distance.py PAD_ID
 constexpr int kWarps = 8;            // queries (warps) per block
-constexpr int kMaxL = 512;           // 16 retset slots a lane
+constexpr int kMaxL = 1024;          // 32 retset slots a lane
 constexpr int kMaxC = 1024;
 constexpr int kSmallSmem = 48 * 1024;
 
@@ -104,7 +110,7 @@ __device__ __forceinline__ int floor_pow2(int n) {
 // blocks an SM should hold, which sets the register cap: the lanes keep
 // kNR retset ids each
 constexpr int min_blocks(int nr) {
-  return nr <= 8 ? 6 : 5;
+  return nr <= 8 ? 6 : nr <= 16 ? 5 : 2;
 }
 
 // kNR: retset slots a lane, >= ceil(l / 32). kVec: l % 4 == 0 and the
@@ -141,7 +147,7 @@ merge_select_kernel(
     md[j] = c_d[cq + j];
   }
   int rid[kNR];
-  // (64 bits though kNR <= 16: with a 32-bit mask the 16-slot build
+  // (64 bits, though kNR <= 32: with a 32-bit mask the 16-slot build
   // spills more and measured 38 us against 33 at Q = 4096, L = 500)
   unsigned long long expanded = 0;
 #pragma unroll
@@ -335,7 +341,8 @@ Kernel pick(int l, bool vec) {
   return nr <= 2   ? pick_vec<2>(vec)
          : nr <= 4 ? pick_vec<4>(vec)
          : nr <= 8 ? pick_vec<8>(vec)
-                   : pick_vec<16>(vec);
+         : nr <= 16 ? pick_vec<16>(vec)
+                    : pick_vec<32>(vec);
 }
 
 cudaError_t allow(Kernel kernel, int bytes) {
@@ -348,8 +355,8 @@ cudaError_t allow(Kernel kernel, int bytes) {
 // ---- the general kernel: any L and C that fit shared memory ----------------
 //
 // The kernel above holds the retset ids in a lane's registers, so it is
-// compiled per width and stops at L = 512. This one takes L and C at run
-// time (an HNSW search with ef = 1024, a beam whose expand * R passes
+// compiled per width and stops at L = 1024. This one takes L and C at run
+// time (an HNSW search with ef above 1024, a beam whose expand * R passes
 // 1024): a block per query, the retset and the candidates in shared
 // memory, the same three steps with nothing clever in them. It is the
 // simple one and is not tuned:
@@ -367,7 +374,9 @@ cudaError_t allow(Kernel kernel, int bytes) {
 // the 227 KB a block may have they are shared memory; past that (L ~ 29,000
 // at C = 50) the same arrays lie in global scratch that the wrapper
 // allocates, Q x (8 L + 16 C) bytes, so any L and C are taken, the JAX
-// function's contract.
+// function's contract. The two homes are two instantiations, so that the
+// shared-memory one compiles to shared-memory loads and stores, not to
+// generic ones (0.67 -> 0.50 ms at Q = 8192, L = 1025, C = 32).
 
 constexpr int kGenThreads = 256;
 constexpr int kGenSmemMax = 232448;
@@ -394,6 +403,7 @@ __device__ __forceinline__ int count_le(const float* a, int n, float v) {
   return lo;
 }
 
+template <bool kScratch>
 __global__ void __launch_bounds__(kGenThreads)
 merge_select_general_kernel(
     const float* __restrict__ r_d, const int* __restrict__ r_i,
@@ -405,8 +415,7 @@ merge_select_general_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
   const long long q = blockIdx.x;
-  unsigned char* base =
-      scratch != nullptr ? scratch + q * general_bytes(l, c) : smem;
+  unsigned char* base = kScratch ? scratch + q * general_bytes(l, c) : smem;
   float* rd = reinterpret_cast<float*>(base);   // [l] retset dists
   int* ri = reinterpret_cast<int*>(rd + l);     // [l] retset ids
   float* md = reinterpret_cast<float*>(ri + l); // [c] masked candidates
@@ -494,7 +503,7 @@ merge_select_general_kernel(
 // Plain C entry point (loaded with ctypes). Pointers are device pointers:
 // r_d f32, r_i i32, r_e bool (1 byte) [Q, L]; c_d f32, c_i i32 [Q, C];
 // outputs o_d/o_i/o_e [Q, L] and sel_i i32 / sel_v bool [Q, expand],
-// allocated by the caller. L <= 512, C <= 1024. Launches on `stream`
+// allocated by the caller. L <= 1024, C <= 1024. Launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 extern "C" int merge_select(const void* r_d, const void* r_i, const void* r_e,
                             const void* c_d, const void* c_i, void* o_d,
@@ -556,15 +565,19 @@ extern "C" int merge_select_general(const void* r_d, const void* r_i,
       8ll * l + 16ll * c > INT_MAX ||
       (merge_select_general_scratch(l, c) > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = scratch != nullptr ? 0 : general_bytes(l, c);
+  const bool in_scratch = scratch != nullptr;
+  const int bytes = in_scratch ? 0 : general_bytes(l, c);
+  using General = void (*)(const float*, const int*, const uint8_t*,
+                           const float*, const int*, float*, int*, uint8_t*,
+                           int*, uint8_t*, unsigned char*, int, int, int);
+  const General kernel = in_scratch ? merge_select_general_kernel<true>
+                                    : merge_select_general_kernel<false>;
   if (bytes > kSmallSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        merge_select_general_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  merge_select_general_kernel<<<nq, kGenThreads, bytes,
-                                static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<nq, kGenThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r_d), static_cast<const int*>(r_i),
       static_cast<const uint8_t*>(r_e), static_cast<const float*>(c_d),
       static_cast<const int*>(c_i), static_cast<float*>(o_d),

@@ -1,5 +1,5 @@
 // The running top-k shared by the general kernels of this directory
-// (grouped_scan.cu for k > 32, cluster_join.cu for k > 64): one warp keeps
+// (grouped_scan.cu for k > 32, cluster_join.cu's f32 kernel): one warp keeps
 // a row's k smallest (value, position) keys (make_key in mma_helpers.cuh)
 // and at the end writes them ascending, ties to the lower position, as a
 // stable sort of the values would.

@@ -140,19 +140,15 @@ def load_library() -> ctypes.CDLL:
     lib.merge_select_occupancy.argtypes = [ci, ci]      # L, C
     lib.merge_select_occupancy.restype = ci
     lib.cluster_join.argtypes = [
-        vp, vp, vp, vp, vp,              # qv, stacks, bias, vals, idx
-        ci, ci, ci, ci, ci, ci,          # C, maxc, d, mm, k, group
-        cf, ci, vp,                      # scale, dtype, stream
-    ]
-    lib.cluster_join.restype = ci
-    lib.cluster_join_general.argtypes = [
         vp, vp, vp, vp, vp, vp,          # qv, stacks, bias, vals, idx, scratch
         ci, ci, ci, ci, ci, ci,          # C, maxc, d, mm, k, group
         cf, ci, vp,                      # scale, dtype, stream
     ]
-    lib.cluster_join_general.restype = ci
-    lib.cluster_join_general_scratch.argtypes = [ci, ci, ci]   # C, maxc, k
-    lib.cluster_join_general_scratch.restype = ctypes.c_longlong
+    lib.cluster_join.restype = ci
+    lib.cluster_join_scratch.argtypes = [ci, ci, ci, ci, ci]  # C, maxc, d,
+    lib.cluster_join_scratch.restype = ctypes.c_longlong     # k, dtype
+    lib.cluster_join_rows.argtypes = [ci, ci, ci]             # d, k, dtype
+    lib.cluster_join_rows.restype = ci
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

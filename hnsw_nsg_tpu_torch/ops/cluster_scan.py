@@ -30,17 +30,23 @@ launches, ``general_launches`` the general kernel's share of them.
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
 member row of each cluster against the cluster's stacked candidate slabs
-and returns the k smallest per-bucket minima (``csrc/cluster_join.cu``:
-for k <= ``MAX_JOIN_K`` = 64 bf16 on tensor cores and f32 in exact
-FMAs, for any larger k up to the bucket count a general kernel of the
-scan's kind; ``join_launches`` counts its launches,
-``join_general_launches`` the general kernel's share). The TPU's
+and returns the k smallest per-bucket minima. ``csrc/cluster_join.cu``
+has one kernel a dtype, each for any k up to the bucket count: bf16 on
+tensor cores (``join_mma_kernel``: 128 member rows a block while their
+top-k heaps fit shared memory (k <= 110 at d <= 128), else 64, whose
+heaps move to global scratch that the wrapper allocates past k = 285
+(279 when d > 128)), f32 in exact FMAs on
+CUDA cores (``join_general_kernel``, a running top-k of the scan's
+general kind). ``join_launches`` counts the join's launches and
+``join_launches_by_kernel`` splits them by kernel name. The TPU's
 row-chunk shrink for scoped VMEM (pallas_scan.py:197-200) is not carried
 over; the bucket rule (``join_group``) is, because it decides which slots
 can come back.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -49,7 +55,8 @@ from .distance import f32_dots
 # kernel launches made by the wrappers of this module (CUDA tensors only):
 # the grouped scan, and the cluster join; of each, the general kernel's
 launches = general_launches = 0
-join_launches = join_general_launches = 0
+join_launches = 0
+join_launches_by_kernel: Counter = Counter()   # kernel name -> launches
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # (query dtype, slab dtype) pairs of pallas_scan.py:_dots
@@ -227,8 +234,9 @@ def grouped_cluster_topk(qv, slabs, bias, k: int, scale: float):
 
 # ---- cluster join (kNN-graph build) ----------------------------------------
 
-MAX_JOIN_K = 64     # the fast kernels' k; the general kernel takes any k
 _JOIN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+JOIN_KERNELS = {torch.float32: "join_general_kernel",
+                torch.bfloat16: "join_mma_kernel"}
 
 
 def join_group(mm: int, k: int) -> int:
@@ -287,15 +295,24 @@ def cluster_join_topk_reference(qv, stacks, bias, k: int, scale: float,
     return vals, idx
 
 
+def join_block_rows(d: int, k: int, dtype) -> int:
+    """Member rows a block of the join kernel that (d, k, dtype) launches:
+    128 or 64 on tensor cores (bf16), 32 on CUDA cores (f32). Needs the
+    card's library."""
+    from ._build import load_library
+
+    return load_library().cluster_join_rows(d + (-d % 8), k,
+                                            _JOIN_DTYPE_CODE[dtype])
+
+
 def _launch_join(qv, stacks, bias, k: int, scale: float):
-    global join_launches, join_general_launches
+    global join_launches
     from ._build import load_library, scratch
 
     for name, t in (("qv", qv), ("stacks", stacks), ("bias", bias)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    general = k > MAX_JOIN_K
-    if qv.dtype == torch.bfloat16 and not general:
+    if qv.dtype == torch.bfloat16:
         # the tensor-core kernel copies 16-byte row pieces: pad d to a
         # multiple of 8 with zeros (no dot changes) and align the bases
         pad = -qv.shape[2] % 8
@@ -314,19 +331,16 @@ def _launch_join(qv, stacks, bias, k: int, scale: float):
     group = join_group(mm, k)
     ptrs = (qv.data_ptr(), stacks.data_ptr(), bias.data_ptr(),
             vals.data_ptr(), idx.data_ptr())
-    shape = (c, maxc, d, mm, k, group, float(scale),
-             _JOIN_DTYPE_CODE[qv.dtype],
-             torch.cuda.current_stream(qv.device).cuda_stream)
-    if general:
-        buf, buf_ptr = scratch(lib.cluster_join_general_scratch(c, maxc, k),
-                               qv.device)
-        rc = lib.cluster_join_general(*ptrs, buf_ptr, *shape)
-    else:
-        rc = lib.cluster_join(*ptrs, *shape)
+    code = _JOIN_DTYPE_CODE[qv.dtype]
+    buf, buf_ptr = scratch(lib.cluster_join_scratch(c, maxc, d, k, code),
+                           qv.device)
+    rc = lib.cluster_join(*ptrs, buf_ptr, c, maxc, d, mm, k, group,
+                          float(scale), code,
+                          torch.cuda.current_stream(qv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"cluster_join kernel launch failed: CUDA error {rc}")
     join_launches += 1
-    join_general_launches += general
+    join_launches_by_kernel[JOIN_KERNELS[qv.dtype]] += 1
     return vals, idx
 
 
@@ -335,7 +349,9 @@ def cluster_join_topk(qv, stacks, bias, k: int, scale: float):
     slabs (same dtype, f32 or bf16), bias [C, mm] f32 (+inf on pads) ->
     (vals, idx) [C, maxc, k]: per row, the k smallest of the per-bucket
     minima of ``bias - scale * <row, slot>``, ascending, idx = the slot.
-    Entries past the finite buckets are +inf with an unspecified idx."""
+    Entries past the finite buckets are +inf; their idx are the buckets
+    whose every slot has an infinite bias, lowest first, as the plain
+    version gives them (with finite products)."""
     if _on_cpu(qv, stacks, bias):
         return cluster_join_topk_reference(qv, stacks, bias, k, scale)
     _check_join(qv, stacks, bias, k)

@@ -12,10 +12,11 @@ take that composition (``merge_select_reference``); CUDA tensors launch
 one of the two hand-written kernels of ``csrc/merge_select.cu``, or the
 wrapper raises:
 
-  * L <= ``MAX_L`` = 512 and C <= ``MAX_C`` = 1024: a warp per query, the
-    retset ids in the lanes' registers, every candidate broadcast and
-    compared with them, a rank sort of the kept candidates, a merge path;
-  * anything wider (an HNSW search with ``ef`` above 512, a beam whose
+  * L <= ``MAX_L`` = 1024 and C <= ``MAX_C`` = 1024: a warp per query,
+    the retset ids in the lanes' registers (up to 32 a lane), every
+    candidate broadcast and compared with them, a rank sort of the kept
+    candidates, a merge path;
+  * anything wider (an HNSW search with ``ef`` above 1024, a beam whose
     expand * R passes 1024): the general kernel, a block per query with
     the retset and candidates in shared memory, or in global scratch that
     this wrapper allocates when they pass the 227 KB a block may have
@@ -46,7 +47,7 @@ from .topk import merge_into_retset
 launches = 0
 launches_by_shape: Counter = Counter()   # (Q, L, C, expand) -> launches
 general_launches = 0                     # of them, the general kernel's
-MAX_L, MAX_C = 512, 1024                 # the warp-per-query kernel
+MAX_L, MAX_C = 1024, 1024                # the warp-per-query kernel
 
 
 def merge_select_reference(r_d, r_i, r_e, c_d, c_i, expand: int):
@@ -113,7 +114,7 @@ def _launch(r_d, r_i, r_e, c_d, c_i, expand: int):
 def occupancy(l: int, c: int) -> int:
     """Queries (warps) that one SM holds at once for retset width ``l`` and
     ``c`` candidates, as the CUDA runtime reports it for the launch of the
-    warp-per-query kernel (L <= 512, C <= 1024). Needs the card."""
+    warp-per-query kernel (L <= 1024, C <= 1024). Needs the card."""
     from ._build import load_library
 
     warps = load_library().merge_select_occupancy(l, c)

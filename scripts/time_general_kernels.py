@@ -1,14 +1,12 @@
-"""Device times of the general scan and join kernels against the fast
-kernels at a k that both take, on one CUDA card.
+"""Device times of the general scan kernel against the fast scan kernels
+at a k that both take, on one CUDA card.
 
     python3 scripts/time_general_kernels.py
 
-The wrappers pick the general kernels only above k = 32 (scan) and
-k = 64 (join). This script calls both entry points of the library on the
-same inputs at a k the fast kernels take: the scan at chip_smoke.py's
-bench shape (C=1152, maxc=2056, d=128, cap=32) for every dtype pair at
-k = 10 and 32, the join in f32 (the CUDA-core kernel) on 64 clusters of
-the 1M build shape (maxc=2112, M=8, d=128) at k = 52 and 64. Inputs,
+The wrapper picks the general scan only above k = 32. This script calls
+both entry points of the library on the same inputs at a k the fast
+kernels take: the scan at chip_smoke.py's bench shape (C=1152,
+maxc=2056, d=128, cap=32) for every dtype pair at k = 10 and 32. Inputs,
 seeds and the timer (``cuda_ms``) are chip_smoke.py's. Each shape prints
 one JSON line: whether the two kernels' outputs are equal on the rows
 that carry a result, both times, and the card's name and power limit.
@@ -86,24 +84,6 @@ def main():
                     else "grouped_scan_kernel")
         del qc, qidx, slabs, bias
         torch.cuda.empty_cache()
-
-    c, maxc, probes, d = 64, 2112, 8, 128
-    qv, st, bias, scale = smoke.join_case(4, c, maxc, probes * maxc, d, f32,
-                                          "l2")
-    mm = st.shape[1]
-    for k in (52, 64):
-        group = cs.join_group(mm, k)
-        if lib.cluster_join_general_scratch(c, maxc, k):
-            raise AssertionError("the join's buffers left shared memory")
-        ptrs = (qv.data_ptr(), st.data_ptr(), bias.data_ptr())
-        shape = (c, maxc, d, mm, k, group, float(scale),
-                 cs._JOIN_DTYPE_CODE[f32], stream)
-        out = (c, maxc, k)
-        compare("cluster_join", lib.cluster_join, lib.cluster_join_general,
-                (ptrs, shape, out), (ptrs, shape, out),
-                torch.ones((c, maxc), dtype=torch.bool, device="cuda"),
-                dtype="float32",
-                C=c, maxc=maxc, mm=mm, k=k, fast_kernel="join_fma_kernel")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Device times of the port's merge+select and bf16 grouped-scan kernels
-for one source tree, on one CUDA card.
+"""Device times of the port's merge+select, bf16 grouped-scan and
+cluster-join kernels for one source tree, on one CUDA card.
 
     python3 scripts/time_port_kernels.py [--tree DIR]
 
@@ -9,7 +9,10 @@ inputs, their seeds, the repetitions and the timer (``cuda_ms``: CUDA
 events around one launch queued behind a device sleep) are those of this
 checkout's ``chip_smoke.py``, so two checkouts can be timed one after the
 other on one card with the method and the shapes of ``chip_smoke.py``'s
-own lines. Prints one JSON line per shape.
+own lines. The join runs at the 1M build shape of ``chip_smoke.py`` phase
+7 (the 1091 clusters that phase 6's build of the 1M data makes, slabs of
+2112 rows, M=8, d=128): bf16 at k = 52, 102 and 202, f32 at k = 10, 52
+and 64. Prints one JSON line per shape.
 """
 
 import argparse
@@ -19,6 +22,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+# chip_smoke.MERGE_CASES timed here, with their seeds
+MERGE_TIMED = ("search shape", "collect pool", "build retset", "wide expand",
+               "warp kernel L=1024", "general L=1025", "general L=2048")
+# the clusters of the 1M build (chip_smoke.py phase 6 prints its n_slabs)
+BUILD_SLABS = 1091
 
 
 def main():
@@ -38,15 +46,15 @@ def main():
     from hnsw_nsg_tpu_torch.ops import merge_select as ms
 
     card = smoke.card_line()
-    # chip_smoke.phase_merge_select's first four cases, with its seeds
-    for i, (q, l, c, expand) in enumerate((
-            (8192, 100, 50, 1), (4096, 500, 50, 1), (4096, 40, 50, 1),
-            (8192, 64, 120, 4))):
+    for i, (name, q, l, c, expand, _, _) in enumerate(smoke.MERGE_CASES):
+        if name not in MERGE_TIMED:
+            continue
         state = smoke.merge_state(100 + i, q, l, c, expand)
         t = smoke.cuda_ms(lambda: ms.fused_merge_select(*state, expand),
                           reps=50, warmup=5)
         print(json.dumps(dict(kernel="fused_merge_select", tree=args.tree,
                               Q=q, L=l, C=c, expand=expand, ms=t, card=card)))
+        del state
     # chip_smoke.phase_kernels' first two cases from its generator, then
     # its d=960 shape
     gen = torch.Generator(device="cuda")
@@ -65,6 +73,32 @@ def main():
                               tree=args.tree, shape=name, C=c, maxc=maxc,
                               d=d, cap=cap, k=k, ms=t, card=card)))
         del qc, qidx, slabs, bias
+        torch.cuda.empty_cache()
+    # chip_smoke.phase_join_build's inputs (its seed) at three k
+    c, maxc, probes, d = BUILD_SLABS, 2112, 8, 128
+    qv, st, bias, scale = smoke.join_case(4, c, maxc, probes * maxc, d, bf,
+                                          "l2")
+    for k in (52, 102, 202):
+        t = smoke.cuda_ms(lambda: cs.cluster_join_topk(qv, st, bias, k,
+                                                       scale),
+                          reps=3, warmup=1)
+        print(json.dumps(dict(kernel="cluster_join_topk bf16",
+                              tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
+                              k=k, ms=t, card=card)))
+        torch.cuda.empty_cache()
+    del qv, st, bias
+    torch.cuda.empty_cache()
+    # the same in f32 (exact, on CUDA cores) at the k of phase 7 and at
+    # two k a k <= 64 kernel takes
+    qv, st, bias, scale = smoke.join_case(4, c, maxc, probes * maxc, d,
+                                          torch.float32, "l2")
+    for k in (10, 52, 64):
+        t = smoke.cuda_ms(lambda: cs.cluster_join_topk(qv, st, bias, k,
+                                                       scale),
+                          reps=3, warmup=1)
+        print(json.dumps(dict(kernel="cluster_join_topk f32",
+                              tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
+                              k=k, ms=t, card=card)))
         torch.cuda.empty_cache()
 
 

@@ -374,8 +374,8 @@ def test_merge_select_general_kernel_any_width(card, q, l, c, expand):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,l,c,expand", [
-    (33, 513, 50, 1), (16, 1024, 128, 4), (9, 4096, 128, 1),
-    (20, 200, 1025, 4), (5, 4096, 2048, 8), (12, 600, 32, 600)])
+    (33, 1025, 50, 1), (16, 2048, 128, 4), (9, 4096, 128, 1),
+    (20, 200, 1025, 4), (5, 4096, 2048, 8), (12, 1100, 32, 1100)])
 def test_merge_select_general_kernel_bit_identical(card, q, l, c, expand):
     state = _merge_state(q + l + c, q, l, c, n_ids=3 * l)
     want = ms.merge_select_reference(*state, expand)
@@ -388,7 +388,7 @@ def test_merge_select_general_kernel_bit_identical(card, q, l, c, expand):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,c,expand", [(513, 50, 1), (1024, 128, 4),
+@pytest.mark.parametrize("l,c,expand", [(1025, 50, 1), (2048, 128, 4),
                                         (200, 1025, 2)])
 @pytest.mark.parametrize("kind", MERGE_STATE_KINDS)
 def test_merge_select_general_kernel_adversarial_states(card, kind, l, c,
@@ -396,8 +396,52 @@ def test_merge_select_general_kernel_adversarial_states(card, kind, l, c,
     state = [torch.from_numpy(a) for a in adversarial_merge_state(
         kind, l * 7 + c + expand, 11, l, c)]
     want = ms.merge_select_reference(*state, expand)
+    g_before = ms.general_launches
     got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
     torch.cuda.synchronize()
+    assert ms.general_launches == g_before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [513, 600, 800, 1000, 1024])
+@pytest.mark.parametrize("c,expand", [(32, 1), (32, 4), (128, 1), (128, 4),
+                                      (32, "L")])
+@pytest.mark.parametrize("kind", (*MERGE_STATE_KINDS, "random"))
+def test_merge_select_warp_kernel_32_slots(card, kind, l, c, expand):
+    """L = 513..1024 runs the warp-per-query kernel at 32 retset slots a
+    lane (not the general kernel), bit for bit equal to the plain version
+    on all five outputs, on adversarial and random states. expand = L
+    takes the frontier's loop past one ballot of 32 and fills the select
+    slots past those taken with PAD_ID and false."""
+    if expand == "L":
+        expand = l
+    if kind == "random":
+        state = _merge_state(l + c + expand, 24, l, c, n_ids=3 * l)
+    else:
+        state = [torch.from_numpy(a) for a in adversarial_merge_state(
+            kind, l * 5 + c + expand, 21, l, c)]
+    want = ms.merge_select_reference(*state, expand)
+    before, g_before = ms.launches, ms.general_launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), expand)
+    torch.cuda.synchronize()
+    assert ms.launches == before + 1 and ms.general_launches == g_before
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,c", [(1024, 1024), (1025, 32), (1024, 1025)])
+def test_merge_select_kernel_boundary(card, l, c):
+    """The warp kernel takes L <= 1024 and C <= 1024; one past either runs
+    the general kernel. All five outputs equal the plain version's."""
+    state = _merge_state(l + 3 * c, 10, l, c, n_ids=2 * l + c)
+    want = ms.merge_select_reference(*state, 3)
+    g_before = ms.general_launches
+    got = ms.fused_merge_select(*(t.to(card) for t in state), 3)
+    torch.cuda.synchronize()
+    assert ms.general_launches == g_before + (l > 1024 or c > 1024)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 
@@ -438,10 +482,12 @@ def test_cluster_join_kernel_matches_plain(card, dtype, mm, k, metric):
     bias = torch.where(valid, base, float("inf"))
     rv, ri = cs.cluster_join_topk(qv, st, bias, k, scale)
     before = cs.join_launches
+    by_kernel = cs.join_launches_by_kernel[cs.JOIN_KERNELS[dtype]]
     kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
                                   k, scale)
     torch.cuda.synchronize()
     assert cs.join_launches == before + 1
+    assert cs.join_launches_by_kernel[cs.JOIN_KERNELS[dtype]] == by_kernel + 1
     kv, ki = kv.cpu(), ki.cpu()
     fin = torch.isfinite(rv)
     assert torch.equal(torch.isfinite(kv), fin)
@@ -454,22 +500,32 @@ def test_cluster_join_kernel_matches_plain(card, dtype, mm, k, metric):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,maxc,mm,d,k,metric,sparse_last", [
-    (3, 150, 1600, 128, 8, "l2", None),    # group 8, g = 200: ragged tile
-    (2, 130, 1024, 960, 10, "l2", None),   # d = 960: the query streams
-    (3, 96, 512, 100, 10, "l2", None),     # d padded to 104
-    (3, 200, 2048, 64, 16, "l2", None),    # maxc not a multiple of 128
-    (2, 128, 8192, 128, 64, "l2", None),   # k = MAX_JOIN_K
-    (3, 64, 512, 128, 20, "l2", 5),        # sparse last cluster: inf tail
-    (2, 32, 2048, 128, 20, "ip", None),    # ip, group 4
+@pytest.mark.parametrize("c,maxc,mm,d,k,metric,sparse_last,rows", [
+    (3, 150, 1600, 128, 8, "l2", None, 128),   # group 8, g = 200: ragged tile
+    (2, 130, 1024, 960, 10, "l2", None, 128),  # d = 960: the query streams
+    (3, 96, 512, 100, 10, "l2", None, 128),    # d padded to 104
+    (3, 200, 2048, 64, 16, "l2", None, 128),   # maxc not a multiple of 128
+    (2, 128, 8192, 128, 64, "l2", None, 128),  # k = 64
+    (3, 64, 512, 128, 20, "l2", 5, 128),       # sparse last cluster: inf tail
+    (2, 32, 2048, 128, 20, "ip", None, 128),   # ip, group 4
+    # k > 64 (a kNN graph of k > 62): 128 rows while the heaps fit
+    # (k <= 110, 80 when the query streams), 64 above, the heaps in global
+    # scratch past k = 285 (279)
+    (2, 150, 8192, 128, 65, "l2", 40, 128),    # sparse last: 40 < k finite
+    (3, 150, 8192, 128, 102, "l2", 40, 128),
+    (2, 100, 16384, 128, 202, "l2", 60, 64),
+    (2, 130, 4096, 960, 102, "l2", None, 64),  # the query streams
+    (3, 96, 4096, 100, 102, "l2", None, 128),  # d padded to 104
+    (2, 70, 8192, 64, 450, "l2", 30, 64),      # heaps in global scratch
+    (2, 70, 8192, 960, 300, "l2", None, 64),   # the same, streamed query
 ])
 def test_cluster_join_bf16_tensor_cores(card, c, maxc, mm, d, k, metric,
-                                        sparse_last):
+                                        sparse_last, rows):
     """The tensor-core kernel vs the plain version on the same bf16
-    inputs: vals allclose where finite (f32 sums of exact products in
-    another order; atol 1e-3 at |bias| ~ 2d, 5e-3 at d = 960), the +inf
-    pattern equal, ids equal except at near-ties, whose slot must score
-    the plain value within the tolerance."""
+    inputs, at every k: vals allclose where finite (f32 sums of exact
+    products in another order; atol 1e-3 at |bias| ~ 2d, 5e-3 at d = 960),
+    the +inf pattern and its buckets equal, ids equal except at near-ties,
+    whose slot must score the plain value within the tolerance."""
     rng = np.random.default_rng(c * maxc + mm + d + k)
     qv = torch.from_numpy(rng.standard_normal((c, maxc, d)).astype(
         np.float32)).to(torch.bfloat16)
@@ -486,13 +542,17 @@ def test_cluster_join_bf16_tensor_cores(card, c, maxc, mm, d, k, metric,
     bias = torch.where(valid, base, float("inf"))
     rv, ri = cs.cluster_join_topk_reference(qv, st, bias, k, scale)
     before = cs.join_launches
+    mma = cs.join_launches_by_kernel["join_mma_kernel"]
+    assert cs.join_block_rows(d, k, torch.bfloat16) == rows
     kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
                                   k, scale)
     torch.cuda.synchronize()
     assert cs.join_launches == before + 1
+    assert cs.join_launches_by_kernel["join_mma_kernel"] == mma + 1
     kv, ki = kv.cpu(), ki.cpu()
     fin = torch.isfinite(rv)
     assert torch.equal(torch.isfinite(kv), fin)
+    assert torch.equal(ki[~fin], ri[~fin])
     tol = dict(rtol=1e-5, atol=5e-3 if d > 512 else 1e-3)
     torch.testing.assert_close(kv[fin], rv[fin], **tol)
     mism = (ki != ri) & fin
@@ -577,15 +637,18 @@ def hnsw_file(tmp_path_factory):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["plain", "deleted", "filtered", "ef=600"])
+@pytest.mark.parametrize("mode", ["plain", "deleted", "filtered", "ef=600",
+                                  "ef=1100"])
 def test_hnsw_query_on_card_matches_cpu(card, hnsw_file, mode):
     """One graph (built on the CPU, carried by the .npz) searched on the
     card and on the CPU: labels equal at >= 99.9% of the slots (f32 sums
-    in another order may swap a near-tie), distances allclose 1e-4."""
+    in another order may swap a near-tie), distances allclose 1e-4. ef=600
+    runs merge+select's warp kernel at 32 slots a lane, ef=1100 its
+    general kernel."""
     path, q = hnsw_file
     gpu, cpu = HNSWIndex.load(path), HNSWIndex.load(path, device="cpu")
     assert gpu.data.device.type == "cuda"
-    kw = dict(k=10, ef=600 if mode == "ef=600" else 64)
+    kw = dict(k=10, ef={"ef=600": 600, "ef=1100": 1100}.get(mode, 64))
     if mode == "deleted":
         for lab in range(0, 400, 3):
             gpu.mark_deleted(lab)
@@ -599,9 +662,9 @@ def test_hnsw_query_on_card_matches_cpu(card, hnsw_file, mode):
         same = gl == cl
         assert same.mean() >= 0.999
         np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-4)
-    if mode in ("plain", "ef=600"):
+    if mode in ("plain", "ef=600", "ef=1100"):
         assert ms.launches > m0            # the beam ran the kernel
-        assert (ms.general_launches > g0) == (mode == "ef=600")
+        assert (ms.general_launches > g0) == (mode == "ef=1100")
     else:
         assert ms.launches == m0           # the filtered beam is plain ops
 
@@ -633,7 +696,7 @@ def test_api_and_hybrid_default_to_the_card(card):
     assert recall(hl, gt) >= 0.9
 
 
-# -- the general kernels (k > 32 scan, k > 64 join) and the records --------
+# -- the general scan (k > 32), the join past k = 64, and the records ------
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt,sdt", PAIRS)
@@ -699,10 +762,11 @@ def test_general_scan_kernel_large_k_in_scratch(card):
 @pytest.mark.parametrize("mm,k", [(2048, 65), (4224, 102), (8192, 200),
                                   (1024, 450)])          # k = 450: scratch
 def test_general_join_kernel_matches_plain(card, dtype, mm, k):
-    """k > 64 runs the general join kernel: vals allclose (f32 sums of
-    exact products in another order: rtol 1e-5, atol 1e-3 at |bias| ~ 2d),
-    the +inf pattern and its buckets equal, ids equal but for near-ties
-    whose slot scores the plain value."""
+    """k > 64 in f32 runs the general join kernel, in bf16 the tensor-core
+    kernel: vals allclose (f32 sums of exact products in another order:
+    rtol 1e-5, atol 1e-3 at |bias| ~ 2d), the +inf pattern and its buckets
+    equal, ids equal but for near-ties whose slot scores the plain
+    value."""
     rng = np.random.default_rng(mm + k)
     c, maxc, d = 3, 45, 40
     qv = torch.from_numpy(rng.standard_normal((c, maxc, d)).astype(
@@ -713,12 +777,13 @@ def test_general_join_kernel_matches_plain(card, dtype, mm, k):
     valid[-1, k // 2:] = False          # fewer finite buckets than k
     bias = torch.where(valid, (st.float() ** 2).sum(-1), float("inf"))
     rv, ri = cs.cluster_join_topk(qv, st, bias, k, 2.0)
-    before, g0 = cs.join_launches, cs.join_general_launches
+    name = cs.JOIN_KERNELS[dtype]
+    before, g0 = cs.join_launches, cs.join_launches_by_kernel[name]
     kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
                                   k, 2.0)
     torch.cuda.synchronize()
     assert cs.join_launches == before + 1
-    assert cs.join_general_launches == g0 + 1
+    assert cs.join_launches_by_kernel[name] == g0 + 1
     kv, ki = kv.cpu(), ki.cpu()
     fin = torch.isfinite(rv)
     assert torch.equal(torch.isfinite(kv), fin)
@@ -752,14 +817,15 @@ def test_cnns_search_at_its_default_k_on_card(card, tmp_path):
 
 @pytest.mark.cuda
 def test_knn_graph_and_nsg_past_the_join_limit(card):
-    """knn_graph_ivf(x, 70) (join k = 72) and an NSG with L = 60 build on
-    the card through the general join kernel."""
+    """knn_graph_ivf(x, 70) (join k = 72, past the former k = 64 limit of
+    the tensor-core join) and an NSG with L = 60 build on the card through
+    the tensor-core join kernel."""
     x, q = make_data(30000, 32, 128, "l2", seed=10)
     xd = torch.from_numpy(x).to(card)
-    g0 = cs.join_general_launches
+    g0 = cs.join_launches_by_kernel["join_mma_kernel"]
     adj = knn_graph_ivf(xd, 70, as_device=True)
     assert tuple(adj.shape) == (30000, 70)
-    assert cs.join_general_launches > g0
+    assert cs.join_launches_by_kernel["join_mma_kernel"] > g0
     idx = build_nsg(xd, adj[:, :70], NSGBuildConfig(L=60, R=24, C=200))
     _, ids = idx.search(torch.from_numpy(q).to(card), k=10, l_search=64)
     _, gt = brute_force_topk(torch.from_numpy(q).to(card), xd, 10)

@@ -69,10 +69,11 @@ def test_cluster_join_matches_jax_interpret(group, mm, k, dtype):
 
 
 @pytest.mark.parametrize("group,mm,k", [(1, 2048, 65), (4, 8192, 65),
-                                        (1, 4096, 102)])
+                                        (1, 4096, 102), (2, 16384, 202)])
 def test_cluster_join_past_k64_matches_jax_interpret(group, mm, k):
-    """k past the fast kernels' 64 (the general kernel's range on the
-    card): the plain version takes any k up to the bucket count."""
+    """k past 64, the tensor-core kernel's former limit (on the card 64
+    rows a block from k = 77 at d <= 128): the plain version takes any k
+    up to the bucket count."""
     assert cs.join_group(mm, k) == group
     qv, st, bias, scale = _join_case(k + group, 2, 8, mm, 16, "f32", "l2")
     (jv, ji), (tv, ti) = _run_both(qv, st, bias, k, scale, "f32")

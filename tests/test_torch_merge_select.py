@@ -58,6 +58,8 @@ def _assert_identical(got, *wants):
 
 @pytest.mark.parametrize("l,c,expand", [
     (128, 30, 1), (128, 120, 4), (64, 30, 2), (128, 8, 1), (256, 60, 8),
+    # an HNSW search at ef = 1024: the card's warp kernel at 32 slots a lane
+    (1024, 32, 1), (1024, 128, 4),
 ])
 def test_plain_version_bit_identical_to_jax(l, c, expand):
     rng = np.random.default_rng(l * 1000 + c + expand)
