@@ -32,9 +32,12 @@ Phases, each of which fails the run (non-zero exit) on its own:
      per SM; its 32-slot build (513 <= L <= 1024) on the same kinds of
      states at L = 513, 800, 1024, timed at (Q, L, C) = (8192, 1024, 32);
      its general kernel (L > 1024 or C > 1024) at (L, C) = (1025, 50),
-     (4096, 128), (200, 1025), timed at L = 1025 and 2048; and the
+     (4096, 128), (200, 1025), timed at L = 1025, 2048 and 4096 and at
+     L = 30000 (its arrays in global scratch); and the
      cluster-join kernels versus their plain versions at small shapes
-     (f32 on CUDA cores: l2 group 1, an inf tail, k = 65, 102; bf16 on
+     (f32 on CUDA cores: l2 group 1, an inf tail, k = 65, 102, 107, 108
+     and at d = 200 140, 141 (the heaps in global scratch from 108 and
+     141), group 8 with a sparse last cluster; bf16 on
      tensor cores: ip group 4, group 8 with a ragged bucket tile, d=960,
      d=100, maxc=200, k=64, a sparse last cluster, k = 65, 102 with a
      sparse last cluster, 202, and 450 with its heaps in global scratch);
@@ -79,9 +82,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
      kernel;
   7. the cluster-join kernels versus their plain versions at the build
      shape (C from phase 6, maxc 2112, M=8, d=128; bf16 at k=52, 102 and
-     202, f32 at k=52): both times, the rows a block, the id mismatches
-     at near-ties, the bound (the products of the finite-bias slots
-     only) and the kernel's share of it;
+     202, f32 at k=10, 52 and 102): both times, the rows a block, the id
+     mismatches at near-ties, the bound (the products of the finite-bias
+     slots only) and the kernel's share of it;
   8. the kernels line (eight entries: times, launches, errors and each
      kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
@@ -456,7 +459,11 @@ def merge_state(seed, q, l, c, expand, n_ids=20000, fill=0.7):
     ni = int(rng.integers(4, int(l * fill) + 4))
     ids = torch.from_numpy(rng.choice(n_ids, (q, ni)).astype(np.int32))
     d = torch.from_numpy(rng.random((q, ni)).astype(np.float32))
-    r_d, r_i, r_e = init_retset(d.to(dev), ids.to(dev), l)
+    # init_retset compares [rows, ni, l]: ~2 GB of rows at a time
+    rows = max(1, (2 << 30) // (ni * l))
+    parts = [init_retset(d[s:s + rows].to(dev), ids[s:s + rows].to(dev), l)
+             for s in range(0, q, rows)]
+    r_d, r_i, r_e = (torch.cat(t) for t in zip(*parts))
     r_e = r_e | torch.from_numpy(rng.random((q, l)) < 0.5).to(dev)
     c_i = rng.choice(n_ids, (q, c)).astype(np.int32)
     c_i[rng.random((q, c)) < 0.15] = -1
@@ -488,6 +495,9 @@ MERGE_CASES = [
     ("warp kernel L=1024", 8192, 1024, 32, 1, None, True),
     ("general L=1025", 8192, 1025, 32, 1, None, True),
     ("general L=2048", 8192, 2048, 32, 1, None, True),
+    ("general L=4096", 8192, 4096, 32, 1, None, True),
+    # past shared memory: the general kernel's arrays in global scratch
+    ("general scratch L=30000", 256, 30000, 32, 1, None, True),
 ]
 
 
@@ -672,7 +682,11 @@ def check_join(name, qv, st, bias, k, scale, rtol, atol, time_it=False):
 
 def phase_join_small():
     """Kernel B vs plain at small shapes. f32 (the CUDA-core kernel): l2
-    with group 1, an inf tail, k = 65 and 102. bf16 (the tensor-core
+    with group 1, an inf tail, k = 65 and 102, k = 107 and 108 at d = 37
+    and 140 and 141 at d = 200 (its heaps in shared memory, then in
+    global scratch, beside a resident or a streamed query), group 8 with
+    a sparse last cluster (slices of all +inf bias skipped). bf16 (the
+    tensor-core
     kernel): ip group 4; l2 group 8 with g = 200, not a multiple of the
     bucket tile; d = 960 (the query streams); d = 100 (padded to 104);
     maxc = 200, not a multiple of the 128-row tile; k = 64; a sparse last
@@ -723,6 +737,21 @@ def phase_join_small():
          (1e-5, 1e-4)),
         ("f32 l2 k=102", (14, 2, 100, 4096, 64, f32, "l2"), 102,
          (1e-5, 1e-3)),
+        # the f32 kernel's heaps: shared memory up to k = 107 beside the
+        # resident query (d <= 128), 140 when it streams, global scratch
+        # above; d = 37 and 200, not multiples of its 16-wide d chunk
+        ("f32 l2 k=107", (17, 3, 130, 2700, 37, f32, "l2"), 107,
+         (1e-5, 1e-3)),
+        ("f32 l2 k=108 heaps in scratch", (18, 3, 130, 2725, 37, f32, "l2"),
+         108, (1e-5, 1e-3)),
+        ("f32 l2 d=200 k=140 query streamed", (20, 2, 130, 3500, 200, f32,
+                                               "l2"), 140, (1e-5, 1e-3)),
+        ("f32 l2 d=200 k=141 heaps in scratch", (21, 2, 130, 3525, 200, f32,
+                                                 "l2"), 141, (1e-5, 1e-3)),
+        # group 8 with a sparse last cluster: (tile, e) slices of all +inf
+        # bias, which the f32 kernel skips, and (+inf, b) tails
+        ("f32 l2 group 8 sparse last", (19, 3, 200, 16896, 64, f32, "l2",
+                                        40), 52, (1e-5, 1e-3)),
     ]:
         qv, st, bias, scale = join_case(*args)
         err, _, _ = check_join(name, qv, st, bias, k, scale, *tol)
@@ -771,11 +800,24 @@ def phase_join_build(card, n_slabs, maxc=2112, probes=8, d=128, k=52,
     flops = 2.0 * maxc * d * finite
     b = bound(nbytes(qv, bias) + finite * d * st.element_size() + out_bytes,
               flops, PEAK_OPS[(dtype, dtype)])
-    done = 2.0 * n_slabs * maxc * probes * maxc * d
+    if dtype == torch.float32:
+        # join_f32_kernel makes the products of 128-row x 128-bucket
+        # tiles, skipping the (bucket tile, e) slices of all +inf bias
+        group = cs.join_group(probes * maxc, k)
+        g = probes * maxc // group
+        tiles = -(-g // 128)
+        live = torch.nn.functional.pad(
+            bias.view(n_slabs, group, g) != float("inf"),
+            (0, tiles * 128 - g)).view(n_slabs, group, tiles, 128).any(-1)
+        done = 2.0 * int(live.sum()) * 128 * (-(-maxc // 128) * 128) * d
+        what = "makes the products of its live 128 x 128 slices,"
+    else:
+        done = 2.0 * n_slabs * maxc * probes * maxc * d
+        what = "computes all"
     print(f"  cluster_join at the build shape: kernel {k_ms:.4f} ms, plain "
           f"{p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e12:.3f} "
           f"TFLOP needed, {finite}/{bias.numel()} slots finite), kernel at "
-          f"{b[0] / k_ms:.2%} of the bound; it computes all "
+          f"{b[0] / k_ms:.2%} of the bound; it {what} "
           f"{done / 1e12:.3f} TFLOP, {done / k_ms / 1e9:.1f} TFLOP/s [{card}]")
     del qv, st, bias
     torch.cuda.empty_cache()
@@ -1431,7 +1473,8 @@ def main() -> int:
     del x, queries
     builds = {(k, dt): phase_join_build(card, n_slabs, k=k, dtype=dt)
               for k, dt in ((52, torch.bfloat16), (102, torch.bfloat16),
-                            (202, torch.bfloat16), (52, torch.float32))}
+                            (202, torch.bfloat16), (10, torch.float32),
+                            (52, torch.float32), (102, torch.float32))}
     # (max |vals error|, kernel ms, plain ms, bound) of each
     j128, j64, jf32 = (builds[(102, torch.bfloat16)],
                        builds[(202, torch.bfloat16)],
@@ -1508,7 +1551,7 @@ def main() -> int:
         "ms": j64[1], "plain_ms": j64[2],
         "bound_ms": j64[3][0], "bound_by": j64[3][1], "library_ms": None,
     }, {
-        "name": "cluster_join_topk (f32 CUDA cores: join_general_kernel)",
+        "name": "cluster_join_topk (f32 CUDA cores: join_f32_kernel)",
         "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/cluster_join.cu",
         "replaces": "hnsw_nsg_tpu/ops/pallas_scan.py:98",

@@ -86,8 +86,9 @@
 //   (each block reads its cluster's stack once per 128 or 64 rows, ~80 or
 //   ~160 GB at that shape).
 //
-// f32 x f32, join_general_kernel: exact f32 FMAs on CUDA cores (no TF32,
-//   no 3xTF32: F-H1), at the end of this file with its own notes.
+// f32 x f32, join_f32_kernel: exact f32 FMAs on CUDA cores (no TF32, no
+//   3xTF32: F-H1), an SGEMM-style register-tiled kernel with the fold and
+//   the top-k in its epilogue, at the end of this file with its own notes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,11 +97,11 @@
 #include <stdint.h>
 
 #include "mma_helpers.cuh"
-#include "select_topk.cuh"
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kSmemMax = 232448;   // dynamic shared memory a block
 
 enum DType { kF32 = 0, kBF16 = 1 };
 
@@ -605,9 +606,9 @@ struct MmaRoute {
 };
 template <int kDC>
 MmaRoute mma_route(int k) {
-  if (mma_smem_bytes<kDC, 128>(k, true) <= kTopkSmemMax)
+  if (mma_smem_bytes<kDC, 128>(k, true) <= kSmemMax)
     return {128, true};
-  return {64, mma_smem_bytes<kDC, 64>(k, true) <= kTopkSmemMax};
+  return {64, mma_smem_bytes<kDC, 64>(k, true) <= kSmemMax};
 }
 MmaRoute mma_route(int d, int k) {
   return d <= 128 ? mma_route<128>(k) : mma_route<64>(k);
@@ -636,196 +637,417 @@ int launch_bf16(const void* qv, const void* stacks, const void* bias,
 
 // ---- f32 x f32: CUDA-core FMAs ---------------------------------------------
 //
-// join_general_kernel takes any 1 <= k <= g. A block takes one cluster and
-// 32 member rows and walks 128-bucket tiles through shared memory in
-// 32-wide d chunks; each thread forms a 4 x 4 register tile of exact
-// products summed in f32, folded into per-bucket minima with the lowest e
-// winning a tie, each distance rounded as the plain version rounds
-// bias - scale * dot. The top-k is select_topk.cuh's running one over
-// (value, b * 8 + e) keys, which order as (value, b): a warp keeps its 4
-// rows' candidates below their bar in buffers of 2k + 32 keys, shared
-// memory up to k = 396 and global scratch above, and sorts each row's k
-// smallest at the end. A bucket whose every slot is +inf comes out as
-// (+inf, b), as it does from the plain version. Simple and not tuned; it
-// measured 0.46-0.69x the time of the kernel it replaced at k <= 64
-// (join_fma_kernel: the same products, each tile merged into a k-list by
-// k warp-wide passes), with equal outputs (PERF.md).
+// join_f32_kernel takes any 1 <= k <= g and any d. A block takes one
+// cluster and 128 member rows and walks the buckets in tiles of 128; for
+// each tile and each e it forms the 128 x 128 products of the rows with
+// the stack rows e * g + b0 .. + 127 the way an SGEMM does: each of the
+// 256 threads owns an 8 x 8 register tile (rows ty * 4 + {0..3} and
+// 64 + ty * 4 + {0..3}, buckets likewise from tx; a warp is 4 ty x 8 tx,
+// so that each of its loads reads at most 128 distinct bytes), whose
+// operands it reads as four 16-byte loads a d step from transposed tiles
+// ([d][row]) in shared memory: 64 FMAs for 4 loads. The stack streams
+// through a 4-stage ring of 16-wide d chunks; cp.async 4-byte copies
+// transpose it on the way in (2 stack rows x 64 bytes a warp). When
+// d <= 128 the query tile is copied once and stays resident for the
+// whole walk; above (d = 960, gist) a query chunk rides in each stage.
+// Each sum runs in increasing d, one fmaf at a time from 0 (exact f32
+// products, no TF32, no 3xTF32: F-H1), and each distance is rounded as
+// bias - scale * dot, so the values are those of the kernel this one
+// replaced, bit for bit.
+//
+// Before the walk a block marks each (tile, e) slice whose 128 bias
+// values are not all +inf (one warp a slice, a byte of e bits a tile, up
+// to g = 131,072 buckets; past that every slice counts as live). Dead
+// slices are skipped: their distances are +inf and can never lower a
+// bucket's minimum (strict <, from +inf). Every tile still hands its
+// minima on, so an all-+inf bucket comes out as (+inf, b), as it does
+// from the plain version.
+//
+// After a tile's last e, the minima that beat their row's bar (the root
+// key of the row's heap, or any key while it holds fewer than k) are
+// staged, 16 a row and round, and threads 0..127, one a row, push them
+// into per-row 4-ary max-heaps of (value, b * 8 + e) keys. A full key
+// compare decides, so the arrival order does not matter: the k smallest
+// (value, b) win, ties to the lower b, as the plain version's stable sort
+// has them. A row sees about k (1 + ln(g / k)) pushes in all. At the end
+// each row is heap sorted in place and the block writes the rows out.
+//
+// Shared memory: the resident query (66 KB) and the stack ring (35 KB),
+// or a ring of both (68 KB); the staged keys (16 KB); bars, counts and
+// slice marks (2.5 KB); and the heaps, 128 rows x k keys, while all of it
+// fits a block's 227 KB (k <= 107 at d <= 128, k <= 140 above); past
+// that the heaps lie in global scratch that the wrapper allocates, the
+// same code reading them there. One block an SM: the accumulators, the
+// minima and their e take ~140 of a thread's ~235 registers.
+//
+// What bounds it on the H100: the FP32 pipes, 67 TFLOP/s. At the 1M
+// build shape (C = 1091, maxc = 2112, mm = 16,896, d = 128) the finite
+// slots need 7.55 TFLOP, 112.6 ms; the kernel also makes the products of
+// the padded rows and buckets of partly live slices. Measured there (H100
+// 80GB HBM3 at 700 W, PERF.md): 210 / 229 / 264 ms at k = 10 / 52 / 102,
+// where the kernel it replaced took 572 / 609 / 639; the products run at
+// ~36 TFLOP/s of the finite slots, and the heap pushes, which do not
+// overlap them (every thread waits for them at the end of a tile), add
+// ~20 ms at k = 52 and ~55 at k = 102.
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kRows = 32;       // member rows per block: 4 per warp
-constexpr int kTileB = 128;     // buckets per tile: 4 per lane
-constexpr int kFDC = 32;        // d elements per shared-memory chunk
+constexpr int kFThreads = 256;   // 8 warps
+constexpr int kFRows = 128;      // member rows a block
+constexpr int kFTile = 128;      // buckets a tile
+constexpr int kFBK = 16;         // d values a ring stage
+constexpr int kFStages = 4;
+constexpr int kFLd = 132;        // a transposed tile's padded row (floats)
+constexpr int kFResD = 128;      // the query stays resident up to this d
+constexpr int kFCap = 16;        // staged keys a row and round
+constexpr int kFMaskWords = 256; // slice marks: 4 tiles a word, 8 e bits each
 
-// acc = the products of the warp's 4 member rows (r0 + warp * 4 + i; zero
-// past maxc) with this lane's 4 buckets' stack rows (e_row0 + b0 + lane +
-// 32 u; zero past g) over all of d, exact products summed in f32 FMAs, the
-// rows staged through shared memory 32 d values at a time. Starts with a
-// barrier, so the caller's last reads of q_s / s_s come first.
-__device__ __forceinline__ void tile_products(
-    float (&acc)[4][4], float (*q_s)[kFDC + 1], float (*s_s)[kFDC + 1],
-    const float* __restrict__ qv, const float* __restrict__ stacks,
-    long long q_row0, int r0, int maxc, long long e_row0, int b0, int g,
-    int d, int t) {
-  const int lane = t & 31;
-  const int warp = t >> 5;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+template <bool kResident>
+struct F32Shape {
+  // a ring stage (floats): the query chunk [kFBK][kFLd] unless resident,
+  // the stack chunk [kFBK][kFLd], and the bias of the stage's (tile, e)
+  // (written with its last chunk)
+  static constexpr int kStage = (kResident ? 1 : 2) * kFBK * kFLd + kFTile;
+  static constexpr int kQuery = kResident ? kFResD * kFLd : 0;   // floats
+  static constexpr size_t kFixed =
+      static_cast<size_t>(kQuery) * 4 + static_cast<size_t>(kFStages) *
+      kStage * 4 + static_cast<size_t>(kFCap) * kFRows * 8
+      + kFRows * 8 + kFRows * 4 + kFMaskWords * 4;
+};
 
-  for (int d0 = 0; d0 < d; d0 += kFDC) {
-    __syncthreads();  // previous chunk consumed
-#pragma unroll
-    for (int p = 0; p < (kRows * kFDC) / kThreads; ++p) {
-      const int el = t + p * kThreads;
-      const int row = el / kFDC, col = el % kFDC;
-      const int r = r0 + row;
-      float v = 0.f;
-      if (r < maxc && d0 + col < d) v = qv[(q_row0 + r) * d + d0 + col];
-      q_s[row][col] = v;
+bool f32_heaps_in_smem(int d, int k) {
+  const size_t fixed = d <= kFResD ? F32Shape<true>::kFixed
+                                   : F32Shape<false>::kFixed;
+  return fixed + static_cast<size_t>(kFRows) * k * 8 <= kSmemMax;
+}
+
+long long f32_blocks(int n_clusters, int maxc) {
+  return static_cast<long long>(n_clusters) * ((maxc + kFRows - 1) / kFRows);
+}
+
+// the row (bucket) of register-tile entry [i][.] ([.][i]) of thread ty (tx)
+__device__ __forceinline__ int f32_off(int i, int t) {
+  return (i < 4 ? 0 : 64) + t * 4 + (i & 3);
+}
+
+template <bool kResident, bool kHeapsGlobal>
+__global__ void __launch_bounds__(kFThreads, 1)
+join_f32_kernel(const float* __restrict__ qv,
+                const float* __restrict__ stacks,
+                const float* __restrict__ bias, float* __restrict__ vals,
+                int* __restrict__ idx, Key* scratch, int maxc, int d, int mm,
+                int k, int group, float scale) {
+  using S = F32Shape<kResident>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // [the resident query][the ring][staged keys][bars][staged counts]
+  // [slice marks][the heaps]
+  float* q_res = reinterpret_cast<float*>(smem);
+  float* ring = q_res + S::kQuery;
+  Key* cand = reinterpret_cast<Key*>(ring + kFStages * S::kStage);
+  Key* bar = cand + kFCap * kFRows;
+  int* cand_n = reinterpret_cast<int*>(bar + kFRows);
+  unsigned* live = reinterpret_cast<unsigned*>(cand_n + kFRows);
+  Key* heap = kHeapsGlobal
+                  ? scratch + static_cast<long long>(blockIdx.x) * kFRows * k
+                  : reinterpret_cast<Key*>(live + kFMaskWords);
+
+  // a 1-d grid, the row tiles of a cluster next to each other, so that
+  // the blocks that read one stack run together
+  const int n_row_tiles = (maxc + kFRows - 1) / kFRows;
+  const int c = blockIdx.x / n_row_tiles;
+  const int r0 = (blockIdx.x - c * n_row_tiles) * kFRows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int g = mm / group;
+  const int n_tiles = (g + kFTile - 1) / kFTile;
+  const long long q_row0 = static_cast<long long>(c) * maxc + r0;
+  const long long s_row0 = static_cast<long long>(c) * mm;
+  const int q_valid = min(maxc - r0, kFRows);
+  const bool marked = n_tiles <= 4 * kFMaskWords;
+
+  for (int w = tid; w < kFMaskWords; w += kFThreads) live[w] = 0;
+  for (int r = tid; r < kFRows; r += kFThreads) {
+    bar[r] = kNoKey;
+    cand_n[r] = 0;
+  }
+  if (kResident) {   // the query tile, transposed, zero past d and maxc
+    for (int i = tid; i < kFRows * kFResD; i += kFThreads) {
+      const int r = i / kFResD, dd = i % kFResD;
+      const bool ok = r < q_valid && dd < d;
+      cp_async4(smem_addr(q_res + dd * kFLd + r),
+                ok ? qv + (q_row0 + r) * d + dd : qv, ok ? 4 : 0);
     }
+    cp_async_commit();
+  }
+  __syncthreads();
+  if (marked) {   // a warp a slice: is any of its 128 bias values not +inf
+    for (int s = warp; s < n_tiles * group; s += kFThreads / 32) {
+      const int t = s / group, e = s - t * group;
+      const float* bs = bias + s_row0 + static_cast<long long>(e) * g;
+      bool fin = false;
 #pragma unroll
-    for (int p = 0; p < (kTileB * kFDC) / kThreads; ++p) {
-      const int el = t + p * kThreads;
-      const int row = el / kFDC, col = el % kFDC;
-      const int b = b0 + row;
-      float v = 0.f;
-      if (b < g && d0 + col < d) v = stacks[(e_row0 + b) * d + d0 + col];
-      s_s[row][col] = v;
+      for (int u = 0; u < kFTile / 32; ++u) {
+        const int b = t * kFTile + u * 32 + lane;
+        fin |= b < g && bs[b] != INFINITY;
+      }
+      if (__any_sync(kFull, fin) && lane == 0)
+        atomicOr(&live[t >> 2], 1u << ((t & 3) * 8 + e));
     }
     __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kFDC; ++j) {
-      float a[4], s[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = q_s[warp * 4 + i][j];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) s[u] = s_s[lane + 32 * u][j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][u] = fmaf(a[i], s[u], acc[i][u]);
-    }
   }
-}
+  // the first live e >= e0 of tile t, or group
+  auto live_from = [&](int t, int e0) -> int {
+    if (!marked) return e0 < group ? e0 : group;
+    const unsigned bits = (live[t >> 2] >> ((t & 3) * 8)) & 0xffu;
+    const unsigned rest = bits >> e0;
+    const int e = rest ? e0 + __ffs(rest) - 1 : group;
+    return e < group ? e : group;
+  };
 
-// the kernel's own shared memory: the member-row and bucket tiles
-constexpr size_t kGeneralSmem = (kRows + kTileB) * (kFDC + 1) * 4;
-
-// two blocks an SM (at most 128 registers a thread): with one, 8 warps
-// could not hide the shared-memory and load latency of the products
-__global__ void __launch_bounds__(kThreads, 2)
-join_general_kernel(const float* __restrict__ qv,
-                    const float* __restrict__ stacks,
-                    const float* __restrict__ bias, float* __restrict__ vals,
-                    int* __restrict__ idx, Key* scratch, int maxc, int d,
-                    int mm, int k, int group, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_g[];
-  const int n_tiles = (maxc + kRows - 1) / kRows;
-  const int c = blockIdx.x / n_tiles;
-  const int r0 = (blockIdx.x - c * n_tiles) * kRows;
-  Key* bufs = topk_block_bufs(smem_g, scratch, kRows, k);
-  unsigned char* rest = smem_g + topk_own_offset(scratch, kRows, k);
-  float (*q_s)[kFDC + 1] = reinterpret_cast<float (*)[kFDC + 1]>(rest);
-  float (*s_s)[kFDC + 1] =
-      reinterpret_cast<float (*)[kFDC + 1]>(rest + kRows * (kFDC + 1) * 4);
-
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int g = mm / group;
-  const long long q_row0 = static_cast<long long>(c) * maxc;
-  const long long s_row0 = static_cast<long long>(c) * mm;
-
-  Key* buf[4];
-  int size[4];
-  Key bar[4];
+  // The copies run kFStages - 1 chunks ahead of the products, over the
+  // same sequence: each tile, its live e, the d chunks of each. This
+  // thread copies rows cr + kStep p (member or stack rows) of column cd.
+  constexpr int kStep = kFThreads / kFBK;
+  const int nd = (d + kFBK - 1) / kFBK;
+  const int cr = tid / kFBK, cd = tid % kFBK;
+  const long long row_step = static_cast<long long>(kStep) * d;
+  const float* q_src = qv + (q_row0 + cr) * d + cd;
+  unsigned q_ok = 0;   // bit p: member row cr + kStep p is live
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    buf[i] = bufs + static_cast<long long>(warp * 4 + i) * topk_buf(k);
-    size[i] = 0;
-    bar[i] = kNoKey;
-  }
-
-  for (int b0 = 0; b0 < g; b0 += kTileB) {
-    float bmin[4][4];
-    int be[4][4];
+  for (int p = 0; p < kFRows / kStep; ++p)
+    q_ok |= static_cast<unsigned>(cr + kStep * p < q_valid) << p;
+  const uint32_t ring_dst = smem_addr(ring) + (cd * kFLd + cr) * 4;
+  constexpr int kSOff = kResident ? 0 : kFBK * kFLd;   // the stack chunk
+  constexpr int kBOff = kSOff + kFBK * kFLd;           // the bias
+  int p_t = 0, p_e = live_from(0, 0), p_dc = 0, p_stage = 0;
+  while (p_e == group && ++p_t < n_tiles) p_e = live_from(p_t, 0);
+  auto issue = [&]() {
+    if (p_t < n_tiles) {
+      const uint32_t dst = ring_dst + p_stage * S::kStage * 4;
+      const int d0 = p_dc * kFBK;
+      const bool d_ok = d0 + cd < d;
+      if (!kResident) {
+        const float* src = q_src + d0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        bmin[i][u] = INFINITY;
-        be[i][u] = 0;
-      }
-    for (int e = 0; e < group; ++e) {
-      float acc[4][4];
-      const long long e_row0 = s_row0 + static_cast<long long>(e) * g;
-      tile_products(acc, q_s, s_s, qv, stacks, q_row0, r0, maxc, e_row0, b0,
-                    g, d, t);
-      // fold slot e * g + b into bucket b: strict <, so the lowest e wins
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int b = b0 + lane + 32 * u;
-        if (b < g) {
-          const float bs = bias[e_row0 + b];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float dist = __fsub_rn(bs, __fmul_rn(scale, acc[i][u]));
-            if (dist < bmin[i][u]) {
-              bmin[i][u] = dist;
-              be[i][u] = e;
-            }
-          }
+        for (int p = 0; p < kFRows / kStep; ++p) {
+          const bool ok = d_ok && (q_ok >> p & 1u);
+          cp_async4(dst + p * kStep * 4, ok ? src + p * row_step : qv,
+                    ok ? 4 : 0);
         }
       }
-    }
-    // the tile's bucket minima, pushed in bucket order (u outer, lane inner)
+      const int b0 = p_t * kFTile;
+      const long long e_row0 = s_row0 + static_cast<long long>(p_e) * g + b0;
+      const float* src = stacks + (e_row0 + cr) * d + d0 + cd;
+      const int rows_left = g - b0 - cr;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int b = b0 + lane + 32 * u;
-        warp_push(buf[i], size[i], bar[i], k,
-                  make_key(bmin[i][u], b * 8 + be[i][u]), b < g, lane);
+      for (int p = 0; p < kFTile / kStep; ++p) {
+        const bool ok = d_ok && kStep * p < rows_left;
+        cp_async4(dst + (kSOff + p * kStep) * 4,
+                  ok ? src + p * row_step : stacks, ok ? 4 : 0);
       }
-  }
-
+      if (p_dc == nd - 1 && tid < kFTile) {   // the fold's bias, 0 past g
+        const bool ok = b0 + tid < g;
+        cp_async4(smem_addr(ring + p_stage * S::kStage + kBOff + tid),
+                  ok ? bias + e_row0 + tid : bias, ok ? 4 : 0);
+      }
+      if (++p_dc == nd) {
+        p_dc = 0;
+        p_e = live_from(p_t, p_e + 1);
+        while (p_e == group && ++p_t < n_tiles) p_e = live_from(p_t, 0);
+      }
+      p_stage = p_stage == kFStages - 1 ? 0 : p_stage + 1;
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + warp * 4 + i;
-    if (r >= maxc) continue;   // warp-uniform
-    const long long o = (q_row0 + r) * k;
-    warp_emit_smallest(buf[i], size[i], k, lane, [&](int rank, Key key) {
-      const int p = static_cast<int>(key & 0xffffffffu);
-      vals[o + rank] = key_value(key);
-      idx[o + rank] = (p & 7) * g + (p >> 3);
-    });
+  for (int s = 0; s < kFStages - 1; ++s) issue();
+
+  int size = 0;   // threads 0..127: the heap size of row tid
+  int c_stage = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int b0 = t * kFTile;
+    float bmin[8][8];
+    uint32_t be[8];   // the e of bmin[i][j] in bits 4 j .. 4 j + 3
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      be[i] = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bmin[i][j] = INFINITY;
+    }
+    for (int e = live_from(t, 0); e < group; e = live_from(t, e + 1)) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      const float* st = ring;
+      for (int dc = 0; dc < nd; ++dc) {
+        cp_async_wait<kFStages - 2>();
+        __syncthreads();   // the stage landed; the one before is free
+        issue();
+        st = ring + c_stage * S::kStage;
+        c_stage = c_stage == kFStages - 1 ? 0 : c_stage + 1;
+        const float* as =
+            (kResident ? q_res + dc * kFBK * kFLd : st) + ty * 4;
+        const float* bs = st + kSOff + tx * 4;
+#pragma unroll
+        for (int kk = 0; kk < kFBK; ++kk) {
+          const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kFLd);
+          const float4 a1 =
+              *reinterpret_cast<const float4*>(as + kk * kFLd + 64);
+          const float4 s0 = *reinterpret_cast<const float4*>(bs + kk * kFLd);
+          const float4 s1 =
+              *reinterpret_cast<const float4*>(bs + kk * kFLd + 64);
+          const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float b[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        }
+      }
+      // fold slot e * g + b into bucket b: strict <, so the lowest e
+      // wins; no bucket past g
+      const float* bias_s = st + kBOff;
+      float fb[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int bt = f32_off(j, tx);
+        fb[j] = b0 + bt < g ? bias_s[bt] : INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float dist = __fsub_rn(fb[j], __fmul_rn(scale, acc[i][j]));
+          if (dist < bmin[i][j]) {
+            bmin[i][j] = dist;
+            be[i] = (be[i] & ~(0xfu << (4 * j))) |
+                    (static_cast<uint32_t>(e) << (4 * j));
+          }
+        }
+    }
+
+    // The tile's minima into the heaps: every bucket (b < g) of every
+    // live row, while it beats the row's bar, in rounds of kFCap keys a
+    // row.
+    uint64_t pend = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (f32_off(i, ty) < q_valid && b0 + f32_off(j, tx) < g)
+          pend |= 1ull << (i * 8 + j);
+    while (true) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const unsigned bits = static_cast<unsigned>(pend >> (i * 8)) & 0xffu;
+        if (!bits) continue;
+        const int row = f32_off(i, ty);
+        const Key b_row = bar[row];
+        // no key of a larger value can beat the bar (+inf: any does)
+        const float b_val = b_row == kNoKey ? INFINITY : key_value(b_row);
+        pend &= ~(static_cast<uint64_t>(bits) << (i * 8));
+        Key key[8];
+        unsigned take = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          key[j] = 0;
+          if ((bits >> j & 1u) && bmin[i][j] <= b_val) {
+            key[j] = make_key(bmin[i][j], (b0 + f32_off(j, tx)) * 8 +
+                                              ((be[i] >> (4 * j)) & 0xfu));
+            take |= static_cast<unsigned>(key[j] < b_row) << j;
+          }
+        }
+        if (!take) continue;
+        int slot = atomicAdd(&cand_n[row], __popc(take));
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (take >> j & 1u) {
+            if (slot < kFCap) cand[slot * kFRows + row] = key[j];
+            else pend |= 1ull << (i * 8 + j);   // the next round
+            ++slot;
+          }
+      }
+      const bool more = __syncthreads_or(pend != 0);
+      if (tid < kFRows) {
+        Key* h = heap + tid;
+        const int n = min(cand_n[tid], kFCap);
+        for (int s = 0; s < n; ++s) {
+          const Key x = cand[s * kFRows + tid];
+          if (size < k) heap_push<kFRows>(h, size++, x);
+          else if (x < h[0]) heap_sift<kFRows>(h, size, k, x);
+        }
+        cand_n[tid] = 0;
+        bar[tid] = size < k ? kNoKey : h[0];
+      }
+      __syncthreads();
+      if (!more) break;
+    }
+  }
+  cp_async_wait<0>();
+
+  // heap sort each row into ascending (value, b) order; every live row
+  // has pushed all g >= k buckets while its heap was not full, so it
+  // holds k keys
+  if (tid < q_valid) {
+    Key* h = heap + tid;
+    for (int n = size; n > 1; --n) {
+      const Key top = h[0];
+      heap_sift<kFRows>(h, n - 1, k, h[(n - 1) * kFRows]);
+      h[(n - 1) * kFRows] = top;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < q_valid * k; i += kFThreads) {
+    const int row = i / k;
+    const int j = i - row * k;
+    const Key key = heap[static_cast<long long>(j) * kFRows + row];
+    const int p = static_cast<int>(key & 0xffffffffu);
+    const long long o = (q_row0 + row) * k + j;
+    vals[o] = key_value(key);
+    idx[o] = (p & 7) * g + (p >> 3);
   }
 }
 
-long long general_blocks(int n_clusters, int maxc) {
-  return static_cast<long long>(n_clusters) * ((maxc + kRows - 1) / kRows);
+template <bool kResident, bool kHeapsGlobal>
+int launch_f32_as(const void* qv, const void* stacks, const void* bias,
+                  void* vals, void* idx, void* scratch, int n_clusters,
+                  int maxc, int d, int mm, int k, int group, float scale,
+                  cudaStream_t st) {
+  const auto kernel = join_f32_kernel<kResident, kHeapsGlobal>;
+  const size_t smem = F32Shape<kResident>::kFixed
+                      + (kHeapsGlobal ? 0 : static_cast<size_t>(kFRows) * k * 8);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(f32_blocks(n_clusters, maxc)), kFThreads,
+           smem, st>>>(
+      static_cast<const float*>(qv), static_cast<const float*>(stacks),
+      static_cast<const float*>(bias), static_cast<float*>(vals),
+      static_cast<int*>(idx), static_cast<Key*>(scratch), maxc, d, mm, k,
+      group, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(const void* qv, const void* stacks, const void* bias,
                void* vals, void* idx, void* scratch, int n_clusters,
                int maxc, int d, int mm, int k, int group, float scale,
                cudaStream_t st) {
-  const long long blocks = general_blocks(n_clusters, maxc);
-  if (topk_needs_scratch(kRows, k, kGeneralSmem) != (scratch != nullptr) ||
-      blocks > INT_MAX)
+  const bool in_smem = f32_heaps_in_smem(d, k);
+  if (in_smem == (scratch != nullptr) ||
+      f32_blocks(n_clusters, maxc) > INT_MAX ||
+      static_cast<long long>(kFRows) * k > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = topk_smem_bytes(kRows, k, kGeneralSmem);
-  const cudaError_t err = cudaFuncSetAttribute(
-      join_general_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  join_general_kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
-      static_cast<const float*>(qv), static_cast<const float*>(stacks),
-      static_cast<const float*>(bias), static_cast<float*>(vals),
-      static_cast<int*>(idx), static_cast<Key*>(scratch), maxc, d, mm, k,
-      group, scale);
-  return static_cast<int>(cudaGetLastError());
+  const auto launch = d <= kFResD
+                          ? (in_smem ? launch_f32_as<true, false>
+                                     : launch_f32_as<true, true>)
+                          : (in_smem ? launch_f32_as<false, false>
+                                     : launch_f32_as<false, true>);
+  return launch(qv, stacks, bias, vals, idx, scratch, n_clusters, maxc, d,
+                mm, k, group, scale, st);
 }
 
 }  // namespace
@@ -864,12 +1086,14 @@ extern "C" int cluster_join(const void* qv, const void* stacks,
 }
 
 // Bytes of global scratch cluster_join needs for this shape: 0 when the
-// rows' heaps (bf16) or buffers (f32) fit shared memory.
+// rows' heaps fit shared memory.
 extern "C" long long cluster_join_scratch(int n_clusters, int maxc, int d,
                                           int k, int dtype) {
   if (dtype == kF32)
-    return topk_scratch_bytes(general_blocks(n_clusters, maxc), kRows, k,
-                              kGeneralSmem);
+    return f32_heaps_in_smem(d, k) ? 0
+                                : f32_blocks(n_clusters, maxc) * kFRows
+                                      * static_cast<long long>(k)
+                                      * sizeof(Key);
   const MmaRoute r = mma_route(d, k);
   if (r.heaps_in_smem) return 0;
   return static_cast<long long>(n_clusters) * ((maxc + r.rows - 1) / r.rows)
@@ -877,7 +1101,7 @@ extern "C" long long cluster_join_scratch(int n_clusters, int maxc, int d,
 }
 
 // Member rows a block of the kernel that cluster_join launches for (d, k,
-// dtype): 128 or 64 (bf16), 32 (f32).
+// dtype): 128 or 64 (bf16), 128 (f32).
 extern "C" int cluster_join_rows(int d, int k, int dtype) {
-  return dtype == kF32 ? kRows : mma_route(d, k).rows;
+  return dtype == kF32 ? kFRows : mma_route(d, k).rows;
 }

@@ -352,149 +352,288 @@ cudaError_t allow(Kernel kernel, int bytes) {
 }
 
 
-// ---- the general kernel: any L and C that fit shared memory ----------------
+// ---- the general kernel: any L and C -----------------------------------------
 //
 // The kernel above holds the retset ids in a lane's registers, so it is
 // compiled per width and stops at L = 1024. This one takes L and C at run
 // time (an HNSW search with ef above 1024, a beam whose expand * R passes
-// 1024): a block per query, the retset and the candidates in shared
-// memory, the same three steps with nothing clever in them. It is the
-// simple one and is not tuned:
-//   * dedup: thread j walks the retset ids and the earlier candidates for
-//     candidate j (an exit on the first hit), C * (L + C / 2) compares a
-//     block at worst;
-//   * rank: every candidate, dropped ones included, is counted against
-//     all others by (dist, position), C^2 compares a block;
-//   * merge path: one binary search a retset slot and a candidate; the
-//     retset wins ties, being earlier. Results go straight to the output
-//     rows;
-//   * select: the first warp reads the new flags back (ballot + prefix
-//     popcount, 32 slots a step).
-// It needs 8 L + 16 C bytes a query: 64 KB at L = 4096, C = 2048. Up to
-// the 227 KB a block may have they are shared memory; past that (L ~ 29,000
+// 1024): a block a query, of ceil(max(L, C) / 8) threads rounded up to a
+// warp (32 to 1024), so that every thread has work on every step and the
+// block is as small as the query allows (L = 2048: 256 threads, L = 1025:
+// 160). What bounds it on the H100 is again the instructions a query
+// issues and the barriers between its steps, not its bytes; the design
+// carries the warp kernel's ideas to a block:
+//   * membership: each thread holds a strided share of the retset ids, 8
+//     slots i = base + tid + threads * u in registers (retsets past
+//     8 x 1024 slots take several such passes), and every candidate id,
+//     read four at a time as a shared-memory broadcast, is compared with
+//     all 8: C * 8 compares a thread a pass, no exit on the data. A
+//     thread's hits of a round of 32 candidates form a bit mask,
+//     OR-reduced across the warp and put into a shared C-bit mask with
+//     one atomicOr a warp;
+//   * repeats: candidate j against the candidates before it; then the
+//     kept candidates (live, not in the retset, first of their id) are
+//     packed in position order (ballot + per-warp counts + prefix). Only
+//     they are ranked and merged, as in the warp kernel, unless a retset
+//     dist exceeds PAD_DIST, when all are listed, the dropped masked;
+//   * rank by (dist, position) among the kept ones, their slot by a
+//     binary search of the retset dists, and the retset slots' by
+//     fixed-step binary searches of the sorted kept dists, 8 in step a
+//     thread. Dists go straight out; ids and flags to shared memory;
+//   * frontier: a block-wide ballot and prefix over the unexpanded
+//     slots, read from shared memory, a block of slots a round, stopping
+//     after `expand` picks; then ids and flags leave in 16-byte stores.
+// Per query 9 L + 20 C bytes of arrays (19 KB at L = 2048, C = 32): in
+// shared memory up to the 227 KB a block may have; past that (L ~ 25,000
 // at C = 50) the same arrays lie in global scratch that the wrapper
-// allocates, Q x (8 L + 16 C) bytes, so any L and C are taken, the JAX
-// function's contract. The two homes are two instantiations, so that the
-// shared-memory one compiles to shared-memory loads and stores, not to
-// generic ones (0.67 -> 0.50 ms at Q = 8192, L = 1025, C = 32).
+// allocates, Q x merge_select_general_scratch(L, C) bytes, so any L and C
+// are taken, the JAX function's contract. The two homes are two
+// instantiations, so that the shared-memory one compiles to shared-memory
+// loads and stores. Measured at Q = 8192, C = 32 (H100 80GB HBM3 at
+// 700 W, PERF.md): 0.112 / 0.177 / 0.356 ms at L = 1025 / 2048 / 4096,
+// about half its bytes bound at L >= 2048, where the kernel it replaced
+// (a thread a candidate walking the retset) took 0.50 / 0.92 / 1.78.
 
-constexpr int kGenThreads = 256;
+constexpr int kGenNR = 8;           // retset slots a thread holds at once
+constexpr int kGenMaxThreads = 1024;
+constexpr int kGenMisc = 64;        // ints: two sets of per-warp counts
 constexpr int kGenSmemMax = 232448;
 
-__host__ __device__ inline int general_bytes(int l, int c) {
-  return 8 * l + 16 * c;
+// threads of the block for (l, c)
+__host__ __device__ inline int general_threads(int l, int c) {
+  const int need = ((l > c ? l : c) + kGenNR - 1) / kGenNR;
+  const int t = (need + 31) & ~31;
+  return t < 32 ? 32 : t > kGenMaxThreads ? kGenMaxThreads : t;
 }
 
-// #{i : a[i] < v} and #{i : a[i] <= v} over an ascending array
-__device__ __forceinline__ int count_less(const float* a, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-__device__ __forceinline__ int count_le(const float* a, int n, float v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a[mid] <= v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+__host__ __device__ inline long long pad16ll(long long bytes) {
+  return (bytes + 15) & ~15ll;
 }
 
+// bytes of one query's arrays: rd [l] f32, oi [l] i32, oe [l] u8, md,
+// mi [c] (as given), kd, ki [c] (the listed ones, packed), sd [c] (their
+// dists sorted), hit [ceil(c / 32)] u32
+__host__ __device__ inline long long general_bytes(int l, int c) {
+  return 2 * pad16ll(4ll * l) + pad16ll(l) + 5 * pad16ll(4ll * c)
+         + pad16ll(4ll * ((c + 31) / 32));
+}
+
+// (32 registers a thread: a full SM of 2048 threads, 8 queries at
+// L = 2048; 0.176 ms at Q = 8192, C = 32, where 49 registers gave 5
+// blocks an SM and 0.182)
 template <bool kScratch>
-__global__ void __launch_bounds__(kGenThreads)
+__global__ void __launch_bounds__(kGenMaxThreads, 2)
 merge_select_general_kernel(
     const float* __restrict__ r_d, const int* __restrict__ r_i,
     const uint8_t* __restrict__ r_e, const float* __restrict__ c_d,
     const int* __restrict__ c_i, float* __restrict__ o_d,
-    int* __restrict__ o_i, uint8_t* o_e, int* __restrict__ sel_i,
-    uint8_t* __restrict__ sel_v, unsigned char* scratch, int l, int c,
-    int expand) {
+    int* __restrict__ o_i, uint8_t* __restrict__ o_e,
+    int* __restrict__ sel_i, uint8_t* __restrict__ sel_v,
+    unsigned char* scratch, int l, int c, int expand, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
+  const unsigned lower = (1u << lane) - 1u;
   const long long q = blockIdx.x;
-  unsigned char* base = kScratch ? scratch + q * general_bytes(l, c) : smem;
-  float* rd = reinterpret_cast<float*>(base);   // [l] retset dists
-  int* ri = reinterpret_cast<int*>(rd + l);     // [l] retset ids
-  float* md = reinterpret_cast<float*>(ri + l); // [c] masked candidates
-  int* mi = reinterpret_cast<int*>(md + c);
-  float* sd = reinterpret_cast<float*>(mi + c); // [c] sorted candidates
-  int* si = reinterpret_cast<int*>(sd + c);
+  int* misc = reinterpret_cast<int*>(smem);   // [2][32] per-warp counts
+  unsigned char* base =
+      kScratch ? scratch + q * general_bytes(l, c) : smem + 4 * kGenMisc;
+  float* rd = reinterpret_cast<float*>(base);
+  int* oi = reinterpret_cast<int*>(base + pad16ll(4ll * l));
+  uint8_t* oe = base + 2 * pad16ll(4ll * l);
+  float* md = reinterpret_cast<float*>(oe + pad16ll(l));
+  int* mi = reinterpret_cast<int*>(md) + pad16ll(4ll * c) / 4;
+  float* kd = reinterpret_cast<float*>(mi) + pad16ll(4ll * c) / 4;
+  int* ki = reinterpret_cast<int*>(kd) + pad16ll(4ll * c) / 4;
+  float* sd = reinterpret_cast<float*>(ki) + pad16ll(4ll * c) / 4;
+  unsigned* hit = reinterpret_cast<unsigned*>(sd) + pad16ll(4ll * c) / 4;
   const long long rq = q * l, cq = q * c;
+  const int n_words = (c + 31) / 32;
+  const int span = kGenNR * nt;   // retset slots a membership pass
 
-  for (int i = tid; i < l; i += kGenThreads) {
-    rd[i] = r_d[rq + i];
-    ri[i] = r_i[rq + i];
+  for (int i = tid; i < l; i += nt) rd[i] = r_d[rq + i];
+  for (int j = tid; j < c; j += nt) {
+    md[j] = c_d[cq + j];
+    mi[j] = c_i[cq + j];
   }
-  for (int j = tid; j < c; j += kGenThreads) si[j] = c_i[cq + j];
+  for (int w = tid; w < n_words; w += nt) hit[w] = 0;
   __syncthreads();
 
-  // 1. drop PADs, retset members and repeats of an earlier candidate
-  for (int j = tid; j < c; j += kGenThreads) {
-    const int id = si[j];
-    bool drop = id < 0;
-    for (int i = 0; i < l && !drop; ++i) drop = ri[i] == id;
-    for (int t = 0; t < j && !drop; ++t) drop = si[t] == id;
-    md[j] = drop ? kPadDist : c_d[cq + j];
-    mi[j] = drop ? kPadId : id;
+  // 1. membership: bit j of hit[] is set when candidate j's id is in the
+  // retset (a PAD id may match a PAD slot; it is dropped either way). The
+  // last pass's ids and flags stay in registers for step 4 (all of them
+  // when one pass covers the retset, L <= 8 x threads).
+  int rid[kGenNR];
+  unsigned rfl = 0;   // bit u: slot i0 + tid + nt * u was expanded
+  for (int i0 = 0; i0 < l; i0 += span) {
+    rfl = 0;
+#pragma unroll
+    for (int u = 0; u < kGenNR; ++u) {
+      const int i = i0 + tid + nt * u;
+      rid[u] = i < l ? r_i[rq + i] : kPadId;
+      rfl |= static_cast<unsigned>(i < l && r_e[rq + i] != 0) << u;
+    }
+    for (int j0 = 0; j0 < c; j0 += 32) {
+      const int t_end = c - j0 < 32 ? c - j0 : 32;
+      unsigned mine = 0;   // (the last round's loads may pass c: masked)
+#pragma unroll 4
+      for (int t = 0; t < t_end; t += 4) {
+        const int4 x = *reinterpret_cast<const int4*>(mi + j0 + t);
+        bool h0 = false, h1 = false, h2 = false, h3 = false;
+#pragma unroll
+        for (int u = 0; u < kGenNR; ++u) {
+          h0 |= rid[u] == x.x;
+          h1 |= rid[u] == x.y;
+          h2 |= rid[u] == x.z;
+          h3 |= rid[u] == x.w;
+        }
+        mine |= (static_cast<unsigned>(h0) | static_cast<unsigned>(h1) << 1 |
+                 static_cast<unsigned>(h2) << 2 |
+                 static_cast<unsigned>(h3) << 3) << t;
+      }
+      if (t_end < 32) mine &= (1u << t_end) - 1u;
+      mine = __reduce_or_sync(kFull, mine);
+      if (lane == 0 && mine) atomicOr(&hit[j0 >> 5], mine);
+    }
   }
   __syncthreads();
 
-  // 2a. stable order of the candidates by (dist, position)
-  for (int j = tid; j < c; j += kGenThreads) {
-    const float v = md[j];
+  // 2. keep a candidate if its id is live, not in the retset and the
+  // first of its id; list the kept ones (all, the dropped masked, when a
+  // retset dist exceeds PAD_DIST: see the warp kernel) in position order
+  const bool all_listed = rd[l - 1] > kPadDist;
+  int n = 0;   // listed so far, the same on every thread
+  for (int j0 = 0; j0 < c; j0 += nt) {
+    const int j = j0 + tid;
+    bool keep = false, listed = false;
+    int id = kPadId;
+    float dist = kPadDist;
+    if (j < c) {
+      id = mi[j];
+      dist = md[j];
+      keep = id >= 0 && !((hit[j >> 5] >> (j & 31)) & 1u);
+      if (keep)
+        for (int t = 0; t < j; ++t) keep &= mi[t] != id;
+      listed = keep || all_listed;
+    }
+    const unsigned ball = __ballot_sync(kFull, listed);
+    if (lane == 0) misc[warp] = __popc(ball);
+    __syncthreads();
+    int pos = n + __popc(ball & lower), total = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int cw = misc[w];
+      pos += w < warp ? cw : 0;
+      total += cw;
+    }
+    if (listed) {
+      kd[pos] = keep ? dist : kPadDist;
+      ki[pos] = keep ? id : kPadId;
+    }
+    n += total;
+    __syncthreads();   // misc is read before the next round writes it
+  }
+
+  // 3. the listed candidates: rank by (dist, position), then the merged
+  // slot (the retset wins ties, being earlier)
+  const int l_top = floor_pow2(l), n_top = floor_pow2(n);
+  for (int j = tid; j < n; j += nt) {
+    const float v = kd[j];
     int rank = 0;
-    for (int t = 0; t < c; ++t) {
-      const float w = md[t];
-      rank += (w < v) || (w == v && t < j);
+    for (int t = 0; t < n; ++t) {
+      const float w = kd[t];
+      rank += (w < v) | ((w == v) & (t < j));
     }
     sd[rank] = v;
-    si[rank] = mi[j];
+    int pos = 0;   // #{i : rd[i] <= v}
+    for (int step = l_top; step > 0; step >>= 1) {
+      const int t = pos + step;
+      pos = (t <= l) & (rd[min(t, l) - 1] <= v) ? t : pos;
+    }
+    const int p = rank + pos;
+    if (p < l) {
+      const int id = ki[j];
+      o_d[rq + p] = v;
+      oi[p] = id;
+      oe[p] = id < 0;
+    }
   }
   __syncthreads();
 
-  // 2b. merge path: each element's slot in the merged order; keep < l
-  for (int i = tid; i < l; i += kGenThreads) {
-    const float v = rd[i];
-    const int p = i + count_less(sd, c, v);
-    if (p < l) {
-      o_d[rq + p] = v;
-      o_i[rq + p] = ri[i];
-      o_e[rq + p] = (r_e[rq + i] != 0) || ri[i] < 0;
+  // 4. the retset slots: slot i moves up by #{sd < rd[i]}, the binary
+  // searches of a thread's 8 slots in step
+  for (int i0 = 0; i0 < l; i0 += span) {
+    float v[kGenNR];
+    int ahead[kGenNR];
+#pragma unroll
+    for (int u = 0; u < kGenNR; ++u) {
+      const int i = i0 + tid + nt * u;
+      v[u] = i < l ? rd[i] : kPadDist;
+      ahead[u] = 0;
+    }
+    for (int step = n_top; step > 0; step >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kGenNR; ++u) {
+        const int t = ahead[u] + step;
+        ahead[u] = (t <= n) & (sd[min(t, n) - 1] < v[u]) ? t : ahead[u];
+      }
+    }
+    const bool held = i0 + span >= l;   // the pass whose ids are held
+#pragma unroll
+    for (int u = 0; u < kGenNR; ++u) {
+      const int i = i0 + tid + nt * u;
+      const int p = i + ahead[u];
+      if (i < l && p < l) {
+        const int id = held ? rid[u] : r_i[rq + i];
+        const bool ex = held ? (rfl >> u & 1u) : r_e[rq + i] != 0;
+        o_d[rq + p] = v[u];
+        oi[p] = id;
+        oe[p] = ex | (id < 0);
+      }
     }
   }
-  for (int s = tid; s < c; s += kGenThreads) {
-    const float v = sd[s];
-    const int p = s + count_le(rd, l, v);
-    if (p < l) {
-      o_d[rq + p] = v;
-      o_i[rq + p] = si[s];
-      o_e[rq + p] = si[s] < 0;
-    }
-  }
-  __syncthreads();   // the block's writes to o_i / o_e are visible to it
+  __syncthreads();
 
-  // 3. frontier: the first `expand` unexpanded slots, in slot order
-  if (tid >= 32) return;
-  const int lane = tid;
+  // 5. frontier: the first `expand` unexpanded slots, in slot order, a
+  // block of slots a round (two sets of counts, so one barrier a round)
   int taken = 0;
-  for (int s0 = 0; s0 < l && taken < expand; s0 += 32) {
-    const int slot = s0 + lane;
-    const bool un = slot < l && o_e[rq + slot] == 0;
+  for (int s0 = 0, r = 0; s0 < l && taken < expand; s0 += nt, ++r) {
+    const int slot = s0 + tid;
+    const bool un = slot < l && oe[slot] == 0;
     const unsigned ball = __ballot_sync(kFull, un);
-    const int rank = taken + __popc(ball & ((1u << lane) - 1u));
-    if (un && rank < expand) {
-      sel_i[q * expand + rank] = o_i[rq + slot];
-      sel_v[q * expand + rank] = 1;
-      o_e[rq + slot] = 1;
+    int* wc = misc + (r & 1) * 32;
+    if (lane == 0) wc[warp] = __popc(ball);
+    __syncthreads();
+    int rank = taken + __popc(ball & lower), total = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int cw = wc[w];
+      rank += w < warp ? cw : 0;
+      total += cw;
     }
-    taken += __popc(ball);
+    if (un && rank < expand) {
+      sel_i[q * expand + rank] = oi[slot];
+      sel_v[q * expand + rank] = 1;
+      oe[slot] = 1;
+    }
+    taken += total;
   }
-  for (int e = (taken < expand ? taken : expand) + lane; e < expand; e += 32) {
+  for (int e = (taken < expand ? taken : expand) + tid; e < expand; e += nt) {
     sel_i[q * expand + e] = kPadId;
     sel_v[q * expand + e] = 0;
+  }
+  __syncthreads();
+  if (vec) {
+    for (int i = tid * 4; i < l; i += nt * 4) {
+      *reinterpret_cast<int4*>(o_i + rq + i) =
+          *reinterpret_cast<const int4*>(oi + i);
+      *reinterpret_cast<uint32_t*>(o_e + rq + i) =
+          *reinterpret_cast<const uint32_t*>(oe + i);
+    }
+  } else {
+    for (int i = tid; i < l; i += nt) {
+      o_i[rq + i] = oi[i];
+      o_e[rq + i] = oe[i];
+    }
   }
 }
 
@@ -547,14 +686,14 @@ extern "C" int merge_select_occupancy(int l, int c) {
 // Bytes of global scratch a query of the general kernel needs: 0 when its
 // arrays fit shared memory.
 extern "C" long long merge_select_general_scratch(int l, int c) {
-  const long long bytes = 8ll * l + 16ll * c;
-  return bytes > kGenSmemMax ? bytes : 0;
+  const long long bytes = general_bytes(l, c);
+  return bytes + 4 * kGenMisc > kGenSmemMax ? bytes : 0;
 }
 
 // The general kernel's entry point: the arguments of merge_select, any L
 // and C, and `scratch`, Q x merge_select_general_scratch(l, c) bytes of
-// global memory when that is not 0, else null (one instantiation; a block
-// a query).
+// global memory when that is not 0, else null (a block a query, of
+// general_threads(l, c) threads).
 extern "C" int merge_select_general(const void* r_d, const void* r_i,
                                     const void* r_e, const void* c_d,
                                     const void* c_i, void* o_d, void* o_i,
@@ -562,14 +701,15 @@ extern "C" int merge_select_general(const void* r_d, const void* r_i,
                                     void* scratch, int nq, int l, int c,
                                     int expand, void* stream) {
   if (nq < 1 || l < 1 || c < 0 || expand < 1 || expand > l ||
-      8ll * l + 16ll * c > INT_MAX ||
+      general_bytes(l, c) > INT_MAX ||
       (merge_select_general_scratch(l, c) > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool in_scratch = scratch != nullptr;
-  const int bytes = in_scratch ? 0 : general_bytes(l, c);
+  const int bytes =
+      4 * kGenMisc + (in_scratch ? 0 : static_cast<int>(general_bytes(l, c)));
   using General = void (*)(const float*, const int*, const uint8_t*,
                            const float*, const int*, float*, int*, uint8_t*,
-                           int*, uint8_t*, unsigned char*, int, int, int);
+                           int*, uint8_t*, unsigned char*, int, int, int, int);
   const General kernel = in_scratch ? merge_select_general_kernel<true>
                                     : merge_select_general_kernel<false>;
   if (bytes > kSmallSmem) {
@@ -577,12 +717,14 @@ extern "C" int merge_select_general(const void* r_d, const void* r_i,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<nq, kGenThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  const int vec = l % 4 == 0 && aligned16(o_i) && aligned16(o_e);
+  kernel<<<nq, general_threads(l, c), bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(r_d), static_cast<const int*>(r_i),
       static_cast<const uint8_t*>(r_e), static_cast<const float*>(c_d),
       static_cast<const int*>(c_i), static_cast<float*>(o_d),
       static_cast<int*>(o_i), static_cast<uint8_t*>(o_e),
       static_cast<int*>(sel_i), static_cast<uint8_t*>(sel_v),
-      static_cast<unsigned char*>(scratch), l, c, expand);
+      static_cast<unsigned char*>(scratch), l, c, expand, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,7 @@
-// The running top-k shared by the general kernels of this directory
-// (grouped_scan.cu for k > 32, cluster_join.cu's f32 kernel): one warp keeps
-// a row's k smallest (value, position) keys (make_key in mma_helpers.cuh)
-// and at the end writes them ascending, ties to the lower position, as a
-// stable sort of the values would.
+// The running top-k of grouped_scan.cu's general kernel (k > 32): one
+// warp keeps a row's k smallest (value, position) keys (make_key in
+// mma_helpers.cuh) and at the end writes them ascending, ties to the
+// lower position, as a stable sort of the values would.
 //
 // The row's candidates arrive 32 at a time, one a lane, in increasing
 // position (warp_push). Those below the row's bar are appended to a buffer
@@ -22,9 +21,9 @@
 //
 // Where the buffers live: a block of `rows` rows puts its rows' buffers in
 // dynamic shared memory, ahead of the kernel's own `fixed` bytes, while
-// both fit a block's 227 KB; past that (k > 396 at 32 rows and ~21 KB of
-// tiles) they go to global scratch, topk_scratch_bytes of it, allocated
-// by the caller, and the kernel's shared memory holds only its own bytes.
+// both fit a block's 227 KB; past that they go to global scratch,
+// topk_scratch_bytes of it, allocated by the caller, and the kernel's
+// shared memory holds only its own bytes.
 
 #pragma once
 

@@ -35,13 +35,15 @@ has one kernel a dtype, each for any k up to the bucket count: bf16 on
 tensor cores (``join_mma_kernel``: 128 member rows a block while their
 top-k heaps fit shared memory (k <= 110 at d <= 128), else 64, whose
 heaps move to global scratch that the wrapper allocates past k = 285
-(279 when d > 128)), f32 in exact FMAs on
-CUDA cores (``join_general_kernel``, a running top-k of the scan's
-general kind). ``join_launches`` counts the join's launches and
-``join_launches_by_kernel`` splits them by kernel name. The TPU's
-row-chunk shrink for scoped VMEM (pallas_scan.py:197-200) is not carried
-over; the bucket rule (``join_group``) is, because it decides which slots
-can come back.
+(279 when d > 128)), f32 in exact FMAs on CUDA cores
+(``join_f32_kernel``: 128 rows a block, 8 x 8 register tiles as in an
+SGEMM, slices of all +inf bias skipped, per-row heaps in shared memory
+up to k = 107 at d <= 128 (140 above) and in global scratch that the
+wrapper allocates past that). ``join_launches`` counts the
+join's launches and ``join_launches_by_kernel`` splits them by kernel
+name. The TPU's row-chunk shrink for scoped VMEM (pallas_scan.py:197-200)
+is not carried over; the bucket rule (``join_group``) is, because it
+decides which slots can come back.
 """
 
 from __future__ import annotations
@@ -235,7 +237,7 @@ def grouped_cluster_topk(qv, slabs, bias, k: int, scale: float):
 # ---- cluster join (kNN-graph build) ----------------------------------------
 
 _JOIN_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-JOIN_KERNELS = {torch.float32: "join_general_kernel",
+JOIN_KERNELS = {torch.float32: "join_f32_kernel",
                 torch.bfloat16: "join_mma_kernel"}
 
 
@@ -297,7 +299,7 @@ def cluster_join_topk_reference(qv, stacks, bias, k: int, scale: float,
 
 def join_block_rows(d: int, k: int, dtype) -> int:
     """Member rows a block of the join kernel that (d, k, dtype) launches:
-    128 or 64 on tensor cores (bf16), 32 on CUDA cores (f32). Needs the
+    128 or 64 on tensor cores (bf16), 128 on CUDA cores (f32). Needs the
     card's library."""
     from ._build import load_library
 

@@ -17,11 +17,12 @@ wrapper raises:
     candidate broadcast and compared with them, a rank sort of the kept
     candidates, a merge path;
   * anything wider (an HNSW search with ``ef`` above 1024, a beam whose
-    expand * R passes 1024): the general kernel, a block per query with
-    the retset and candidates in shared memory, or in global scratch that
-    this wrapper allocates when they pass the 227 KB a block may have
-    (L above ~29,000 at C = 50). Simple and not tuned. Any L and C are
-    taken, as by the JAX function.
+    expand * R passes 1024): the general kernel, a block of
+    ceil(max(L, C) / 8) threads per query, each holding 8 retset ids in
+    registers and comparing every candidate with them; the arrays in
+    shared memory, or in global scratch that this wrapper allocates when
+    they pass the 227 KB a block may have (L above ~25,000 at C = 50).
+    Any L and C are taken, as by the JAX function.
 
 ``launches`` counts the launches of both, ``launches_by_shape`` splits
 the same count by (Q, L, C, expand) and ``general_launches`` is the

@@ -12,10 +12,13 @@ other on one card with the method and the shapes of ``chip_smoke.py``'s
 own lines. The join runs at the 1M build shape of ``chip_smoke.py`` phase
 7 (the 1091 clusters that phase 6's build of the 1M data makes, slabs of
 2112 rows, M=8, d=128): bf16 at k = 52, 102 and 202, f32 at k = 10, 52
-and 64. Prints one JSON line per shape.
+and 102. Prints one JSON line per shape; the merge+select and join lines
+carry ``digest``, a hash of the outputs' bytes, so that two trees' lines
+show whether their kernels give the same bits on the same inputs.
 """
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -24,9 +27,17 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 # chip_smoke.MERGE_CASES timed here, with their seeds
 MERGE_TIMED = ("search shape", "collect pool", "build retset", "wide expand",
-               "warp kernel L=1024", "general L=1025", "general L=2048")
+               "warp kernel L=1024", "general L=1025", "general L=2048",
+               "general L=4096", "general scratch L=30000")
 # the clusters of the 1M build (chip_smoke.py phase 6 prints its n_slabs)
 BUILD_SLABS = 1091
+
+
+def digest(*ts) -> str:
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main():
@@ -52,8 +63,10 @@ def main():
         state = smoke.merge_state(100 + i, q, l, c, expand)
         t = smoke.cuda_ms(lambda: ms.fused_merge_select(*state, expand),
                           reps=50, warmup=5)
+        out = digest(*ms.fused_merge_select(*state, expand))
         print(json.dumps(dict(kernel="fused_merge_select", tree=args.tree,
-                              Q=q, L=l, C=c, expand=expand, ms=t, card=card)))
+                              Q=q, L=l, C=c, expand=expand, ms=t,
+                              digest=out, card=card)))
         del state
     # chip_smoke.phase_kernels' first two cases from its generator, then
     # its d=960 shape
@@ -82,23 +95,25 @@ def main():
         t = smoke.cuda_ms(lambda: cs.cluster_join_topk(qv, st, bias, k,
                                                        scale),
                           reps=3, warmup=1)
+        out = digest(*cs.cluster_join_topk(qv, st, bias, k, scale))
         print(json.dumps(dict(kernel="cluster_join_topk bf16",
                               tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
-                              k=k, ms=t, card=card)))
+                              k=k, ms=t, digest=out, card=card)))
         torch.cuda.empty_cache()
     del qv, st, bias
     torch.cuda.empty_cache()
-    # the same in f32 (exact, on CUDA cores) at the k of phase 7 and at
-    # two k a k <= 64 kernel takes
+    # the same in f32 (exact, on CUDA cores) at the k of phase 7's timed
+    # calls
     qv, st, bias, scale = smoke.join_case(4, c, maxc, probes * maxc, d,
                                           torch.float32, "l2")
-    for k in (10, 52, 64):
+    for k in (10, 52, 102):
         t = smoke.cuda_ms(lambda: cs.cluster_join_topk(qv, st, bias, k,
                                                        scale),
                           reps=3, warmup=1)
+        out = digest(*cs.cluster_join_topk(qv, st, bias, k, scale))
         print(json.dumps(dict(kernel="cluster_join_topk f32",
                               tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
-                              k=k, ms=t, card=card)))
+                              k=k, ms=t, digest=out, card=card)))
         torch.cuda.empty_cache()
 
 

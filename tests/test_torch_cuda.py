@@ -360,8 +360,12 @@ def test_merge_select_raises_past_the_kernel_limits(card, l, c):
 @pytest.mark.parametrize("q,l,c,expand", [
     (6, 20000, 50, 1),       # past the former L limit, in shared memory
     (3, 40000, 64, 2),       # past shared memory: the arrays in scratch
+    (4, 30000, 32, 3),       # the same
     (2, 300, 16000, 4)])     # C past shared memory
 def test_merge_select_general_kernel_any_width(card, q, l, c, expand):
+    from hnsw_nsg_tpu_torch.ops._build import load_library
+    assert (load_library().merge_select_general_scratch(l, c) > 0) == (
+        l > 25000 or c > 10000)
     state = _merge_state(q + l + c, q, l, c, n_ids=3 * l + c)
     want = ms.merge_select_reference(*state, expand)
     g_before = ms.general_launches
@@ -375,7 +379,11 @@ def test_merge_select_general_kernel_any_width(card, q, l, c, expand):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q,l,c,expand", [
     (33, 1025, 50, 1), (16, 2048, 128, 4), (9, 4096, 128, 1),
-    (20, 200, 1025, 4), (5, 4096, 2048, 8), (12, 1100, 32, 1100)])
+    (20, 200, 1025, 4), (5, 4096, 2048, 8), (12, 1100, 32, 1100),
+    # the HNSW search's widths past the warp kernel (ef = 2048), the
+    # general kernel's block of ceil(max(L, C) / 8) threads
+    (24, 1025, 32, 1), (24, 2048, 32, 1), (24, 2048, 50, 1),
+    (24, 4096, 32, 1), (24, 4096, 50, 1), (7, 2048, 50, 2048)])
 def test_merge_select_general_kernel_bit_identical(card, q, l, c, expand):
     state = _merge_state(q + l + c, q, l, c, n_ids=3 * l)
     want = ms.merge_select_reference(*state, expand)
@@ -388,8 +396,11 @@ def test_merge_select_general_kernel_bit_identical(card, q, l, c, expand):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,c,expand", [(1025, 50, 1), (2048, 128, 4),
-                                        (200, 1025, 2)])
+@pytest.mark.parametrize("l,c,expand", [
+    (1025, 50, 1), (2048, 128, 4), (200, 1025, 2), (1025, 32, 1),
+    (2048, 32, 1), (2048, 50, 1), (4096, 32, 1), (4096, 50, 1),
+    (200, 1025, 4), (2048, 50, 2048),
+    (30000, 32, 3)])          # L = 30000: the arrays in global scratch
 @pytest.mark.parametrize("kind", MERGE_STATE_KINDS)
 def test_merge_select_general_kernel_adversarial_states(card, kind, l, c,
                                                         expand):
@@ -794,6 +805,89 @@ def test_general_join_kernel_matches_plain(card, dtype, mm, k):
     torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
                                rv[fin], **tol)
     assert (ki[fin] == ri[fin]).float().mean() >= 0.99
+
+
+# -- the f32 join (join_f32_kernel) and the general merge+select ---------
+
+
+def _f32_join_case(seed, c, maxc, mm, d, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:   # every product and f32 sum exact: equal bits expected
+        qv = rng.integers(-6, 7, (c, maxc, d)).astype(np.float32)
+        st = rng.integers(-6, 7, (c, mm, d)).astype(np.float32)
+    else:
+        qv = rng.standard_normal((c, maxc, d)).astype(np.float32)
+        st = rng.standard_normal((c, mm, d)).astype(np.float32)
+    qv, st = torch.from_numpy(qv), torch.from_numpy(st)
+    valid = torch.from_numpy(rng.random((c, mm)) < 0.8)
+    bias = torch.where(valid, (st ** 2).sum(-1), float("inf"))
+    return qv, st, bias
+
+
+def _check_f32_join(card, qv, st, bias, k, exact=False):
+    """join_f32_kernel against the plain version on the same inputs: the
+    +inf pattern and every id equal (the +inf entries' buckets too), vals
+    within f32 summation order (rtol 1e-5, atol 1e-3 at |bias| ~ 2d), or
+    equal when every sum is exact."""
+    rv, ri = cs.cluster_join_topk_reference(qv, st, bias, k, 2.0)
+    before = cs.join_launches_by_kernel["join_f32_kernel"]
+    kv, ki = cs.cluster_join_topk(qv.to(card), st.to(card), bias.to(card),
+                                  k, 2.0)
+    torch.cuda.synchronize()
+    assert cs.join_launches_by_kernel["join_f32_kernel"] == before + 1
+    kv, ki = kv.cpu(), ki.cpu()
+    fin = torch.isfinite(rv)
+    assert torch.equal(torch.isfinite(kv), fin)
+    assert torch.equal(ki, ri)
+    if exact:
+        assert torch.equal(kv, rv)
+    else:
+        torch.testing.assert_close(kv[fin], rv[fin], rtol=1e-5, atol=1e-3)
+    return fin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group,mm,k,d", [
+    (1, 99, 1, 37), (2, 512, 10, 37), (4, 1024, 10, 37),
+    (8, 16896, 52, 37), (8, 4096, 1, 37), (4, 16896, 102, 37),
+    (1, 2700, 107, 37), (1, 2725, 108, 37),      # the query resident
+    (8, 16896, 52, 200), (1, 3500, 140, 200),    # the query streamed
+    (1, 3525, 141, 200)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_f32_join_kernel_matches_plain(card, group, mm, k, d, integer):
+    """Every bucket width, k = 1 to 141. Beside the resident query tile
+    (d <= 128) k = 107 is the last whose heaps fit shared memory and 108
+    the first in global scratch; beside a streamed one (d > 128) 140 and
+    141. maxc = 150 is not a multiple of the 128-row tile, d = 37 and 200
+    not of the 16-wide d chunk."""
+    assert cs.join_group(mm, k) == group
+    assert cs.join_block_rows(d, k, torch.float32) == 128
+    from hnsw_nsg_tpu_torch.ops._build import load_library
+    assert (load_library().cluster_join_scratch(2, 150, d, k, 0) > 0) == (
+        k > (107 if d <= 128 else 140))
+    qv, st, bias = _f32_join_case(mm + k + d, 2, 150, mm, d, integer)
+    _check_f32_join(card, qv, st, bias, k, exact=integer)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,rows", [(4, 300), (52, 1400)])
+@pytest.mark.parametrize("integer", [False, True])
+def test_f32_join_kernel_dead_slices(card, k, rows, integer):
+    """Stacks of 8 slabs (group 8: bucket b of slab e is slot e * rows +
+    b; 3 or 11 tiles of 128 buckets) with +inf tails: (tile, e) slices
+    wholly +inf (skipped), partly +inf, and in the second cluster +inf for
+    every e in all but two buckets, whose rows end in (+inf, b) entries,
+    lowest b first."""
+    qv, st, bias = _f32_join_case(7 + k, 3, 140, 8 * rows, 64, integer)
+    assert cs.join_group(8 * rows, k) == 8
+    slab = bias.view(3, 8, rows)
+    slab[0] = (st[0] ** 2).sum(-1).view(8, rows)
+    for e, size in enumerate([rows, 0, 128, 5, 256, 0, 200, 130]):
+        slab[0, e, size:] = float("inf")
+    slab[1] = float("inf")
+    slab[1, 3, :2] = 1.0
+    fin = _check_f32_join(card, qv, st, bias, k, exact=integer)
+    assert fin[0].all() and not fin[1, :, 2:].any()
 
 
 @pytest.mark.cuda

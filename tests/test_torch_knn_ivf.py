@@ -97,6 +97,32 @@ def test_cluster_join_ip_and_inf_tail():
     np.testing.assert_array_equal(ti[fin], ji[fin])
 
 
+def test_cluster_join_dead_slab_tails_match_jax_interpret():
+    """f32 l2 over stacks of M = 8 slabs of 300 rows, each slab with a
+    +inf tail (group 8: bucket b of slab e is slot e * 300 + b), so that
+    whole 128-bucket slices of one e are +inf, some slabs wholly so, and
+    in the second cluster every slot of most buckets: the rule that lets
+    the card's f32 kernel skip such slices (their distances are +inf and
+    never lower a bucket's minimum) holds in the TPU kernel too. The
+    buckets past the finite ones come out as (+inf, b), lowest b first."""
+    qv, st, bias, scale = _join_case(31, 2, 8, 2400, 16, "f32", "l2")
+    assert cs.join_group(2400, 4) == 8
+    slab = bias.reshape(2, 8, 300)
+    for e, size in enumerate([300, 0, 128, 5, 256, 0, 200, 130]):
+        slab[0, e, size:] = np.inf
+    slab[1] = np.inf
+    slab[1, 3, :2] = 1.0                      # two finite buckets, k = 4
+    (jv, ji), (tv, ti) = _run_both(qv, st, bias, 4, scale, "f32")
+    fin = np.isfinite(jv)
+    assert fin[0].all() and fin[1, :, :2].all() and not fin[1, :, 2:].any()
+    np.testing.assert_array_equal(np.isfinite(tv), fin)
+    np.testing.assert_allclose(tv[fin], jv[fin], **TOL)
+    np.testing.assert_array_equal(ti[fin], ji[fin])
+    all_inf = np.flatnonzero(np.isinf(slab[1]).all(0))[:2]
+    np.testing.assert_array_equal(ti[1, :, 2:], np.broadcast_to(all_inf,
+                                                                (8, 2)))
+
+
 def test_join_group_rule_matches_jax_shapes():
     # the 1M build shape: maxc 2112, M = 8, k = 52 -> group 8
     assert cs.join_group(8 * 2112, 52) == 8

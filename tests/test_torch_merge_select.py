@@ -60,6 +60,8 @@ def _assert_identical(got, *wants):
     (128, 30, 1), (128, 120, 4), (64, 30, 2), (128, 8, 1), (256, 60, 8),
     # an HNSW search at ef = 1024: the card's warp kernel at 32 slots a lane
     (1024, 32, 1), (1024, 128, 4),
+    # past L = 1024, the card's general kernel: ef = 2048, and L = 1025
+    (2048, 32, 1), (1025, 50, 1),
 ])
 def test_plain_version_bit_identical_to_jax(l, c, expand):
     rng = np.random.default_rng(l * 1000 + c + expand)
