@@ -9,20 +9,36 @@ Phases, each of which fails the run (non-zero exit) on its own:
   2. the grouped-scan kernels versus their plain PyTorch version on the
      card, per dtype pair, metric and shape (the bench shape at k=10, the
      CNNS search's own call at k=20, d=960, d=1928 on the CUDA-core
-     kernel, cap=80 with k=32, d=100), with the tolerance and the count
-     of near-tie ids stated beside each case, and both times and the
-     bound of each; the general kernel (k > 32) at k = 33, 64, 100, 256
-     on the bench shape and k = maxc on a small one, every dtype pair,
-     and at the CNNS search's own call at k=100 (k=200, bf16), timed
-     there and at k=100;
+     kernel in bf16 and SQ8, cap=80 with k=32, d=100), with the tolerance
+     and the count of near-tie ids stated beside each case, and both
+     times and the bound of each; the general kernels (k > 32) at k = 33,
+     64, 100, 256 on the bench shape and k = maxc on a small one, every
+     dtype pair, and at the CNNS search's own call at k=100 (k=200) in
+     bf16, f32 and SQ8, timed there and at k=100. Each case asserts the
+     kernel it launched (``cluster_scan.scan_kernel``: scan_mma or
+     scan_general_mma on tensor cores for a bf16 query with a bf16 or int8
+     slab up to d = 1920, grouped_scan or scan_general on CUDA cores);
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
      ``CNNSIndex.search`` (Q=8192, k=10) until recall@10 >= 0.95; at that
      nprobe one search at the entry point's default k=100 (the general
      kernel), whose first 10 columns must keep recall@10 within 0.002,
-     with recall@100 and its batch time; both kernels' launch counts are
-     read around it;
+     with recall@100 and its batch time; the scan's launches by kernel
+     are read around it (scan_mma and scan_general_mma only). Then the
+     same index with f32 slabs at that nprobe, k=10 and k=100, which runs
+     the CUDA-core kernels (grouped_scan and scan_general only);
+ 3b. gist1m as bench.py runs it: 1M x 960 L2 data (seed 0), an SQ8 index
+     (``build_cnns(..., slab_dtype=torch.int8)`` on non-integral data,
+     976 clusters), the exact f32 ground truth, an nprobe sweep (1..16)
+     at k=10 with 10 timed repetitions each, one search at k=100; it
+     fails unless recall@10 >= 0.95 at some nprobe <= 16 and the k=100
+     run's recall@10 is within 0.002 of the k=10 run's, checks the
+     output (finite, ascending, in-range ids, distances within rtol 1e-2
+     of exact f32 ones), asserts the SQ8 path launched scan_mma and
+     scan_general_mma only, and holds the kernel against its plain
+     version on the scan inputs of one of its own searches at k=20 and
+     k=200 (~70 s on the card);
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
@@ -85,8 +101,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
      202, f32 at k=10, 52 and 102): both times, the rows a block, the id
      mismatches at near-ties, the bound (the products of the finite-bias
      slots only) and the kernel's share of it;
-  8. the kernels line (eight entries: times, launches, errors and each
-     kernel's bound:
+  8. the kernels line (eleven entries, the scan's five by kernel and
+     slab type: times, launches, errors and each kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      989 TFLOP/s bf16 peak), and the last line:
      ``{"ok": true, "device": ...}``.
@@ -255,6 +271,8 @@ def phase_kernels(gen):
         # past the tensor-core kernel's d = 1920: the CUDA-core kernel
         ("d=1928 bf16 l2", 64, 512, 1928, 32, 1024, bf, bf, "l2", 10,
          1e-5, 1e-2),
+        ("d=1928 SQ8 l2", 64, 512, 1928, 32, 1024, bf, i8, "l2", 10,
+         1e-5, 0.5),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
         # rows that start off 16 bytes (plain loads), d padded to 112
@@ -276,52 +294,49 @@ def phase_kernels(gen):
         cases.append((f"general {tag} l2 k=maxc=300", 16, 300, 64, 32, 500,
                       qdt, sdt, "l2", 300, rtol, atol))
     # the CNNS search's own call at its default k = 100: k = 2 * 100 of a
-    # replicated index (each row's buffer 2k + 32 keys, one block an SM)
+    # replicated index (each row's buffer 2k + 32 keys, one block an SM),
+    # and the same call on the CUDA-core general kernel (f32 slabs)
     cases.append(("main path bf16 l2 k=200", b["c"], b["maxc"], b["d"],
                   b["cap"], b["qn"], bf, bf, "l2", 200, 1e-5, 1e-3))
-    timed_general = ("general bfloat16 l2 k=100", "main path bf16 l2 k=200")
-    bench_err = None
-    main = None   # (kernel ms, plain ms, bound) at the main path's k = 20
-    general = None   # the same of the general kernel at the main path's k
-    general_err = 0.0
+    cases.append(("main path f32 l2 k=200", b["c"], b["maxc"], b["d"],
+                  b["cap"], b["qn"], f32, f32, "l2", 200, 1e-5, 1e-3))
+    cases.append(("main path SQ8 l2 k=200", b["c"], b["maxc"], b["d"],
+                  b["cap"], b["qn"], bf, i8, "l2", 200, 1e-5, 0.5))
+    # the k > 32 cases timed here (the others are checked only)
+    timed_general = ("general bfloat16 l2 k=100", "main path bf16 l2 k=200",
+                     "main path f32 l2 k=200", "main path SQ8 l2 k=200")
+    times = {}     # case name -> (kernel ms, plain ms, bound)
+    errs = {}      # (kernel name, slab dtype) -> max |vals error|
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
          atol) in cases:
         qc, qidx, slabs, bias, scale = make_case(
             gen, c, maxc, d, cap, qn, qdt, sdt, metric)
         args = (qc, qidx, slabs, bias, k, scale)
-        g0 = cs.general_launches
+        kern = cs.scan_kernel(qdt, sdt, d, k)
+        k0 = cs.launches_by_kernel[kern]
         got = cs.grouped_cluster_topk_gq(*args)
         torch.cuda.synchronize()
-        if cs.general_launches != g0 + (k > cs.MAX_K):
-            raise AssertionError(f"{name}: k={k} ran the wrong kernel")
+        if cs.launches_by_kernel[kern] != k0 + 1:
+            raise AssertionError(f"{name}: k={k} did not run {kern}")
         want = cs.grouped_cluster_topk_gq_reference(*args)
         full = bias[:, None, :] - scale * cs._dots_reference(
             cs._gather_queries(qc, qidx), slabs)
-        err = check_scan(name, got, want, full, qidx >= 0, rtol, atol)
-        if k > cs.MAX_K:
-            general_err = max(general_err, err)
-            if name not in timed_general:
-                del qc, qidx, slabs, bias, got, want, full, args
-                torch.cuda.empty_cache()
-                continue
+        err = check_scan(f"{name} ({kern})", got, want, full, qidx >= 0,
+                         rtol, atol)
+        errs[kern, sdt] = max(errs.get((kern, sdt), 0.0), err)
+        if k > cs.MAX_K and name not in timed_general:
+            del qc, qidx, slabs, bias, got, want, full, args
+            torch.cuda.empty_cache()
+            continue
         k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args), reps=10)
         p_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq_reference(*args),
                        reps=3)
-        # live query rows only: pad rows need no work
-        flops = 2.0 * int((qidx >= 0).sum()) * maxc * d
-        b_case = bound(nbytes(qc, qidx, slabs, bias, *got), flops,
-                       PEAK_OPS[(qdt, sdt)])
+        b_case = scan_bound(qc, qidx, slabs, bias, got, qdt, sdt)
+        times[name] = (k_ms, p_ms, b_case)
         print(f"    kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
               f"(median); bound {b_case[0]:.4f} ms ({b_case[1]}), kernel "
               f"at {b_case[0] / k_ms:.1%} of it")
-        if name.startswith("main path"):
-            if k > cs.MAX_K:
-                general = (k_ms, p_ms, b_case)
-            else:
-                bench_err = max(bench_err, err)
-                main = (k_ms, p_ms, b_case)
         if name == "bench bf16 l2":
-            bench_err = err
             # the d-blocked and pre-gathered entry points, same inputs
             got = cs.grouped_cluster_topk_gq_dblk(*args)
             check_scan("gq_dblk wrapper", got, want, full, qidx >= 0,
@@ -334,14 +349,25 @@ def phase_kernels(gen):
                 qv, slabs, bias, k, scale), reps=10)
             pg_plain = cuda_ms(lambda: cs.grouped_cluster_topk_reference(
                 qv, slabs, bias, k, scale), reps=3)
-            pg_bound = bound(nbytes(qv, slabs, bias, *got), flops)
+            pg_bound = bound(nbytes(qv, slabs, bias, *got),
+                             2.0 * int((qidx >= 0).sum()) * maxc * d)
             print(f"    pre-gathered: kernel {pg_ms:.4f} ms, plain PyTorch "
                   f"{pg_plain:.4f} ms (median); bound {pg_bound[0]:.4f} ms "
                   f"({pg_bound[1]})")
             del qv
         del qc, qidx, slabs, bias, got, want, full, args
         torch.cuda.empty_cache()
-    return bench_err, main, general_err, general
+    return errs, times
+
+
+def scan_bound(qc, qidx, slabs, bias, out, qdt, sdt):
+    """The scan's bound: its bytes (inputs read once, outputs written once)
+    and the products of its live query rows (pad rows need no work) at
+    their type's peak."""
+    c, maxc, d = slabs.shape
+    flops = 2.0 * int((qidx >= 0).sum()) * maxc * d
+    return bound(nbytes(qc, qidx, slabs, bias, *out), flops,
+                 PEAK_OPS[(qdt, sdt)])
 
 
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
@@ -370,7 +396,7 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
           f"{time.perf_counter() - t0:.1f} s")
     del xd
 
-    cs.launches = cs.general_launches = 0
+    reset_scan_counts(cs)
     sync()
     t0 = time.perf_counter()
     idx = build_cnns(
@@ -422,11 +448,10 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
                              f"recall@10 {r10} against {sweep[-1]['recall']}")
     if not bool(torch.isfinite(d100).all()):
         raise AssertionError("non-finite distances at k=100")
-    launches, general = cs.launches, cs.general_launches
-    print(f"kernel launches during build + sweep + k=100: {launches}, of "
-          f"them {general} by the general kernel")
-    if launches - general <= 0 or general <= 0:
-        raise AssertionError("the search did not launch both scan kernels")
+    counts = scan_counts(cs, "build + sweep + k=100", device)
+    if device == "cuda" and set(counts) != {"scan_mma", "scan_general_mma"}:
+        raise AssertionError(f"the bf16 search ran other scan kernels than "
+                             f"scan_mma and scan_general_mma: {counts}")
 
     # output check: shape, finiteness, order, in-range ids, and the
     # returned distances against exact f32 distances of the returned ids
@@ -444,7 +469,237 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
            - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
     if not torch.allclose(ddh[:256], ex, rtol=1e-2, atol=1e-1):
         raise AssertionError("returned distances disagree with exact ones")
-    return launches, general
+    del idx, dd, d100, i100
+    f32_counts = phase_f32_search(card, x, qd, gt, reached,
+                                  sweep[-1]["recall"], device)
+    return counts, f32_counts
+
+
+def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
+    """The same index with exact f32 slabs (the CUDA-core scan kernels:
+    grouped_scan_kernel at the search's k = 2 * 10, scan_general_kernel at
+    k = 2 * 100), searched at ``nprobe``: recall@10 of both, the batch
+    time, and the launches by kernel. Fails unless recall@10 is within
+    0.005 of the bf16 index's at k=10 and the k=100 run's within 0.002 of
+    its own k=10 run's."""
+    from hnsw_nsg_tpu_torch.models.cnns import build_cnns
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import recall
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
+
+    nq = qd.shape[0]
+    reset_scan_counts(cs)
+    t0 = time.perf_counter()
+    idx = build_cnns(
+        x, CNNSConfig(n_clusters=x.shape[0] // 1024, m=4, kmeans_iters=12,
+                      replicate=True),
+        slab_dtype=torch.float32, device=device)
+    build_s = time.perf_counter() - t0
+    rec = {}
+    for k in (10, 100):
+        _, ii = idx.search(qd, k=k, nprobe=nprobe)
+        rec[k] = recall(ii[:, :10].cpu(), gt)
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=k, nprobe=nprobe)[1].cpu())
+        print(f"f32 slabs (build {build_s:.2f} s), nprobe={nprobe} k={k}: "
+              f"recall@10={rec[k]:.4f} median {med * 1e3:.3f} ms QPS="
+              f"{nq / med:.1f} (min {lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) "
+              f"[{card}]")
+    if rec[10] < bf16_recall - 0.005 or abs(rec[100] - rec[10]) > 0.002:
+        raise AssertionError(f"f32 slabs: recall@10 {rec} against the bf16 "
+                             f"index's {bf16_recall}")
+    counts = scan_counts(cs, "f32 slabs, build + k=10 + k=100", device)
+    if device == "cuda" and set(counts) != {"grouped_scan", "scan_general"}:
+        raise AssertionError(f"the f32 search ran other scan kernels than "
+                             f"grouped_scan and scan_general: {counts}")
+    return counts
+
+
+GIST_NPROBE = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
+               n_clusters=976):
+    """gist1m as bench.py runs it (bench.py:66-69, :156, :414-492): 1M x
+    960 L2 clustered synthetic data (seed 0), an SQ8 index (int8 slabs of
+    non-integral data), the exact f32 ground truth, an nprobe sweep of
+    ``CNNSIndex.search`` at k=10 (10 timed repetitions, each fetching its
+    ids to the host) and one search at k=100 (the general tensor-core
+    kernel at k = 200). Then the kernel against its plain version on the
+    scan inputs of one of the phase's own searches, at k=20 and k=200.
+    Smaller ``n``/``nq`` and ``device="cpu"`` rehearse it without a
+    card. Returns the scan's launches by kernel and, on the card, the
+    kernel's (error, ms, plain ms, bound) at both k."""
+    from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, queries = make_data(n, d, nq, "l2", seed=0)
+    print(f"gist1m data: {n}x{d} + {nq} queries in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    xd = torch.from_numpy(x).to(device)
+    qd = torch.from_numpy(queries).to(device)
+    t0 = time.perf_counter()
+    _, gt100 = brute_force_topk(qd, xd, 100, "l2")
+    gt100 = gt100.cpu()
+    gt = gt100[:, :10].contiguous()
+    print(f"gist1m ground truth (f32, TF32 off), k=100: "
+          f"{time.perf_counter() - t0:.1f} s")
+    del xd
+
+    reset_scan_counts(cs)
+    sync()
+    t0 = time.perf_counter()
+    idx = cnns_mod.build_cnns(
+        x, CNNSConfig(n_clusters=n_clusters, m=4, kmeans_iters=12,
+                      replicate=True),
+        slab_dtype=torch.int8, device=device)
+    sync()
+    build_s = time.perf_counter() - t0
+    if idx.qscale == 1.0 or idx.data_c.dtype != torch.int8:
+        raise AssertionError("the gist1m index is not SQ8")
+    print(f"gist1m SQ8 build: {build_s:.2f} s, C={idx.n_clusters} "
+          f"maxc={idx.maxc} index {idx.index_bytes() / 1e9:.4f} GB, qscale "
+          f"{idx.qscale:.5f} [{card}]")
+    sweep, res10 = {}, {}
+    for nprobe in GIST_NPROBE:
+        dd, ii = idx.search(qd, k=10, nprobe=nprobe)
+        res10[nprobe] = (dd.cpu(), ii.cpu())
+        r = recall(res10[nprobe][1], gt)
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=10, nprobe=nprobe)[1].cpu())
+        sweep[nprobe] = r
+        print(f"gist1m nprobe={nprobe}: recall@10={r:.4f} median "
+              f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, "
+              f"max {hi * 1e3:.3f} ms) [{card}]")
+    reached = min((p for p, r in sweep.items() if r >= TARGET_RECALL),
+                  default=None)
+    if reached is None:
+        raise AssertionError(f"gist1m: recall@10 >= {TARGET_RECALL} not "
+                             f"reached at nprobe <= 16: {sweep}")
+    d100, i100 = idx.search(qd, k=100, nprobe=reached)
+    i100h = i100.cpu()
+    r10, r100 = recall(i100h[:, :10], gt), recall(i100h, gt100)
+    med, lo, hi = timed_query(
+        lambda: idx.search(qd, k=100, nprobe=reached)[1].cpu())
+    print(f"gist1m nprobe={reached} k=100: recall@10={r10:.4f} (k=10 run: "
+          f"{sweep[reached]:.4f}) recall@100={r100:.4f} median "
+          f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, max "
+          f"{hi * 1e3:.3f} ms) [{card}]")
+    if tuple(i100h.shape) != (nq, 100) or abs(r10 - sweep[reached]) > 0.002:
+        raise AssertionError(f"gist1m k=100: shape {tuple(i100h.shape)}, "
+                             f"recall@10 {r10} against {sweep[reached]}")
+    counts = scan_counts(cs, "gist1m build + sweep + k=100", device)
+    if device == "cuda" and set(counts) != {"scan_mma", "scan_general_mma"}:
+        raise AssertionError(f"the SQ8 search ran other scan kernels than "
+                             f"scan_mma and scan_general_mma: {counts}")
+    # as phase 3, on the k=10 result at that nprobe: finite, ascending
+    # distances, in-range ids, and the returned distances (SQ8: from the
+    # quantized slabs) against exact f32 distances of the returned ids,
+    # rtol 1e-2. Here a query may get PAD slots (PAD_ID with PAD_DIST):
+    # its probe pairs past a cluster's list capacity and past the spill
+    # budget drop, as in the reference, and a small probed cluster fills
+    # fewer than k. They are counted; every other id must be in range.
+    def check_rows(dd, ii, what):
+        pad = ii < 0
+        if not bool(torch.isfinite(dd).all()):
+            raise AssertionError(f"gist1m {what}: non-finite distances")
+        if not bool((dd[:, 1:] >= dd[:, :-1]).all()):
+            raise AssertionError(f"gist1m {what}: rows are not ascending")
+        if not bool((ii < n).all()) or not bool(
+                (dd[pad] == float(PAD_DIST)).all()):
+            raise AssertionError(f"gist1m {what}: ids out of range")
+        print(f"gist1m {what}: {int(pad.sum())} PAD slots in "
+              f"{int(pad.any(1).sum())} of {nq} rows")
+        return pad
+
+    ddh, iih = res10[reached]
+    pad = check_rows(ddh, iih, f"k=10, nprobe={reached}")
+    check_rows(d100.cpu(), i100h, f"k=100, nprobe={reached}")
+    real = ~pad[:256]
+    ex = ((torch.from_numpy(x)[iih[:256].clamp(min=0)]
+           - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
+    rel = float(((ddh[:256] - ex).abs() / ex.abs())[real].max())
+    if not torch.allclose(ddh[:256][real], ex[real], rtol=1e-2, atol=1e-1):
+        raise AssertionError(f"gist1m: returned distances disagree with "
+                             f"exact ones (max rel err {rel})")
+    print(f"gist1m output: k=10 distances within {rel:.2e} (relative) of "
+          f"exact f32 ones")
+    del x, d100, i100, res10
+
+    # the scan inputs of one search at the reached nprobe (k = 2 * 10),
+    # caught at the call, then the kernel against its plain version on
+    # them at k = 20 and k = 200
+    caught = []
+    scan = cnns_mod.grouped_cluster_topk_gq
+
+    def catch(*args):
+        caught.append(args)
+        return scan(*args)
+
+    cnns_mod.grouped_cluster_topk_gq = catch
+    try:
+        idx.search(qd, k=10, nprobe=reached)
+    finally:
+        cnns_mod.grouped_cluster_topk_gq = scan
+    qc, qidx, slabs, bias, _, scale = caught[0]
+    del idx, caught
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+            else 0.0)
+    print(f"gist1m peak device memory: {peak:.2f} GB; the scan call: "
+          f"C={slabs.shape[0]} cap={qidx.shape[1]} maxc={slabs.shape[1]} "
+          f"d={slabs.shape[2]}, {int((qidx >= 0).sum())} live rows")
+    timed = {}
+    for k in (20, 200):
+        kern = cs.scan_kernel(qc.dtype, slabs.dtype, slabs.shape[2], k)
+        args = (qc, qidx, slabs, bias, k, scale)
+        got = cs.grouped_cluster_topk_gq(*args)
+        sync()
+        want = cs.grouped_cluster_topk_gq_reference(*args)
+        full = bias[:, None, :] - scale * cs._dots_reference(
+            cs._gather_queries(qc, qidx), slabs)
+        err = check_scan(f"gist1m scan call k={k} ({kern})", got, want,
+                         full, qidx >= 0, 1e-5, 0.5)
+        del want, full
+        if device == "cuda":
+            k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args),
+                           reps=10)
+            p_ms = cuda_ms(
+                lambda: cs.grouped_cluster_topk_gq_reference(*args), reps=3)
+            b_k = scan_bound(qc, qidx, slabs, bias, got, qc.dtype,
+                             slabs.dtype)
+            timed[kern] = (err, k_ms, p_ms, b_k)
+            print(f"    kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
+                  f"(median); bound {b_k[0]:.4f} ms ({b_k[1]}), kernel at "
+                  f"{b_k[0] / k_ms:.1%} of it [{card}]")
+        del got
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts, timed
+
+
+def reset_scan_counts(cs):
+    cs.launches = 0
+    cs.launches_by_kernel.clear()
+
+
+def scan_counts(cs, what, device="cuda"):
+    """The scan's launches since reset_scan_counts, by kernel; fails
+    unless they add up (and, on the card, unless there are some)."""
+    counts = dict(cs.launches_by_kernel)
+    print(f"scan kernel launches, {what}: {cs.launches}, by kernel {counts}")
+    if sum(counts.values()) != cs.launches or (
+            device == "cuda" and not cs.launches):
+        raise AssertionError(f"scan launches by kernel: {counts}, all "
+                             f"{cs.launches}")
+    return counts
 
 
 def merge_state(seed, q, l, c, expand, n_ids=20000, fill=0.7):
@@ -894,7 +1149,8 @@ def launch_split(ms, what, tally):
 
 
 def reset_counts(cs, ms):
-    cs.launches = cs.join_launches = 0
+    reset_scan_counts(cs)
+    cs.join_launches = 0
     cs.join_launches_by_kernel.clear()
     ms.launches = ms.general_launches = 0
     ms.launches_by_shape.clear()
@@ -1434,10 +1690,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     print("grouped scan kernels vs plain PyTorch version:")
-    max_err, (ms, plain_ms, scan_bound), gen_err, gen_times = \
-        phase_kernels(gen)
+    scan_err, scan_times = phase_kernels(gen)
 
-    launches, gen_launches = phase_main_path(card)
+    sift_counts, f32_counts = phase_main_path(card)
+    gist_counts, gist_times = phase_gist(card)
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
@@ -1484,31 +1740,67 @@ def main() -> int:
         join_err[entry] = max(join_err[entry], b[0])
 
     # no single PyTorch call computes any of the functions, so none has a
-    # library time; the grouped scan's times are at the call the main path
-    # makes (k = 20), its general kernel's at the call that the entry
-    # point's default k = 100 makes (k = 200), merge+select's at the NSG
-    # build's collect pool (L = 500), at L = 1024 for its 32-slot build
-    # (the ef = 1024 search's shape) and at L = 2048 for its general kernel
-    # (ef = 2048), the join's at the 1M build shape: bf16 at k = 102 (128
-    # rows a block; the k = 100 kNN graph's call) and k = 202 (64 rows a
-    # block; the k = 200 graph's), f32 at k = 52
+    # library time. The grouped scan's times are at the calls the main
+    # paths make: bf16 at k = 20 (sift1m, k = 10 on a replicated index) and
+    # k = 200 (its k = 100), SQ8 at gist1m's own scan call at k = 20 and
+    # k = 200, f32 at the bench shape at k = 10 and 200; merge+select's at
+    # the NSG build's collect pool (L = 500), at L = 1024 for its 32-slot
+    # build (the ef = 1024 search's shape) and at L = 2048 for its general
+    # kernel (ef = 2048), the join's at the 1M build shape: bf16 at k = 102
+    # (128 rows a block; the k = 100 kNN graph's call) and k = 202 (64 rows
+    # a block; the k = 200 graph's), f32 at k = 52
+    def count(kern, *paths):
+        return sum(p.get(kern, 0) for p in paths)
+
+    def err(kern, *dtypes):
+        return max(scan_err.get((kern, dt), 0.0) for dt in dtypes)
+
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+
+    def scan_entry(name, kern, launches, timing, err):
+        if launches <= 0:
+            raise AssertionError(f"{kern} was not launched on a main path")
+        k_ms, p_ms, (b_ms, b_by) = timing
+        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": REPLACES, "launches": launches,
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    g20, g200 = gist_times["scan_mma"], gist_times["scan_general_mma"]
+    kernels = [
+        scan_entry("grouped_cluster_topk_gq (bf16 tensor cores, k <= 32: "
+                   "scan_mma_kernel)", "scan_mma",
+                   sift_counts["scan_mma"],
+                   scan_times["main path bf16 l2 k=20"],
+                   err("scan_mma", bf)),
+        scan_entry("grouped_cluster_topk_gq (SQ8, int8 slab x bf16 query, "
+                   "tensor cores, k <= 32: scan_mma_kernel)", "scan_mma",
+                   gist_counts["scan_mma"], g20[1:],
+                   max(g20[0], err("scan_mma", i8))),
+        scan_entry("grouped_cluster_topk_gq (tensor cores, k > 32, bf16 and "
+                   "SQ8: scan_general_mma_kernel)", "scan_general_mma",
+                   count("scan_general_mma", sift_counts, gist_counts),
+                   scan_times["main path bf16 l2 k=200"],
+                   max(g200[0], err("scan_general_mma", bf, i8))),
+        scan_entry("grouped_cluster_topk_gq (CUDA cores, k <= 32: "
+                   "grouped_scan_kernel; f32, int8 x int8, a bf16 query "
+                   "past d = 1920)", "grouped_scan",
+                   f32_counts["grouped_scan"], scan_times["bench f32 l2"],
+                   err("grouped_scan", f32, i8, bf)),
+        scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
+                   "scan_general_kernel; f32, int8 x int8, a bf16 query "
+                   "past d = 1920)", "scan_general",
+                   f32_counts["scan_general"],
+                   scan_times["main path f32 l2 k=200"],
+                   err("scan_general", f32, i8, bf)),
+    ]
+    print(f"gist1m SQ8 scan at k=200 (scan_general_mma_kernel): "
+          f"{g200[1]:.4f} ms, plain {g200[2]:.4f} ms, bound {g200[3][0]:.4f} "
+          f"ms ({g200[3][1]}) [{card}]")
     ms_ms, ms_plain, ms_bound, ms_by = ms_times["collect pool"]
     w_ms, w_plain, w_bound, w_by = ms_times["warp kernel L=1024"]
     g_ms, g_plain, g_bound, g_by = ms_times["general L=2048"]
-    kernels = [{
-        "name": "grouped_cluster_topk_gq", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches - gen_launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": scan_bound[0],
-        "bound_by": scan_bound[1], "library_ms": None,
-    }, {
-        "name": "grouped_cluster_topk_gq (general kernel: k > 32)",
-        "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": gen_launches, "max_abs_err": gen_err,
-        "ms": gen_times[0], "plain_ms": gen_times[1],
-        "bound_ms": gen_times[2][0], "bound_by": gen_times[2][1],
-        "library_ms": None,
-    }, {
+    kernels += [{
         "name": "fused_merge_select (warp kernel: L <= 512, C <= 1024)",
         "route": "cuda",
         "source": "hnsw_nsg_tpu_torch/csrc/merge_select.cu",

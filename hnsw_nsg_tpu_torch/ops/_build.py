@@ -121,7 +121,9 @@ def load_library() -> ctypes.CDLL:
         cf, ci, ci, vp,                  # scale, q dtype, slab dtype, stream
     ]
     lib.grouped_scan_general.restype = ci
-    lib.grouped_scan_general_scratch.argtypes = [ci, ci, ci]   # C, cap, k
+    lib.grouped_scan_general_scratch.argtypes = [
+        ci, ci, ci, ci, ci, ci,          # C, cap, d, k, q dtype, slab dtype
+    ]
     lib.grouped_scan_general_scratch.restype = ctypes.c_longlong
     lib.merge_select.argtypes = [
         vp, vp, vp, vp, vp,              # r_d, r_i, r_e, c_d, c_i

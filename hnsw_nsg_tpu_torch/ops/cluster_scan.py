@@ -18,14 +18,17 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. Any 1 <= k <= maxc is taken, as by
-the JAX functions. For k <= ``MAX_K`` = 32 the fast kernels run: bf16 x
-bf16 on tensor cores up to d = ``MAX_D_BF16`` = 1920 (that path keeps the
-32 query rows of a block in shared memory), the other dtype pairs and
-wider bf16 on CUDA cores. For k > 32 (``CNNSIndex.search``'s default
-k = 100) the general kernel runs, which keeps each row's running k
-smallest in a buffer (in global scratch that the wrapper allocates when
-k passes what shared memory holds). ``launches`` counts kernel
-launches, ``general_launches`` the general kernel's share of them.
+the JAX functions. The kernel goes by the dtype pair, d and k alone
+(``scan_kernel``): a bf16 query with a bf16 or an int8 slab (SQ8) up to
+d = ``MAX_D_BF16`` = 1920 runs on tensor cores (that path keeps the 32
+query rows of a block in shared memory), ``scan_mma`` for k <= ``MAX_K``
+= 32 and ``scan_general_mma`` above; the other pairs (f32, int8 x int8)
+and wider bf16-query pairs run on CUDA cores, ``grouped_scan`` for
+k <= 32 and ``scan_general`` above. The kernels for k > 32
+(``CNNSIndex.search``'s default k = 100) keep each row's running k
+smallest in a buffer, in global scratch that the wrapper allocates when k
+passes what shared memory holds. ``launches`` counts kernel launches and
+``launches_by_kernel`` splits them by those four names.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
@@ -55,8 +58,9 @@ import torch
 from .distance import f32_dots
 
 # kernel launches made by the wrappers of this module (CUDA tensors only):
-# the grouped scan, and the cluster join; of each, the general kernel's
-launches = general_launches = 0
+# the grouped scan and the cluster join, each also by kernel
+launches = 0
+launches_by_kernel: Counter = Counter()        # scan kernel name -> launches
 join_launches = 0
 join_launches_by_kernel: Counter = Counter()   # kernel name -> launches
 
@@ -68,8 +72,20 @@ _PAIRS = {
     (torch.int8, torch.int8),
     (torch.bfloat16, torch.int8),
 }
-MAX_K = 32          # the fast kernels' k; the general kernel takes any k
-MAX_D_BF16 = 1920   # bf16 x bf16 on tensor cores; wider d: CUDA cores
+MAX_K = 32          # the heap kernels' k; the general kernels take any k
+MAX_D_BF16 = 1920   # a bf16 query on tensor cores; wider d: CUDA cores
+
+
+def scan_kernel(q_dtype, s_dtype, d: int, k: int) -> str:
+    """The name of the scan kernel that a (query, slab) dtype pair, d and
+    k launch on the card, the rule of ``csrc/grouped_scan.cu``'s entry
+    points."""
+    tensor_cores = (q_dtype == torch.bfloat16
+                    and s_dtype in (torch.bfloat16, torch.int8)
+                    and d <= MAX_D_BF16)
+    if k <= MAX_K:
+        return "scan_mma" if tensor_cores else "grouped_scan"
+    return "scan_general_mma" if tensor_cores else "scan_general"
 
 
 def _check(qc, qidx, slabs, bias, k):
@@ -103,7 +119,7 @@ def _on_cpu(*ts) -> bool:
 def _launch(qc, qidx, slabs, bias, k: int, scale: float):
     """Run the CUDA kernel on device tensors. Raises on anything it does
     not take, and if the launch reports a CUDA error."""
-    global launches, general_launches
+    global launches
     from ._build import load_library, scratch
 
     if qidx.dtype != torch.int32:
@@ -125,17 +141,16 @@ def _launch(qc, qidx, slabs, bias, k: int, scale: float):
             bias.data_ptr(), vals.data_ptr(), idx.data_ptr())
     shape = (c, cap, qn, d, maxc, k, float(scale), _DTYPE_CODE[qc.dtype],
              _DTYPE_CODE[slabs.dtype], stream)
-    general = k > MAX_K
-    if general:
-        buf, buf_ptr = scratch(lib.grouped_scan_general_scratch(c, cap, k),
-                               qc.device)
+    if k > MAX_K:
+        buf, buf_ptr = scratch(lib.grouped_scan_general_scratch(
+            c, cap, d, k, *shape[-3:-1]), qc.device)
         rc = lib.grouped_scan_general(*ptrs, buf_ptr, *shape)
     else:
         rc = lib.grouped_scan(*ptrs, *shape)
     if rc != 0:
         raise RuntimeError(f"grouped_scan kernel launch failed: CUDA error {rc}")
     launches += 1
-    general_launches += general
+    launches_by_kernel[scan_kernel(qc.dtype, slabs.dtype, d, k)] += 1
     return vals, idx
 
 

@@ -1,15 +1,19 @@
-"""Device times of the general scan kernel against the fast scan kernels
-at a k that both take, on one CUDA card.
+"""Device times of the general scan kernels against the heap scan
+kernels at a k that both take, on one CUDA card.
 
     python3 scripts/time_general_kernels.py
 
-The wrapper picks the general scan only above k = 32. This script calls
-both entry points of the library on the same inputs at a k the fast
-kernels take: the scan at chip_smoke.py's bench shape (C=1152,
-maxc=2056, d=128, cap=32) for every dtype pair at k = 10 and 32. Inputs,
-seeds and the timer (``cuda_ms``) are chip_smoke.py's. Each shape prints
-one JSON line: whether the two kernels' outputs are equal on the rows
-that carry a result, both times, and the card's name and power limit.
+The wrapper picks a general kernel only above k = 32
+(``cluster_scan.scan_kernel``): scan_general_mma beside scan_mma for a
+bf16 query with a bf16 or int8 slab, scan_general beside grouped_scan
+for the other pairs. This script calls both entry points of the library
+on the same inputs at a k the heap kernels take: the scan at
+chip_smoke.py's bench shape (C=1152, maxc=2056, d=128, cap=32) for every
+dtype pair at k = 10 and 32. Inputs, seeds and the timer (``cuda_ms``)
+are chip_smoke.py's. Each shape prints one JSON line: whether the two
+kernels' outputs are equal on the rows that carry a result (each pair
+shares its products and rounding, so they should be), both times, and
+the card's name and power limit.
 """
 
 import importlib.util
@@ -69,7 +73,9 @@ def main():
             gen, b["c"], b["maxc"], b["d"], b["cap"], b["qn"], qdt, sdt,
             "l2")
         for k in (10, 32):
-            if lib.grouped_scan_general_scratch(b["c"], b["cap"], k):
+            codes = (cs._DTYPE_CODE[qdt], cs._DTYPE_CODE[sdt])
+            if lib.grouped_scan_general_scratch(b["c"], b["cap"], b["d"], k,
+                                                *codes):
                 raise AssertionError("the scan's buffers left shared memory")
             ptrs = (qc.data_ptr(), qidx.data_ptr(), slabs.data_ptr(),
                     bias.data_ptr())
@@ -80,8 +86,9 @@ def main():
             compare("grouped_scan", lib.grouped_scan, lib.grouped_scan_general,
                     (ptrs, shape, out), (ptrs, shape, out), qidx >= 0,
                     pair=f"{qdt}x{sdt}".replace("torch.", ""), k=k,
-                    fast_kernel="scan_mma_kernel" if qdt == sdt == bf
-                    else "grouped_scan_kernel")
+                    fast_kernel=cs.scan_kernel(qdt, sdt, b["d"], k),
+                    general_kernel=cs.scan_kernel(qdt, sdt, b["d"],
+                                                  cs.MAX_K + 1))
         del qc, qidx, slabs, bias
         torch.cuda.empty_cache()
 

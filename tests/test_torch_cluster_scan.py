@@ -104,7 +104,7 @@ def test_gq_plain_matches_pallas(qd, sd, metric):
              _full(qc, qidx, slabs, bias, scale))
 
 
-@pytest.mark.parametrize("k", [33, 100, "maxc"])
+@pytest.mark.parametrize("k", [33, 64, 100, "maxc"])
 @pytest.mark.parametrize("qd,sd", PAIRS)
 def test_gq_plain_matches_pallas_past_k32(qd, sd, k):
     """k past the fast kernels' 32 (the general kernel's range on the
@@ -179,6 +179,26 @@ def test_main_path_call_matches_pallas(qd, sd, metric):
     assert np.isfinite(rows[:, :n_live]).all()
 
 
+@pytest.mark.parametrize("qd,sd,d,k,kernel", [
+    ("bf16", "bf16", 128, 20, "scan_mma"),
+    ("bf16", "int8", 960, 10, "scan_mma"),          # SQ8
+    ("bf16", "bf16", 1920, 32, "scan_mma"),
+    ("bf16", "bf16", 128, 200, "scan_general_mma"),
+    ("bf16", "int8", 960, 200, "scan_general_mma"),
+    ("bf16", "bf16", 1928, 10, "grouped_scan"),     # past the query tile
+    ("bf16", "int8", 1928, 100, "scan_general"),
+    ("f32", "f32", 128, 10, "grouped_scan"),
+    ("f32", "f32", 128, 200, "scan_general"),
+    ("int8", "int8", 128, 32, "grouped_scan"),
+    ("int8", "int8", 128, 33, "scan_general"),
+])
+def test_scan_kernel_goes_by_dtypes_d_and_k(qd, sd, d, k, kernel):
+    """The kernel a launch counts under: tensor cores for a bf16 query
+    with a bf16 or int8 slab up to d = 1920, CUDA cores for the rest; the
+    heap kernels up to k = 32, the general ones above."""
+    assert cs.scan_kernel(_T[qd], _T[sd], d, k) == kernel
+
+
 def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
     qc, qidx, slabs, bias, scale = _case(13, "f32", "f32", "l2")
     args = (torch.from_numpy(qc), torch.from_numpy(qidx),
@@ -186,7 +206,7 @@ def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
     before = cs.launches
     got = cs.grouped_cluster_topk_gq(*args)
     want = cs.grouped_cluster_topk_gq_reference(*args)
-    assert cs.launches == before == 0
+    assert cs.launches == before == 0 and not cs.launches_by_kernel
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 

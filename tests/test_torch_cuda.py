@@ -105,21 +105,32 @@ def test_kernel_matches_plain_version(card, qdt, sdt, shape, metric):
     ("d = 100", 4, 32, 150, 100, 100, 10),     # rows off 16 bytes and
     ("odd d", 3, 20, 130, 37, 60, 5),          # odd d: plain-load copies
     ("d = 200", 3, 32, 140, 200, 80, 10),      # two d chunks
+    # k > 32: the general kernels (tensor cores for the bf16-query pairs)
+    ("k = 33", 4, 32, 300, 128, 200, 33),
+    ("k = 64, cap > 32", 4, 80, 200, 64, 300, 64),
+    ("k = 100, d = 100", 4, 40, 260, 100, 100, 100),
+    ("k = 200, odd d", 3, 20, 300, 37, 60, 200),
+    ("k = 256, d = 200", 3, 32, 300, 200, 80, 256),
+    ("k = maxc, d = 960", 3, 32, 150, 960, 40, 150),
 ])
 def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
-    """The shapes the bf16 tensor-core kernel treats apart (and the same
-    for the other pairs, on the CUDA-core kernel), with a cluster that has
+    """The shapes the tensor-core kernels treat apart (and the same for
+    the other pairs, on the CUDA-core kernels), with a cluster that has
     fewer live rows than k, an all-pad cluster and an all-pad query list.
     vals within f32 summation order (rtol 1e-5, atol 1e-3; exact for
     int8 x int8; atol 0.5 at an int8 slab's |bias| ~ 7e5); a returned
-    slot that differs from the plain version's scores its value."""
+    slot that differs from the plain version's scores its value. Prints
+    the count of ids that differ (near-ties)."""
     qc, qidx, slabs, bias, scale = _case(c * 100 + d, qdt, sdt, "l2", c,
                                          cap, maxc, d, qn)
     bias[1, 7:] = float("inf")                 # 7 live rows < k (k >= 10)
     qidx[0, :] = -1
     args = [t.to(card) for t in (qc, qidx, slabs, bias)]
+    kern = cs.scan_kernel(qdt, sdt, d, k)
+    before = cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(*args, k, scale)
     torch.cuda.synchronize()
+    assert cs.launches_by_kernel[kern] == before + 1
     rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                   scale)
     kv, ki = kv.cpu(), ki.cpu()
@@ -135,6 +146,8 @@ def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
         cs._gather_queries(qc, qidx), slabs)
     own = torch.gather(full, 2, ki.long())
     torch.testing.assert_close(own[fin], rv[fin], **tol)
+    print(f"{kern} {name} {qdt}x{sdt}: near-tie ids "
+          f"{int((ki[fin] != ri[fin]).sum())}/{int(fin.sum())}")
     if exact:
         assert torch.equal(ki[fin], ri[fin])
     else:
@@ -192,25 +205,30 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
 
 
 @pytest.mark.cuda
-def test_bf16_scan_past_the_tensor_core_width(card):
-    """bf16 x bf16 with d above MAX_D_BF16 runs on the CUDA-core kernel
-    (f32 sums of exact bf16 products in another order: rtol 1e-5, atol
-    1e-2 at |bias| ~ 2d); a slot that differs scores its value."""
+@pytest.mark.parametrize("sdt,k", [(torch.bfloat16, 10),
+                                   (torch.int8, 10), (torch.int8, 40)])
+def test_bf16_scan_past_the_tensor_core_width(card, sdt, k):
+    """A bf16 query (with a bf16 or an int8 slab) with d above MAX_D_BF16
+    runs on the CUDA-core kernels (f32 sums of exact products in another
+    order: rtol 1e-5, atol 1e-2 at |bias| ~ 2d, 0.5 at an int8 slab's
+    |bias| ~ 7e5); a slot that differs scores its value."""
     d = cs.MAX_D_BF16 + 8
-    qc, qidx, slabs, bias, scale = _case(41, torch.bfloat16, torch.bfloat16,
+    qc, qidx, slabs, bias, scale = _case(41, torch.bfloat16, sdt,
                                          "l2", 4, 20, 96, d, 50)
-    before = cs.launches
+    kern = cs.scan_kernel(torch.bfloat16, sdt, d, k)
+    assert kern == ("grouped_scan" if k <= cs.MAX_K else "scan_general")
+    before = cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
-        *(t.to(card) for t in (qc, qidx, slabs, bias)), 10, scale)
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
     torch.cuda.synchronize()
-    assert cs.launches == before + 1
-    rv, _ = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, 10,
+    assert cs.launches_by_kernel[kern] == before + 1
+    rv, _ = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                  scale)
     kv, ki = kv.cpu(), ki.cpu()
     live = (qidx >= 0)[:, :, None].expand_as(rv)
     fin = live & torch.isfinite(rv)
     assert torch.equal(torch.isinf(kv[live]), torch.isinf(rv[live]))
-    tol = dict(rtol=1e-5, atol=1e-2)
+    tol = dict(rtol=1e-5, atol=0.5 if sdt == torch.int8 else 1e-2)
     torch.testing.assert_close(kv[fin], rv[fin], **tol)
     full = bias[:, None, :] - scale * cs._dots_reference(
         cs._gather_queries(qc, qidx), slabs)
@@ -711,13 +729,14 @@ def test_api_and_hybrid_default_to_the_card(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt,sdt", PAIRS)
-@pytest.mark.parametrize("k", [33, 100, 200, "maxc"])
+@pytest.mark.parametrize("k", [33, 64, 100, 200, 256, "maxc"])
 def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
-    """k > 32 runs the general kernel: vals within f32 summation order
-    (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an int8
-    slab's |bias| ~ 7e5); ids equal except where a near-tie swaps, and a
-    returned slot scores its value. The +inf tail comes back with the
-    plain version's slots."""
+    """k > 32 runs a general kernel (on tensor cores for a bf16 query with
+    a bf16 or int8 slab, else on CUDA cores): vals within f32 summation
+    order (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an
+    int8 slab's |bias| ~ 7e5); ids equal except where a near-tie swaps,
+    and a returned slot scores its value. The +inf tail comes back with
+    the plain version's slots."""
     c, cap, maxc, d, qn = 5, 40, 260, 72, 150
     k = maxc if k == "maxc" else k
     qc, qidx, slabs, bias, scale = _case(k + 31, qdt, sdt, "l2", c, cap,
@@ -725,11 +744,14 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
     bias[1, 20:] = float("inf")               # fewer live slots than k
     rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                   scale)
-    before, g0 = cs.launches, cs.general_launches
+    kern = cs.scan_kernel(qdt, sdt, d, k)
+    assert kern in ("scan_general_mma", "scan_general")
+    before, k0 = cs.launches, cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
     torch.cuda.synchronize()
-    assert cs.launches == before + 1 and cs.general_launches == g0 + 1
+    assert cs.launches == before + 1
+    assert cs.launches_by_kernel[kern] == k0 + 1
     kv, ki = kv.cpu(), ki.cpu()
     live = (qidx >= 0)[:, :, None].expand_as(rv)
     fin = live & torch.isfinite(rv)
@@ -745,6 +767,8 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
                                rv[fin], **tol)
     inf = live & torch.isinf(rv)
     assert torch.equal(ki[inf], ri[inf])
+    print(f"{kern} k={k} {qdt}x{sdt}: near-tie ids "
+          f"{int((ki[fin] != ri[fin]).sum())}/{int(fin.sum())}")
     if exact:
         assert torch.equal(ki[live], ri[live])
     else:
@@ -752,20 +776,79 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
 
 
 @pytest.mark.cuda
-def test_general_scan_kernel_large_k_in_scratch(card):
-    """k past what shared memory holds of the rows' buffers (k > 396):
-    the buffers go to global scratch."""
-    qc, qidx, slabs, bias, scale = _case(77, torch.bfloat16, torch.bfloat16,
-                                         "l2", 3, 40, 900, 32, 60)
-    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, 500,
+@pytest.mark.parametrize("qdt,sdt,k,in_scratch", [
+    # the CUDA-core kernel's buffers leave shared memory past k = 396
+    (torch.float32, torch.float32, 500, True),
+    # the tensor-core kernel's at d <= 128: past k = 250 (bf16 slabs),
+    # k = 298 (int8 slabs, whose ring stages are smaller)
+    (torch.bfloat16, torch.bfloat16, 250, False),
+    (torch.bfloat16, torch.bfloat16, 251, True),
+    (torch.bfloat16, torch.bfloat16, 500, True),
+    (torch.bfloat16, torch.int8, 298, False),
+    (torch.bfloat16, torch.int8, 299, True),
+])
+def test_general_scan_kernel_large_k_in_scratch(card, qdt, sdt, k,
+                                                in_scratch):
+    """k on both sides of what shared memory holds of the rows' buffers:
+    past it they go to global scratch. vals within the tolerances above;
+    a returned slot scores its value."""
+    from hnsw_nsg_tpu_torch.ops._build import load_library
+
+    c, cap, maxc, d, qn = 3, 40, 900, 32, 60
+    qc, qidx, slabs, bias, scale = _case(77, qdt, sdt, "l2", c, cap, maxc,
+                                         d, qn)
+    codes = (cs._DTYPE_CODE[qdt], cs._DTYPE_CODE[sdt])
+    assert (load_library().grouped_scan_general_scratch(
+        c, cap, d, k, *codes) > 0) == in_scratch
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                   scale)
     kv, ki = cs.grouped_cluster_topk_gq(
-        *(t.to(card) for t in (qc, qidx, slabs, bias)), 500, scale)
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
     torch.cuda.synchronize()
+    kv, ki = kv.cpu(), ki.cpu()
     live = (qidx >= 0)[:, :, None].expand_as(rv)
-    torch.testing.assert_close(kv.cpu()[live], rv[live], rtol=1e-5,
-                               atol=1e-3)
-    assert (ki.cpu()[live] == ri[live]).float().mean() >= 0.99
+    fin = live & torch.isfinite(rv)
+    tol = dict(rtol=1e-5, atol=0.5 if sdt == torch.int8 else 1e-3)
+    torch.testing.assert_close(kv[live], rv[live], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
+    assert (ki[live] == ri[live]).float().mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [32, "maxc"])
+def test_sq8_search_on_card_keeps_pad_dist(card, tmp_path, k):
+    """F-R2 on the card: an SQ8 index (int8 slabs of non-integral data)
+    with qscale >= 2 returns PAD_DIST, not inf, in the unfilled slots of
+    a search past one cluster's fill, at k = 32 (scan_mma) and k = maxc
+    = 40 (scan_general_mma); its ids equal the CPU search's but for
+    near-ties."""
+    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
+
+    x, q = make_data(300, 16, 8, "l2", seed=5)
+    x, q = x * 100, q * 100
+    cpu_idx = cnns.build_cnns(x, CNNSConfig(n_clusters=16, m=2,
+                                            kmeans_iters=4),
+                              slab_dtype=torch.int8, device="cpu")
+    assert cpu_idx.qscale >= 2.0 and cpu_idx.maxc > 32
+    k = cpu_idx.maxc if k == "maxc" else k
+    cpu_idx.save(str(tmp_path / "s.npz"))
+    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "s.npz"))
+    kern = cs.scan_kernel(torch.bfloat16, torch.int8, 16, k)
+    before = cs.launches_by_kernel[kern]
+    gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), k=k, nprobe=1,
+                            group=True)
+    assert cs.launches_by_kernel[kern] > before
+    cd, ci = cpu_idx.search(torch.from_numpy(q), k=k, nprobe=1, group=True)
+    gd, gi = gd.cpu(), gi.cpu()
+    pad = gi < 0
+    assert pad.any()
+    assert bool((gd[pad] == float(PAD_DIST)).all())
+    assert bool(torch.isfinite(gd).all())
+    assert torch.equal(pad, ci < 0)
+    assert (gi == ci).float().mean() >= 0.99
 
 
 @pytest.mark.cuda
@@ -900,10 +983,11 @@ def test_cnns_search_at_its_default_k_on_card(card, tmp_path):
         slab_dtype=torch.float32, device="cpu")
     cpu_idx.save(str(tmp_path / "i.npz"))
     gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"))
-    g0 = cs.general_launches
+    g0 = cs.launches_by_kernel["scan_general"]      # f32 slabs, k = 100
     gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), nprobe=3,
                             group=True)
-    assert cs.general_launches > g0 and tuple(gi.shape) == (256, 100)
+    assert (cs.launches_by_kernel["scan_general"] > g0
+            and tuple(gi.shape) == (256, 100))
     cd, ci = cpu_idx.search(torch.from_numpy(q), nprobe=3, group=True)
     assert (gi.cpu() == ci).float().mean() >= 0.99
     torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-3)
