@@ -8,16 +8,18 @@ Phases, each of which fails the run (non-zero exit) on its own:
      per source, in parallel);
   2. the grouped-scan kernels versus their plain PyTorch version on the
      card, per dtype pair, metric and shape (the bench shape at k=10, the
-     CNNS search's own call at k=20, d=960, d=1928 on the CUDA-core
-     kernel in bf16 and SQ8, cap=80 with k=32, d=100), with the tolerance
-     and the count of near-tie ids stated beside each case, and both
-     times and the bound of each; the general kernels (k > 32) at k = 33,
-     64, 100, 256 on the bench shape and k = maxc on a small one, every
-     dtype pair, and at the CNNS search's own call at k=100 (k=200) in
-     bf16, f32 and SQ8, timed there and at k=100. Each case asserts the
-     kernel it launched (``cluster_scan.scan_kernel``: scan_mma or
-     scan_general_mma on tensor cores for a bf16 query with a bf16 or int8
-     slab up to d = 1920, grouped_scan or scan_general on CUDA cores);
+     CNNS search's own call at k=20 in bf16 and f32, d=960 in bf16 and
+     f32, d=1928 on the CUDA-core kernel in bf16 and SQ8, cap=80 with
+     k=32, d=100), with the tolerance and the count of near-tie ids stated
+     beside each case, and both times and the bound of each; the general
+     kernels (k > 32) at k = 33, 64, 100, 256 on the bench shape and
+     k = maxc on a small one, every dtype pair, and at the CNNS search's
+     own call at k=100 (k=200) in bf16, f32 and SQ8, timed there, at k=100
+     (bf16 and int8 x int8). Each case asserts the kernel it launched
+     (``cluster_scan.scan_kernel``: scan_mma or scan_general_mma on tensor
+     cores for a bf16 query with a bf16 or int8 slab up to d = 1920,
+     scan_f32 or scan_general_f32 in exact FMAs for f32 up to d = 960,
+     grouped_scan or scan_general on CUDA cores for the rest);
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
@@ -27,7 +29,7 @@ Phases, each of which fails the run (non-zero exit) on its own:
      with recall@100 and its batch time; the scan's launches by kernel
      are read around it (scan_mma and scan_general_mma only). Then the
      same index with f32 slabs at that nprobe, k=10 and k=100, which runs
-     the CUDA-core kernels (grouped_scan and scan_general only);
+     the f32 kernels (scan_f32 and scan_general_f32 only);
  3b. gist1m as bench.py runs it: 1M x 960 L2 data (seed 0), an SQ8 index
      (``build_cnns(..., slab_dtype=torch.int8)`` on non-integral data,
      976 clusters), the exact f32 ground truth, an nprobe sweep (1..16)
@@ -101,8 +103,10 @@ Phases, each of which fails the run (non-zero exit) on its own:
      202, f32 at k=10, 52 and 102): both times, the rows a block, the id
      mismatches at near-ties, the bound (the products of the finite-bias
      slots only) and the kernel's share of it;
-  8. the kernels line (eleven entries, the scan's five by kernel and
-     slab type: times, launches, errors and each kernel's bound:
+  8. the kernels line (thirteen entries, the scan's seven by kernel and
+     slab type, the CUDA-core scans with no launch on a main path since
+     f32 moved to its own kernels: times, launches, errors and each
+     kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      989 TFLOP/s bf16 peak), and the last line:
      ``{"ok": true, "device": ...}``.
@@ -121,6 +125,9 @@ import numpy as np
 import torch
 
 BENCH = dict(c=1152, maxc=2056, d=128, cap=32, k=10, qn=8192)
+# the scan's kernels: the ring pipeline's (bf16, SQ8 and f32, each pair's
+# instantiations in a file of their own) and the CUDA-core ones
+PIPELINE_SOURCE = "hnsw_nsg_tpu_torch/csrc/scan_pipeline.cuh"
 KERNEL_SOURCE = "hnsw_nsg_tpu_torch/csrc/grouped_scan.cu"
 REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:244"
 TARGET_RECALL = 0.95
@@ -260,6 +267,8 @@ def phase_kernels(gen):
          b["qn"], bf, bf, "l2", 20, 1e-5, 1e-3),
         ("bench f32 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
          f32, f32, "l2", b["k"], 1e-5, 1e-3),
+        ("main path f32 l2 k=20", b["c"], b["maxc"], b["d"], b["cap"],
+         b["qn"], f32, f32, "l2", 20, 1e-5, 1e-3),
         ("bench f32 ip", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
          f32, f32, "ip", b["k"], 1e-5, 1e-4),
         ("bench int8xint8 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
@@ -267,6 +276,8 @@ def phase_kernels(gen):
         ("bench int8 slab x bf16 q l2", b["c"], b["maxc"], b["d"], b["cap"],
          b["qn"], bf, i8, "l2", b["k"], 1e-5, 0.5),
         ("d=960 bf16 l2", 128, 1024, 960, 32, 2048, bf, bf, "l2", 10,
+         1e-5, 5e-3),
+        ("d=960 f32 l2", 128, 1024, 960, 32, 2048, f32, f32, "l2", 10,
          1e-5, 5e-3),
         # past the tensor-core kernel's d = 1920: the CUDA-core kernel
         ("d=1928 bf16 l2", 64, 512, 1928, 32, 1024, bf, bf, "l2", 10,
@@ -295,7 +306,7 @@ def phase_kernels(gen):
                       qdt, sdt, "l2", 300, rtol, atol))
     # the CNNS search's own call at its default k = 100: k = 2 * 100 of a
     # replicated index (each row's buffer 2k + 32 keys, one block an SM),
-    # and the same call on the CUDA-core general kernel (f32 slabs)
+    # and the same call on the f32 slabs' general kernel
     cases.append(("main path bf16 l2 k=200", b["c"], b["maxc"], b["d"],
                   b["cap"], b["qn"], bf, bf, "l2", 200, 1e-5, 1e-3))
     cases.append(("main path f32 l2 k=200", b["c"], b["maxc"], b["d"],
@@ -303,7 +314,8 @@ def phase_kernels(gen):
     cases.append(("main path SQ8 l2 k=200", b["c"], b["maxc"], b["d"],
                   b["cap"], b["qn"], bf, i8, "l2", 200, 1e-5, 0.5))
     # the k > 32 cases timed here (the others are checked only)
-    timed_general = ("general bfloat16 l2 k=100", "main path bf16 l2 k=200",
+    timed_general = ("general bfloat16 l2 k=100", "general int8xint8 l2 k=100",
+                     "main path bf16 l2 k=200",
                      "main path f32 l2 k=200", "main path SQ8 l2 k=200")
     times = {}     # case name -> (kernel ms, plain ms, bound)
     errs = {}      # (kernel name, slab dtype) -> max |vals error|
@@ -476,8 +488,8 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
 
 
 def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
-    """The same index with exact f32 slabs (the CUDA-core scan kernels:
-    grouped_scan_kernel at the search's k = 2 * 10, scan_general_kernel at
+    """The same index with exact f32 slabs (the f32 scan kernels:
+    scan_f32_kernel at the search's k = 2 * 10, scan_general_f32_kernel at
     k = 2 * 100), searched at ``nprobe``: recall@10 of both, the batch
     time, and the launches by kernel. Fails unless recall@10 is within
     0.005 of the bf16 index's at k=10 and the k=100 run's within 0.002 of
@@ -509,9 +521,9 @@ def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
         raise AssertionError(f"f32 slabs: recall@10 {rec} against the bf16 "
                              f"index's {bf16_recall}")
     counts = scan_counts(cs, "f32 slabs, build + k=10 + k=100", device)
-    if device == "cuda" and set(counts) != {"grouped_scan", "scan_general"}:
+    if device == "cuda" and set(counts) != {"scan_f32", "scan_general_f32"}:
         raise AssertionError(f"the f32 search ran other scan kernels than "
-                             f"grouped_scan and scan_general: {counts}")
+                             f"scan_f32 and scan_general_f32: {counts}")
     return counts
 
 
@@ -1743,12 +1755,13 @@ def main() -> int:
     # library time. The grouped scan's times are at the calls the main
     # paths make: bf16 at k = 20 (sift1m, k = 10 on a replicated index) and
     # k = 200 (its k = 100), SQ8 at gist1m's own scan call at k = 20 and
-    # k = 200, f32 at the bench shape at k = 10 and 200; merge+select's at
-    # the NSG build's collect pool (L = 500), at L = 1024 for its 32-slot
-    # build (the ef = 1024 search's shape) and at L = 2048 for its general
-    # kernel (ef = 2048), the join's at the 1M build shape: bf16 at k = 102
-    # (128 rows a block; the k = 100 kNN graph's call) and k = 202 (64 rows
-    # a block; the k = 200 graph's), f32 at k = 52
+    # k = 200, f32 at the bench shape at k = 20 and 200 (the f32 index's
+    # calls), the CUDA-core scans on int8 x int8 at k = 10 and 100;
+    # merge+select's at the NSG build's collect pool (L = 500), at L = 1024
+    # for its 32-slot build (the ef = 1024 search's shape) and at L = 2048
+    # for its general kernel (ef = 2048), the join's at the 1M build shape:
+    # bf16 at k = 102 (128 rows a block; the k = 100 kNN graph's call) and
+    # k = 202 (64 rows a block; the k = 200 graph's), f32 at k = 52
     def count(kern, *paths):
         return sum(p.get(kern, 0) for p in paths)
 
@@ -1757,11 +1770,13 @@ def main() -> int:
 
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
 
-    def scan_entry(name, kern, launches, timing, err):
-        if launches <= 0:
+    def scan_entry(name, kern, launches, timing, err, on_path=True):
+        if on_path and launches <= 0:
             raise AssertionError(f"{kern} was not launched on a main path")
         k_ms, p_ms, (b_ms, b_by) = timing
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        source = KERNEL_SOURCE if kern in ("grouped_scan", "scan_general") \
+            else PIPELINE_SOURCE
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES, "launches": launches,
                 "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1782,17 +1797,32 @@ def main() -> int:
                    count("scan_general_mma", sift_counts, gist_counts),
                    scan_times["main path bf16 l2 k=200"],
                    max(g200[0], err("scan_general_mma", bf, i8))),
-        scan_entry("grouped_cluster_topk_gq (CUDA cores, k <= 32: "
-                   "grouped_scan_kernel; f32, int8 x int8, a bf16 query "
-                   "past d = 1920)", "grouped_scan",
-                   f32_counts["grouped_scan"], scan_times["bench f32 l2"],
-                   err("grouped_scan", f32, i8, bf)),
-        scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
-                   "scan_general_kernel; f32, int8 x int8, a bf16 query "
-                   "past d = 1920)", "scan_general",
-                   f32_counts["scan_general"],
+        scan_entry("grouped_cluster_topk_gq (f32, exact FMAs on the ring "
+                   "pipeline, k <= 32: scan_f32_kernel)", "scan_f32",
+                   f32_counts["scan_f32"],
+                   scan_times["main path f32 l2 k=20"],
+                   err("scan_f32", f32)),
+        scan_entry("grouped_cluster_topk_gq (f32, exact FMAs on the ring "
+                   "pipeline, k > 32: scan_general_f32_kernel)",
+                   "scan_general_f32", f32_counts["scan_general_f32"],
                    scan_times["main path f32 l2 k=200"],
-                   err("scan_general", f32, i8, bf)),
+                   err("scan_general_f32", f32)),
+        # no main path runs an int8 x int8 index, nor f32 or a bf16 query
+        # past the pipeline's widths: timed on int8 x int8
+        scan_entry("grouped_cluster_topk_gq (CUDA cores, k <= 32: "
+                   "grouped_scan_kernel; int8 x int8, f32 past d = 960, a "
+                   "bf16 query past d = 1920)", "grouped_scan",
+                   count("grouped_scan", sift_counts, gist_counts,
+                         f32_counts),
+                   scan_times["bench int8xint8 l2"],
+                   err("grouped_scan", f32, i8, bf), on_path=False),
+        scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
+                   "scan_general_kernel; int8 x int8, f32 past d = 960, a "
+                   "bf16 query past d = 1920)", "scan_general",
+                   count("scan_general", sift_counts, gist_counts,
+                         f32_counts),
+                   scan_times["general int8xint8 l2 k=100"],
+                   err("scan_general", f32, i8, bf), on_path=False),
     ]
     print(f"gist1m SQ8 scan at k=200 (scan_general_mma_kernel): "
           f"{g200[1]:.4f} ms, plain {g200[2]:.4f} ms, bound {g200[3][0]:.4f} "

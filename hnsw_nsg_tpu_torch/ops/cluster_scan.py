@@ -19,16 +19,24 @@ Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. Any 1 <= k <= maxc is taken, as by
 the JAX functions. The kernel goes by the dtype pair, d and k alone
-(``scan_kernel``): a bf16 query with a bf16 or an int8 slab (SQ8) up to
-d = ``MAX_D_BF16`` = 1920 runs on tensor cores (that path keeps the 32
-query rows of a block in shared memory), ``scan_mma`` for k <= ``MAX_K``
-= 32 and ``scan_general_mma`` above; the other pairs (f32, int8 x int8)
-and wider bf16-query pairs run on CUDA cores, ``grouped_scan`` for
-k <= 32 and ``scan_general`` above. The kernels for k > 32
-(``CNNSIndex.search``'s default k = 100) keep each row's running k
-smallest in a buffer, in global scratch that the wrapper allocates when k
-passes what shared memory holds. ``launches`` counts kernel launches and
-``launches_by_kernel`` splits them by those four names.
+(``scan_kernel``), each pair of kernels one for k <= ``MAX_K`` = 32 and
+one above:
+
+  * a bf16 query with a bf16 or an int8 slab (SQ8) up to
+    d = ``MAX_D_BF16`` = 1920 on tensor cores, ``scan_mma`` and
+    ``scan_general_mma``;
+  * f32 x f32 up to d = ``MAX_D_F32`` = 960 in exact FMAs on the same
+    pipeline (the 32 query rows of a block held in shared memory, the slab
+    streamed through a cp.async ring), ``scan_f32`` and
+    ``scan_general_f32``;
+  * int8 x int8, and the pairs above past those widths, on CUDA cores,
+    ``grouped_scan`` and ``scan_general``.
+
+The kernels for k > 32 (``CNNSIndex.search``'s default k = 100) keep each
+row's running k smallest in a buffer, in global scratch that the wrapper
+allocates when k passes what shared memory holds. ``launches`` counts
+kernel launches and ``launches_by_kernel`` splits them by those six
+names.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
 package: ``cluster_join_topk(qv, stacks, bias, k, scale)`` scores every
@@ -74,18 +82,21 @@ _PAIRS = {
 }
 MAX_K = 32          # the heap kernels' k; the general kernels take any k
 MAX_D_BF16 = 1920   # a bf16 query on tensor cores; wider d: CUDA cores
+MAX_D_F32 = 960     # f32 on the ring pipeline; wider d: the CUDA-core kernels
 
 
 def scan_kernel(q_dtype, s_dtype, d: int, k: int) -> str:
     """The name of the scan kernel that a (query, slab) dtype pair, d and
     k launch on the card, the rule of ``csrc/grouped_scan.cu``'s entry
     points."""
-    tensor_cores = (q_dtype == torch.bfloat16
-                    and s_dtype in (torch.bfloat16, torch.int8)
-                    and d <= MAX_D_BF16)
-    if k <= MAX_K:
-        return "scan_mma" if tensor_cores else "grouped_scan"
-    return "scan_general_mma" if tensor_cores else "scan_general"
+    if (q_dtype == torch.bfloat16 and s_dtype in (torch.bfloat16, torch.int8)
+            and d <= MAX_D_BF16):
+        names = ("scan_mma", "scan_general_mma")
+    elif q_dtype == s_dtype == torch.float32 and d <= MAX_D_F32:
+        names = ("scan_f32", "scan_general_f32")
+    else:
+        names = ("grouped_scan", "scan_general")
+    return names[k > MAX_K]
 
 
 def _check(qc, qidx, slabs, bias, k):

@@ -1,5 +1,5 @@
-"""Device times of the port's merge+select, grouped-scan (bf16 and SQ8)
-and cluster-join kernels for one source tree, on one CUDA card.
+"""Device times of the port's merge+select, grouped-scan (bf16, SQ8 and
+f32) and cluster-join kernels for one source tree, on one CUDA card.
 
     python3 scripts/time_port_kernels.py [--tree DIR]
 
@@ -12,10 +12,11 @@ other on one card with the method and the shapes of ``chip_smoke.py``'s
 own lines. The scan runs at ``chip_smoke.BENCH`` (C=1152, maxc=2056,
 d=128, cap=32) in bf16 at k = 10, 20, 100 and 200, and with int8 slabs
 and a bf16 query (SQ8) at k = 10, 20 and 200 there and at d=960 (C=128,
-maxc=1024); the bf16 d=960 shape at k=10. The join runs at the 1M build
-shape of ``chip_smoke.py`` phase 7 (the 1091 clusters that phase 6's
-build of the 1M data makes, slabs of 2112 rows, M=8, d=128): bf16 at
-k = 52, 102 and 202, f32 at k = 10, 52 and 102. Prints one JSON line per
+maxc=1024); the bf16 d=960 shape at k=10; f32 (query and slabs) at the
+bench shape at k = 10, 20 and 200 and at d=960 at k=10. The join runs at
+the 1M build shape of ``chip_smoke.py`` phase 7 (the 1091 clusters that
+phase 6's build of the 1M data makes, slabs of 2112 rows, M=8, d=128):
+bf16 at k = 52, 102 and 202, f32 at k = 10, 52 and 102. Prints one JSON line per
 shape, each with ``digest``, a hash of the outputs' bytes, so that two
 trees' lines show whether their kernels give the same bits on the same
 inputs (the scan's on the rows that carry a result: pad rows are
@@ -78,16 +79,19 @@ def main():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     b = smoke.BENCH
-    bf, i8 = torch.bfloat16, torch.int8
+    bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     bench = (b["c"], b["maxc"], b["d"], b["cap"], b["qn"])
     d960 = (128, 1024, 960, 32, 2048)
+    label = {bf: "bf16", i8: "SQ8", f32: "f32"}
     for name, (c, maxc, d, cap, qn), sdt, ks in (
             ("bench", bench, bf, (10, 20, 100, 200)),
             ("bench", bench, i8, (10, 20, 200)),
             ("d=960", d960, bf, (10,)),
-            ("d=960", d960, i8, (10, 20, 200))):
+            ("d=960", d960, i8, (10, 20, 200)),
+            ("bench", bench, f32, (10, 20, 200)),
+            ("d=960", d960, f32, (10,))):
         qc, qidx, slabs, bias, scale = smoke.make_case(
-            gen, c, maxc, d, cap, qn, bf, sdt, "l2")
+            gen, c, maxc, d, cap, qn, f32 if sdt == f32 else bf, sdt, "l2")
         live = qidx >= 0
         for k in ks:
             t = smoke.cuda_ms(lambda: cs.grouped_cluster_topk_gq(
@@ -95,8 +99,7 @@ def main():
             out = digest(*(o[live] for o in cs.grouped_cluster_topk_gq(
                 qc, qidx, slabs, bias, k, scale)))
             print(json.dumps(dict(
-                kernel="grouped_cluster_topk_gq "
-                       + ("SQ8" if sdt == i8 else "bf16"),
+                kernel="grouped_cluster_topk_gq " + label[sdt],
                 tree=args.tree, shape=name, C=c, maxc=maxc, d=d, cap=cap,
                 k=k, ms=t, digest=out, card=card)), flush=True)
         del qc, qidx, slabs, bias, live

@@ -187,14 +187,21 @@ def test_main_path_call_matches_pallas(qd, sd, metric):
     ("bf16", "int8", 960, 200, "scan_general_mma"),
     ("bf16", "bf16", 1928, 10, "grouped_scan"),     # past the query tile
     ("bf16", "int8", 1928, 100, "scan_general"),
-    ("f32", "f32", 128, 10, "grouped_scan"),
-    ("f32", "f32", 128, 200, "scan_general"),
+    ("f32", "f32", 128, 10, "scan_f32"),
+    ("f32", "f32", 128, 200, "scan_general_f32"),
+    ("f32", "f32", 128, 32, "scan_f32"),
+    ("f32", "f32", 128, 33, "scan_general_f32"),
+    ("f32", "f32", 960, 10, "scan_f32"),            # d = MAX_D_F32
+    ("f32", "f32", 960, 100, "scan_general_f32"),
+    ("f32", "f32", 968, 10, "grouped_scan"),        # past the query tile
+    ("f32", "f32", 968, 200, "scan_general"),
     ("int8", "int8", 128, 32, "grouped_scan"),
     ("int8", "int8", 128, 33, "scan_general"),
 ])
 def test_scan_kernel_goes_by_dtypes_d_and_k(qd, sd, d, k, kernel):
     """The kernel a launch counts under: tensor cores for a bf16 query
-    with a bf16 or int8 slab up to d = 1920, CUDA cores for the rest; the
+    with a bf16 or int8 slab up to d = 1920, exact f32 FMAs on the same
+    ring pipeline up to d = 960, the CUDA-core kernels for the rest; the
     heap kernels up to k = 32, the general ones above."""
     assert cs.scan_kernel(_T[qd], _T[sd], d, k) == kernel
 

@@ -732,7 +732,8 @@ def test_api_and_hybrid_default_to_the_card(card):
 @pytest.mark.parametrize("k", [33, 64, 100, 200, 256, "maxc"])
 def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
     """k > 32 runs a general kernel (on tensor cores for a bf16 query with
-    a bf16 or int8 slab, else on CUDA cores): vals within f32 summation
+    a bf16 or int8 slab, in exact FMAs on the same pipeline for f32, else
+    on the CUDA-core kernel): vals within f32 summation
     order (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an
     int8 slab's |bias| ~ 7e5); ids equal except where a near-tie swaps,
     and a returned slot scores its value. The +inf tail comes back with
@@ -745,7 +746,7 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
     rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                   scale)
     kern = cs.scan_kernel(qdt, sdt, d, k)
-    assert kern in ("scan_general_mma", "scan_general")
+    assert kern in ("scan_general_mma", "scan_general_f32", "scan_general")
     before, k0 = cs.launches, cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
@@ -778,6 +779,10 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt,sdt,k,in_scratch", [
     # the CUDA-core kernel's buffers leave shared memory past k = 396
+    (torch.int8, torch.int8, 500, True),
+    # the f32 pipeline's at d = 32: past k = 250, as bf16's
+    (torch.float32, torch.float32, 250, False),
+    (torch.float32, torch.float32, 251, True),
     (torch.float32, torch.float32, 500, True),
     # the tensor-core kernel's at d <= 128: past k = 250 (bf16 slabs),
     # k = 298 (int8 slabs, whose ring stages are smaller)
@@ -983,10 +988,10 @@ def test_cnns_search_at_its_default_k_on_card(card, tmp_path):
         slab_dtype=torch.float32, device="cpu")
     cpu_idx.save(str(tmp_path / "i.npz"))
     gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "i.npz"))
-    g0 = cs.launches_by_kernel["scan_general"]      # f32 slabs, k = 100
+    g0 = cs.launches_by_kernel["scan_general_f32"]   # f32 slabs, k = 100
     gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), nprobe=3,
                             group=True)
-    assert (cs.launches_by_kernel["scan_general"] > g0
+    assert (cs.launches_by_kernel["scan_general_f32"] > g0
             and tuple(gi.shape) == (256, 100))
     cd, ci = cpu_idx.search(torch.from_numpy(q), nprobe=3, group=True)
     assert (gi.cpu() == ci).float().mean() >= 0.99
@@ -1113,3 +1118,103 @@ def test_hnsw_accel_insert_on_card(card):
         labels, _ = idx.knn_query(q, k=10, ef=64)
         got.append(recall(labels, gt.cpu()))
     assert got[0] >= got[1] - 0.02
+
+
+# -- the f32 scan on the ring pipeline (scan_f32, scan_general_f32) --------
+
+def _f32_int_case(seed, c, cap, maxc, d, qn, dup=False):
+    """Integer-valued f32 rows in [-6, 6]: every product and every sum is
+    exact whatever the order, so the kernels and the plain version agree
+    bit for bit. L2 bias (slab norms, +inf on ~20% of the slots and the
+    last cluster), ~20% pad query slots, cluster 1 with 7 live rows, the
+    query list of cluster 0 all pad. dup: every odd slab row repeats the
+    row before it, so equal values must come back lowest slot first."""
+    rng = np.random.default_rng(seed)
+    qc = torch.from_numpy(rng.integers(-6, 7, (qn, d)).astype(np.float32))
+    slabs = torch.from_numpy(
+        rng.integers(-6, 7, (c, maxc, d)).astype(np.float32))
+    if dup:
+        slabs[:, 1::2] = slabs[:, 0:maxc - 1:2]
+    valid = torch.from_numpy(rng.random((c, maxc)) < 0.8)
+    valid[-1] = False
+    valid[1, 7:] = False
+    bias = torch.where(valid, (slabs ** 2).sum(-1), float("inf"))
+    qidx = torch.from_numpy(rng.integers(0, qn, (c, cap)).astype(np.int32))
+    qidx[torch.from_numpy(rng.random((c, cap)) < 0.2)] = -1
+    qidx[0, :] = -1
+    return qc, qidx, slabs, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c,cap,maxc,d,qn,k", [
+    ("bench-like", 4, 32, 300, 128, 200, 10),
+    ("main path k = 20", 4, 32, 300, 128, 200, 20),
+    ("k = 32", 4, 32, 300, 128, 200, 32),
+    ("k = 33", 4, 32, 300, 128, 200, 33),
+    ("k = 200", 3, 32, 600, 128, 200, 200),
+    ("d % 4 != 0, maxc % 64 != 0", 3, 20, 130, 50, 60, 10),
+    ("d % 4 != 0, k = 100", 3, 20, 300, 37, 60, 100),
+    ("d = 65: two chunks", 3, 32, 200, 65, 80, 10),
+    ("d = 129: past the narrow tile", 3, 32, 200, 129, 80, 32),
+    ("d = 129, k = 33", 3, 32, 200, 129, 80, 33),
+    ("d = 960 = MAX_D_F32", 2, 32, 150, 960, 40, 10),
+    ("d = 960, k = maxc", 2, 32, 150, 960, 40, 150),
+    ("d = 968: the CUDA-core kernel", 2, 32, 150, 968, 40, 10),
+    ("cap = 80", 4, 80, 200, 64, 300, 32),
+    ("cap = 80, k = 64", 4, 80, 200, 64, 300, 64),
+    ("maxc < 64", 3, 32, 40, 16, 50, 10),
+    ("maxc < 64, k = maxc", 3, 32, 40, 16, 50, 40),
+    ("k = 251: buffers in scratch", 2, 40, 600, 32, 100, 251),
+    ("d = 128, k = 235: buffers in scratch", 2, 32, 600, 128, 100, 235),
+    ("duplicate rows", 3, 32, 200, 128, 80, 10),
+    ("duplicate rows, k = 64", 3, 32, 200, 128, 80, 64),
+])
+def test_f32_scan_equals_plain_on_integer_data(card, name, c, cap, maxc, d,
+                                               qn, k):
+    """f32 x f32 on the card launches scan_f32 (k <= 32) or
+    scan_general_f32 up to d = MAX_D_F32 and the CUDA-core kernels past it,
+    and on integer-valued data gives the plain version's vals and ids,
+    torch.equal on every live row; in the +inf tail the general kernels
+    give the plain version's slots, the k <= 32 kernels slot 0."""
+    qc, qidx, slabs, bias = _f32_int_case(c * 1000 + d + k, c, cap, maxc,
+                                          d, qn, dup="duplicate" in name)
+    kern = cs.scan_kernel(torch.float32, torch.float32, d, k)
+    want_kern = (("scan_f32", "scan_general_f32") if d <= cs.MAX_D_F32
+                 else ("grouped_scan", "scan_general"))[k > cs.MAX_K]
+    assert kern == want_kern
+    before = cs.launches_by_kernel[kern]
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, 2.0)
+    torch.cuda.synchronize()
+    assert cs.launches_by_kernel[kern] == before + 1
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                  2.0)
+    live = qidx >= 0
+    kv, ki, rv, ri = kv.cpu()[live], ki.cpu()[live], rv[live], ri[live]
+    assert torch.equal(kv, rv)
+    if k <= cs.MAX_K:
+        ri = torch.where(torch.isinf(rv), 0, ri)
+    assert torch.equal(ki, ri)
+    assert bool(torch.isinf(rv).any())   # the +inf tail ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 100])
+def test_f32_scan_unaligned_views(card, k):
+    """f32 tensors that start 4 bytes off a 16-byte boundary take the
+    plain-load copies and give the same bits as aligned ones."""
+    qc, qidx, slabs, bias, scale = _case(37, torch.float32, torch.float32,
+                                         "l2", 4, 32, 200, 64, 70)
+    dev = [t.to(card) for t in (qc, qidx, slabs, bias)]
+    want = cs.grouped_cluster_topk_gq(*dev, k, scale)
+    off = []
+    for t in (dev[0], dev[2]):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        off.append(view)
+    got = cs.grouped_cluster_topk_gq(off[0], dev[1], off[1], dev[3], k,
+                                     scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
