@@ -7,19 +7,25 @@ Phases, each of which fails the run (non-zero exit) on its own:
      limit, compile the kernels from ``hnsw_nsg_tpu_torch/csrc`` (one nvcc
      per source, in parallel);
   2. the grouped-scan kernels versus their plain PyTorch version on the
-     card, per dtype pair, metric and shape (the bench shape at k=10, the
-     CNNS search's own call at k=20 in bf16 and f32, d=960 in bf16 and
-     f32, d=1928 on the CUDA-core kernel in bf16 and SQ8, cap=80 with
-     k=32, d=100), with the tolerance and the count of near-tie ids stated
+     card, per dtype pair, metric and shape (the bench shape at k=10, and
+     at k=20 in bf16 and f32, d=960 in bf16, f32
+     and int8 x int8, d=1928 on the CUDA-core kernel in bf16 (k=10 and
+     k=100) and SQ8, d=3848 int8 x int8 on it, cap=80 with k=32, d=100),
+     with the tolerance (int8 x int8: exact, ids equal too) and the count
+     of near-tie ids stated
      beside each case, and both times and the bound of each; the general
      kernels (k > 32) at k = 33, 64, 100, 256 on the bench shape and
-     k = maxc on a small one, every dtype pair, and at the CNNS search's
-     own call at k=100 (k=200) in bf16, f32 and SQ8, timed there, at k=100
-     (bf16 and int8 x int8). Each case asserts the kernel it launched
-     (``cluster_scan.scan_kernel``: scan_mma or scan_general_mma on tensor
-     cores for a bf16 query with a bf16 or int8 slab up to d = 1920,
-     scan_f32 or scan_general_f32 in exact FMAs for f32 up to d = 960,
-     grouped_scan or scan_general on CUDA cores for the rest);
+     k = maxc on a small one, every dtype pair, and at k=200 on the bench
+     shape in bf16, f32 and SQ8, timed there and at k=100 (bf16 and int8 x
+     int8). (The CNNS search scans at its own k, 10 or 100; a replicated
+     index widens only the merge after the scan to 2k.) Each case asserts
+     the kernel it launched
+     (``cluster_scan.scan_kernel``: scan_mma or scan_general_mma on bf16
+     tensor cores for a bf16 query with a bf16 or int8 slab up to
+     d = 1920, scan_i8 or scan_general_i8 on s8 tensor cores for int8 x
+     int8 up to d = 3840, scan_f32 or scan_general_f32 in exact FMAs for
+     f32 up to d = 960, grouped_scan or scan_general on CUDA cores for the
+     rest);
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
@@ -41,6 +47,20 @@ Phases, each of which fails the run (non-zero exit) on its own:
      scan_general_mma only, and holds the kernel against its plain
      version on the scan inputs of one of its own searches at k=20 and
      k=200 (~70 s on the card);
+ 3c. sift10m_u8 as bench.py runs it: 10M x 128 uint8-valued L2 data
+     (``make_data(..., uint8=True)``, seed 0), an index of int8 slabs of
+     the rows shifted by 128 (``qshift == 128``, ``qscale == 1``: exact
+     integer arithmetic, the int8 x int8 kernels), 9765 clusters, the
+     exact f32 ground truth, an nprobe sweep (1..16) at k=10 with 10
+     timed repetitions each and the path each took (per-query flat scan
+     while probe pairs are fewer than 2 C, the grouped scan from there),
+     one search at k=100 at the first grouped nprobe that reaches
+     recall@10 >= 0.95 (within 0.002 of the k=10 run); the returned
+     distances must equal the exact integer distances of the uint8 rows;
+     the scan's launches must be scan_i8 and scan_general_i8 only; both
+     kernels against their plain version (torch.equal on vals and ids) on
+     the scan inputs of one of its searches, at k = 10, 20, 100 and 200,
+     timed;
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
@@ -103,12 +123,13 @@ Phases, each of which fails the run (non-zero exit) on its own:
      202, f32 at k=10, 52 and 102): both times, the rows a block, the id
      mismatches at near-ties, the bound (the products of the finite-bias
      slots only) and the kernel's share of it;
-  8. the kernels line (thirteen entries, the scan's seven by kernel and
-     slab type, the CUDA-core scans with no launch on a main path since
-     f32 moved to its own kernels: times, launches, errors and each
-     kernel's bound:
+  8. the kernels line (fifteen entries, the scan's nine by kernel and
+     slab type, the CUDA-core scans with no launch on a main path (they
+     serve only d past the pipeline's widths): times, launches, errors
+     and each kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
-     989 TFLOP/s bf16 peak), and the last line:
+     peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
+     f32), and the last line:
      ``{"ok": true, "device": ...}``.
 Imports nothing of JAX.
 """
@@ -125,8 +146,8 @@ import numpy as np
 import torch
 
 BENCH = dict(c=1152, maxc=2056, d=128, cap=32, k=10, qn=8192)
-# the scan's kernels: the ring pipeline's (bf16, SQ8 and f32, each pair's
-# instantiations in a file of their own) and the CUDA-core ones
+# the scan's kernels: the ring pipeline's (bf16, SQ8, int8 x int8 and f32,
+# each pair's instantiations in a file of their own) and the CUDA-core ones
 PIPELINE_SOURCE = "hnsw_nsg_tpu_torch/csrc/scan_pipeline.cuh"
 KERNEL_SOURCE = "hnsw_nsg_tpu_torch/csrc/grouped_scan.cu"
 REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:244"
@@ -247,6 +268,9 @@ def check_scan(name, got, want, full_dist, live, rtol, atol):
     mism = int((ki[fin] != ri[fin]).sum())
     print(f"  {name}: max_abs_err={max_err:.3g} (rtol={rtol}, atol={atol}) "
           f"id mismatches (ties) {mism}/{int(fin.sum())}")
+    if rtol == atol == 0.0 and mism:
+        # exact arithmetic (int8 x int8): ties go to the lowest slot
+        raise AssertionError(f"{name}: {mism} ids differ from the reference")
     return max_err
 
 
@@ -262,7 +286,7 @@ def phase_kernels(gen):
     cases = [
         ("bench bf16 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
          bf, bf, "l2", b["k"], 1e-5, 1e-3),
-        # the CNNS search's own call: k = 2 * 10 of a replicated index
+        # twice the bench k
         ("main path bf16 l2 k=20", b["c"], b["maxc"], b["d"], b["cap"],
          b["qn"], bf, bf, "l2", 20, 1e-5, 1e-3),
         ("bench f32 l2", b["c"], b["maxc"], b["d"], b["cap"], b["qn"],
@@ -279,11 +303,18 @@ def phase_kernels(gen):
          1e-5, 5e-3),
         ("d=960 f32 l2", 128, 1024, 960, 32, 2048, f32, f32, "l2", 10,
          1e-5, 5e-3),
+        ("d=960 int8xint8 l2", 128, 1024, 960, 32, 2048, i8, i8, "l2", 10,
+         0.0, 0.0),
+        # past the s8 tensor-core kernel's d = 3840: the CUDA-core kernel
+        ("d=3848 int8xint8 l2", 16, 512, 3848, 32, 512, i8, i8, "l2", 10,
+         0.0, 0.0),
         # past the tensor-core kernel's d = 1920: the CUDA-core kernel
         ("d=1928 bf16 l2", 64, 512, 1928, 32, 1024, bf, bf, "l2", 10,
          1e-5, 1e-2),
         ("d=1928 SQ8 l2", 64, 512, 1928, 32, 1024, bf, i8, "l2", 10,
          1e-5, 0.5),
+        ("d=1928 bf16 l2 k=100", 64, 512, 1928, 32, 1024, bf, bf, "l2",
+         100, 1e-5, 1e-2),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
         # rows that start off 16 bytes (plain loads), d padded to 112
@@ -304,9 +335,8 @@ def phase_kernels(gen):
                           rtol, atol))
         cases.append((f"general {tag} l2 k=maxc=300", 16, 300, 64, 32, 500,
                       qdt, sdt, "l2", 300, rtol, atol))
-    # the CNNS search's own call at its default k = 100: k = 2 * 100 of a
-    # replicated index (each row's buffer 2k + 32 keys, one block an SM),
-    # and the same call on the f32 slabs' general kernel
+    # k = 200 (each row's buffer 2k + 32 keys, one block an SM), on the
+    # bf16, f32 and SQ8 general kernels
     cases.append(("main path bf16 l2 k=200", b["c"], b["maxc"], b["d"],
                   b["cap"], b["qn"], bf, bf, "l2", 200, 1e-5, 1e-3))
     cases.append(("main path f32 l2 k=200", b["c"], b["maxc"], b["d"],
@@ -316,7 +346,8 @@ def phase_kernels(gen):
     # the k > 32 cases timed here (the others are checked only)
     timed_general = ("general bfloat16 l2 k=100", "general int8xint8 l2 k=100",
                      "main path bf16 l2 k=200",
-                     "main path f32 l2 k=200", "main path SQ8 l2 k=200")
+                     "main path f32 l2 k=200", "main path SQ8 l2 k=200",
+                     "d=1928 bf16 l2 k=100")
     times = {}     # case name -> (kernel ms, plain ms, bound)
     errs = {}      # (kernel name, slab dtype) -> max |vals error|
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
@@ -373,12 +404,15 @@ def phase_kernels(gen):
 
 
 def scan_bound(qc, qidx, slabs, bias, out, qdt, sdt):
-    """The scan's bound: its bytes (inputs read once, outputs written once)
-    and the products of its live query rows (pad rows need no work) at
-    their type's peak."""
+    """The scan's bound: its bytes (inputs read once, outputs written once;
+    of the slabs and their bias only those a live query row probes: a slab
+    whose query list is all pad needs no byte) and the products of its
+    live query rows (pad rows need no work) at their type's peak."""
     c, maxc, d = slabs.shape
     flops = 2.0 * int((qidx >= 0).sum()) * maxc * d
-    return bound(nbytes(qc, qidx, slabs, bias, *out), flops,
+    probed = int((qidx >= 0).any(1).sum())
+    slab_bytes = probed * maxc * (d * slabs.element_size() + 4)
+    return bound(nbytes(qc, qidx, *out) + slab_bytes, flops,
                  PEAK_OPS[(qdt, sdt)])
 
 
@@ -489,8 +523,8 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
 
 def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
     """The same index with exact f32 slabs (the f32 scan kernels:
-    scan_f32_kernel at the search's k = 2 * 10, scan_general_f32_kernel at
-    k = 2 * 100), searched at ``nprobe``: recall@10 of both, the batch
+    scan_f32_kernel at the search's k = 10, scan_general_f32_kernel at
+    k = 100), searched at ``nprobe``: recall@10 of both, the batch
     time, and the launches by kernel. Fails unless recall@10 is within
     0.005 of the bf16 index's at k=10 and the k=100 run's within 0.002 of
     its own k=10 run's."""
@@ -646,23 +680,11 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
           f"exact f32 ones")
     del x, d100, i100, res10
 
-    # the scan inputs of one search at the reached nprobe (k = 2 * 10),
-    # caught at the call, then the kernel against its plain version on
-    # them at k = 20 and k = 200
-    caught = []
-    scan = cnns_mod.grouped_cluster_topk_gq
-
-    def catch(*args):
-        caught.append(args)
-        return scan(*args)
-
-    cnns_mod.grouped_cluster_topk_gq = catch
-    try:
-        idx.search(qd, k=10, nprobe=reached)
-    finally:
-        cnns_mod.grouped_cluster_topk_gq = scan
-    qc, qidx, slabs, bias, _, scale = caught[0]
-    del idx, caught
+    # the scan inputs of one search at the reached nprobe, then the
+    # kernel against its plain version on them at k = 20 and k = 200
+    qc, qidx, slabs, bias, _, scale = scan_call(
+        lambda: idx.search(qd, k=10, nprobe=reached))
+    del idx
     peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
             else 0.0)
     print(f"gist1m peak device memory: {peak:.2f} GB; the scan call: "
@@ -694,6 +716,212 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
         del got
     if device == "cuda":
         torch.cuda.empty_cache()
+    return counts, timed
+
+
+def scan_call(search):
+    """The arguments (qc, qidx, slabs, bias, k, scale) of the first
+    grouped-scan call that ``search()`` makes, caught at the call."""
+    from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
+
+    caught = []
+    scan = cnns_mod.grouped_cluster_topk_gq
+
+    def catch(*args):
+        caught.append(args)
+        return scan(*args)
+
+    cnns_mod.grouped_cluster_topk_gq = catch
+    try:
+        search()
+    finally:
+        cnns_mod.grouped_cluster_topk_gq = scan
+    return caught[0]
+
+
+U8_NPROBE = (1, 2, 3, 4, 6, 8, 12, 16)
+
+
+def phase_sift10m_u8(card, n=10_000_000, nq=8192, device="cuda"):
+    """sift10m_u8 as bench.py runs it (bench.py:72-77, :156; the uint8
+    configuration of sift_1b.cpp:243-344): 10M x 128 uint8-valued L2 data
+    (``make_data(..., uint8=True)``, seed 0), an index of int8 slabs
+    holding the rows shifted by 128 (exact integer arithmetic: the int8 x
+    int8 scan kernels), the exact f32 ground truth, an nprobe sweep at
+    k=10 (10 timed repetitions each, the path each took: the per-query
+    flat scan while probe pairs are fewer than 2 C, the grouped scan
+    from there, the reference's rule) and one search at k=100 at the
+    first nprobe that reaches recall@10 >= 0.95 on the grouped path.
+    The returned distances must equal the exact integer distances of the
+    uint8 rows. Then both kernels against their plain version on the scan
+    inputs of that search, at k = 10, 20, 100 and 200, torch.equal on
+    vals and ids. Smaller ``n``/``nq`` and ``device="cpu"`` rehearse it
+    without a card. Returns the scan's launches by kernel and, on the
+    card, each k's (error, ms, plain ms, bound)."""
+    from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    x, queries = make_data(n, 128, nq, "l2", seed=0, uint8=True)
+    print(f"sift10m_u8 data: {n}x128 uint8-valued + {nq} queries in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    xd = torch.from_numpy(x).to(device)
+    qd = torch.from_numpy(queries).to(device)
+    t0 = time.perf_counter()
+    # exact: every product and partial sum is an integer below 2**24
+    _, gt100 = brute_force_topk(qd, xd, 100, "l2")
+    gt100 = gt100.cpu()
+    gt = gt100[:, :10].contiguous()
+    print(f"sift10m_u8 ground truth (f32, TF32 off), k=100: "
+          f"{time.perf_counter() - t0:.1f} s")
+    del xd
+
+    sync()
+    t0 = time.perf_counter()
+    idx = cnns_mod.build_cnns(
+        x, CNNSConfig(n_clusters=max(n // 1024, 8), m=4, kmeans_iters=12,
+                      replicate=True),
+        metric="l2", slab_dtype=torch.int8, device=device)
+    sync()
+    build_s = time.perf_counter() - t0
+    if (idx.qshift != 128.0 or idx.qscale != 1.0
+            or idx.data_c.dtype != torch.int8):
+        raise AssertionError("the sift10m_u8 index is not int8 x int8 "
+                             f"(qshift {idx.qshift}, qscale {idx.qscale})")
+    c = idx.data_c.shape[0]
+    print(f"sift10m_u8 build: {build_s:.2f} s, C={c} ({idx.n_real} real "
+          f"slabs) maxc={idx.maxc} index {idx.index_bytes() / 1e9:.4f} GB "
+          f"[{card}]")
+
+    reset_scan_counts(cs)
+    sweep, res10 = {}, {}
+    for nprobe in U8_NPROBE:
+        # the reference's rule (CNNSIndex._search_flat)
+        grouped = nq * nprobe >= 2 * c and c % 64 == 0
+        before = cs.launches
+        dd, ii = idx.search(qd, k=10, nprobe=nprobe)
+        if on_card and (cs.launches > before) != grouped:
+            raise AssertionError(f"nprobe={nprobe}: the scan launched "
+                                 f"{cs.launches - before} times on the "
+                                 f"{'grouped' if grouped else 'flat'} path")
+        res10[nprobe] = (dd.cpu(), ii.cpu())
+        r = recall(res10[nprobe][1], gt)
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=10, nprobe=nprobe)[1].cpu())
+        sweep[nprobe] = (r, grouped)
+        print(f"sift10m_u8 nprobe={nprobe} ({'grouped' if grouped else 'flat'}"
+              f" path): recall@10={r:.4f} median {med * 1e3:.3f} ms "
+              f"QPS={nq / med:.1f} (min {lo * 1e3:.3f}, max {hi * 1e3:.3f} "
+              f"ms) [{card}]")
+    reached = min((p for p, (r, g) in sweep.items()
+                   if r >= TARGET_RECALL and g), default=None)
+    if not any(r >= TARGET_RECALL for r, _ in sweep.values()):
+        raise AssertionError(f"sift10m_u8: recall@10 >= {TARGET_RECALL} not "
+                             f"reached at nprobe <= 16: {sweep}")
+    if reached is None:
+        raise AssertionError(f"sift10m_u8: no grouped nprobe reaches "
+                             f"recall@10 >= {TARGET_RECALL}: {sweep}")
+    d100, i100 = idx.search(qd, k=100, nprobe=reached)
+    d100, i100 = d100.cpu(), i100.cpu()
+    r10, r100 = recall(i100[:, :10], gt), recall(i100, gt100)
+    med, lo, hi = timed_query(
+        lambda: idx.search(qd, k=100, nprobe=reached)[1].cpu())
+    print(f"sift10m_u8 nprobe={reached} k=100: recall@10={r10:.4f} (k=10 "
+          f"run: {sweep[reached][0]:.4f}) recall@100={r100:.4f} median "
+          f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, max "
+          f"{hi * 1e3:.3f} ms) [{card}]")
+    if (tuple(i100.shape) != (nq, 100)
+            or abs(r10 - sweep[reached][0]) > 0.002):
+        raise AssertionError(f"sift10m_u8 k=100: shape {tuple(i100.shape)}, "
+                             f"recall@10 {r10} against {sweep[reached][0]}")
+    counts = scan_counts(cs, "sift10m_u8 sweep + k=100", device)
+    if on_card and set(counts) != {"scan_i8", "scan_general_i8"}:
+        raise AssertionError(f"the uint8 search ran other scan kernels than "
+                             f"scan_i8 and scan_general_i8: {counts}")
+
+    # finite, ascending distances and in-range ids; every distance equals
+    # the exact squared L2 distance of the uint8 rows (float64 here; the
+    # index's arithmetic is exact integer arithmetic end to end). PAD
+    # slots (pairs dropped past the spill budget, as in the reference)
+    # must hold PAD_DIST; they are counted.
+    def check_rows(dd, ii, what):
+        pad = ii < 0
+        if not bool(torch.isfinite(dd).all()):
+            raise AssertionError(f"sift10m_u8 {what}: non-finite distances")
+        if not bool((dd[:, 1:] >= dd[:, :-1]).all()):
+            raise AssertionError(f"sift10m_u8 {what}: rows not ascending")
+        if not bool((ii < n).all()) or not bool(
+                (dd[pad] == float(PAD_DIST)).all()):
+            raise AssertionError(f"sift10m_u8 {what}: ids out of range")
+        xs = torch.from_numpy(x)
+        qs = torch.from_numpy(queries).double()
+        for s in range(0, nq, 512):
+            ids = ii[s : s + 512]
+            ex = ((xs[ids.clamp(min=0)].double() - qs[s : s + 512, None, :])
+                  ** 2).sum(-1)
+            real = ids >= 0
+            if not torch.equal(dd[s : s + 512][real].double(), ex[real]):
+                raise AssertionError(f"sift10m_u8 {what}: a distance is "
+                                     f"not the exact integer one")
+        print(f"sift10m_u8 {what}: every distance exact; {int(pad.sum())} "
+              f"PAD slots in {int(pad.any(1).sum())} of {nq} rows")
+
+    check_rows(*res10[reached], f"k=10, nprobe={reached}")
+    check_rows(d100, i100, f"k=100, nprobe={reached}")
+    del x, d100, i100, res10
+
+    # the scan inputs of the k=10 search at that nprobe, then both
+    # kernels against their plain version on them
+    qc, qidx, slabs, bias, call_k, scale = scan_call(
+        lambda: idx.search(qd, k=10, nprobe=reached))
+    del idx
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    live = qidx >= 0
+    print(f"sift10m_u8 peak device memory: {peak:.2f} GB; the scan call "
+          f"(k={call_k}): C={slabs.shape[0]} cap={qidx.shape[1]} "
+          f"maxc={slabs.shape[1]} d={slabs.shape[2]}, {int(live.sum())} "
+          f"live rows, {int(live.any(1).sum())} slabs with a live row")
+    timed = {}
+    for k in (10, 20, 100, 200):
+        kern = cs.scan_kernel(qc.dtype, slabs.dtype, slabs.shape[2], k)
+        args = (qc, qidx, slabs, bias, k, scale)
+        got = cs.grouped_cluster_topk_gq(*args)
+        sync()
+        want = cs.grouped_cluster_topk_gq_reference(*args)
+        kv, ki = got[0][live], got[1][live]
+        rv, ri = want[0][live], want[1][live]
+        if k <= cs.MAX_K:   # the heap kernels give slot 0 past the finite
+            ri = torch.where(torch.isinf(rv), 0, ri)
+        if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+            raise AssertionError(f"sift10m_u8 scan call k={k} ({kern}): "
+                                 f"not the plain version's vals and ids")
+        del want, kv, ki, rv, ri
+        if on_card:
+            k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args),
+                           reps=10)
+            p_ms = cuda_ms(
+                lambda: cs.grouped_cluster_topk_gq_reference(*args), reps=3)
+            b_k = scan_bound(qc, qidx, slabs, bias, got, qc.dtype,
+                             slabs.dtype)
+            timed[k] = (0.0, k_ms, p_ms, b_k)
+            print(f"  sift10m_u8 scan call k={k} ({kern}): equal to the "
+                  f"plain version; kernel {k_ms:.4f} ms, plain PyTorch "
+                  f"{p_ms:.4f} ms (median); bound {b_k[0]:.4f} ms "
+                  f"({b_k[1]}), kernel at {b_k[0] / k_ms:.1%} of it [{card}]")
+        del got
+    del qc, qidx, slabs, bias, qd, live
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"sift10m_u8 phase: {time.perf_counter() - t_phase:.1f} s")
     return counts, timed
 
 
@@ -1706,6 +1934,7 @@ def main() -> int:
 
     sift_counts, f32_counts = phase_main_path(card)
     gist_counts, gist_times = phase_gist(card)
+    u8_counts, u8_times = phase_sift10m_u8(card)
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
@@ -1752,11 +1981,11 @@ def main() -> int:
         join_err[entry] = max(join_err[entry], b[0])
 
     # no single PyTorch call computes any of the functions, so none has a
-    # library time. The grouped scan's times are at the calls the main
-    # paths make: bf16 at k = 20 (sift1m, k = 10 on a replicated index) and
-    # k = 200 (its k = 100), SQ8 at gist1m's own scan call at k = 20 and
-    # k = 200, f32 at the bench shape at k = 20 and 200 (the f32 index's
-    # calls), the CUDA-core scans on int8 x int8 at k = 10 and 100;
+    # library time. The grouped scan's times: bf16 and f32 at the bench
+    # shape at k = 20 and 200, SQ8 at gist1m's own scan call at k = 20 and
+    # k = 200, int8 x int8 at sift10m_u8's own scan calls at k = 10 and
+    # k = 100 (the search scans at its own k), the CUDA-core scans on a
+    # bf16 query at d = 1928 at k = 10 and 100;
     # merge+select's at the NSG build's collect pool (L = 500), at L = 1024
     # for its 32-slot build (the ef = 1024 search's shape) and at L = 2048
     # for its general kernel (ef = 2048), the join's at the 1M build shape:
@@ -1807,21 +2036,31 @@ def main() -> int:
                    "scan_general_f32", f32_counts["scan_general_f32"],
                    scan_times["main path f32 l2 k=200"],
                    err("scan_general_f32", f32)),
-        # no main path runs an int8 x int8 index, nor f32 or a bf16 query
-        # past the pipeline's widths: timed on int8 x int8
+        scan_entry("grouped_cluster_topk_gq (int8 x int8, s8 tensor cores, "
+                   "k <= 32: scan_i8_kernel)", "scan_i8",
+                   u8_counts["scan_i8"], u8_times[10][1:],
+                   err("scan_i8", i8)),
+        scan_entry("grouped_cluster_topk_gq (int8 x int8, s8 tensor cores, "
+                   "k > 32: scan_general_i8_kernel)", "scan_general_i8",
+                   u8_counts["scan_general_i8"], u8_times[100][1:],
+                   err("scan_general_i8", i8)),
+        # no main path runs f32, a bf16 query or int8 x int8 past the
+        # pipeline's widths: timed on a bf16 query at d = 1928
         scan_entry("grouped_cluster_topk_gq (CUDA cores, k <= 32: "
-                   "grouped_scan_kernel; int8 x int8, f32 past d = 960, a "
-                   "bf16 query past d = 1920)", "grouped_scan",
+                   "grouped_scan_kernel; f32 past d = 960, a bf16 query "
+                   "past d = 1920, int8 x int8 past d = 3840)",
+                   "grouped_scan",
                    count("grouped_scan", sift_counts, gist_counts,
-                         f32_counts),
-                   scan_times["bench int8xint8 l2"],
+                         f32_counts, u8_counts),
+                   scan_times["d=1928 bf16 l2"],
                    err("grouped_scan", f32, i8, bf), on_path=False),
         scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
-                   "scan_general_kernel; int8 x int8, f32 past d = 960, a "
-                   "bf16 query past d = 1920)", "scan_general",
+                   "scan_general_kernel; f32 past d = 960, a bf16 query "
+                   "past d = 1920, int8 x int8 past d = 3840)",
+                   "scan_general",
                    count("scan_general", sift_counts, gist_counts,
-                         f32_counts),
-                   scan_times["general int8xint8 l2 k=100"],
+                         f32_counts, u8_counts),
+                   scan_times["d=1928 bf16 l2 k=100"],
                    err("scan_general", f32, i8, bf), on_path=False),
     ]
     print(f"gist1m SQ8 scan at k=200 (scan_general_mma_kernel): "

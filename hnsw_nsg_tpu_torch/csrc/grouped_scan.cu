@@ -26,17 +26,21 @@
 // the slab bytes double and the products run on the FP32 pipes, whose
 // 67 TFLOP/s make them a second bound of the same size.
 //
-// Six kernels, each pair one for k <= 32 and one for any k <= maxc. Which
-// runs goes by the dtype pair, d and k alone (the entry points at the end):
+// Eight kernels, each pair one for k <= 32 and one for any k <= maxc.
+// Which runs goes by the dtype pair, d and k alone (the entry points at the
+// end):
 //   * a bf16 query with a bf16 or an int8 slab (the CNNS path, and SQ8:
-//     int8 slabs of non-integral data) up to d = 1920, on mma.sync tensor
-//     cores: scan_mma_kernel and scan_general_mma_kernel
+//     int8 slabs of non-integral data) up to d = 1920, on mma.sync bf16
+//     tensor cores: scan_mma_kernel and scan_general_mma_kernel
 //     (grouped_scan_bf16.cu, grouped_scan_sq8.cu);
+//   * int8 x int8 (uint8 data stored shift-by-128) up to d = 3840, on
+//     mma.sync s8 tensor cores, exact s32 sums: scan_i8_kernel and
+//     scan_general_i8_kernel (grouped_scan_i8.cu);
 //   * f32 x f32 up to d = 960, in exact FMAs on CUDA cores:
 //     scan_f32_kernel and scan_general_f32_kernel (grouped_scan_f32.cu);
-//   * int8 x int8, and the other pairs past those widths, on CUDA cores:
-//     grouped_scan_kernel and scan_general_kernel, here.
-// The first two pairs share scan_pipeline.cuh: the query tile resident in
+//   * the pairs past those widths, on CUDA cores: grouped_scan_kernel and
+//     scan_general_kernel, here.
+// The first three share scan_pipeline.cuh: the query tile resident in
 // shared memory, the slab streamed through a cp.async ring, four product
 // warps, and the top-k in warps of its own beside them. Each pair's
 // instantiations compile in a file of their own, in parallel.
@@ -66,8 +70,9 @@
 // query rows and merges each 128-slot tile into the row's sorted k-list by
 // k warp-wide (min, lowest-slot argmin) passes, skipping a tile when no
 // value beats the current k-th. For any k, scan_general_kernel (at the end
-// of this file, with its notes). int8 x int8 on s8 tensor cores is the
-// next step.
+// of this file, with its notes). They serve the pairs past the pipeline's
+// widths (f32 past d = 960, a bf16 query past d = 1920, int8 x int8 past
+// d = 3840).
 
 #include "scan_pipeline.cuh"
 
@@ -295,8 +300,8 @@ void launch_cuda_cores(const void* qc, const void* qidx, const void* slabs,
 // ---- any k on CUDA cores: scan_general_kernel ------------------------------
 //
 // For k > 32 with the pairs that the pipeline's kernels do not take (int8
-// x int8, a bf16 query past d = 1920, f32 past d = 960), any 1 <= k <=
-// maxc.
+// x int8 past d = 3840, a bf16 query past d = 1920, f32 past d = 960), any
+// 1 <= k <= maxc.
 // Its products are grouped_scan_kernel's (tile_products: a block takes one
 // cluster and 32 query rows, streams the slab through shared memory in
 // [128 x 32] tiles, and each thread forms a 4 x 4 register tile on CUDA
@@ -427,6 +432,11 @@ bool on_f32_pipeline(int q_dtype, int s_dtype, int d) {
   return q_dtype == kF32 && s_dtype == kF32 && d <= max_d<float>();
 }
 
+// int8 x int8 on s8 tensor cores (grouped_scan_i8.cu)
+bool on_i8_pipeline(int q_dtype, int s_dtype, int d) {
+  return q_dtype == kI8 && s_dtype == kI8 && d <= max_d<int8_t>();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes), k <= 32. Pointers are device
@@ -434,8 +444,8 @@ bool on_f32_pipeline(int q_dtype, int s_dtype, int d) {
 // allocated by the caller. Launches on `stream` without synchronising and
 // returns cudaGetLastError() (0 on success). The kernel goes by the dtype
 // pair and d alone: scan_mma_kernel for a bf16 query with a bf16 or int8
-// slab up to d = 1920, scan_f32_kernel for f32 up to d = 960,
-// grouped_scan_kernel for the rest.
+// slab up to d = 1920, scan_i8_kernel for int8 x int8 up to d = 3840,
+// scan_f32_kernel for f32 up to d = 960, grouped_scan_kernel for the rest.
 extern "C" int grouped_scan(const void* qc, const void* qidx,
                             const void* slabs, const void* bias, void* vals,
                             void* idx, int n_clusters, int cap, int qn, int d,
@@ -450,6 +460,8 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
   if (on_tensor_cores(q_dtype, s_dtype, d))
     return s_dtype == kBF16 ? launch_scan_bf16(false, a, st)
                             : launch_scan_sq8(false, a, st);
+  if (on_i8_pipeline(q_dtype, s_dtype, d))
+    return launch_scan_i8(false, a, st);
   if (on_f32_pipeline(q_dtype, s_dtype, d))
     return launch_scan_f32(false, a, st);
   if (q_dtype == kF32 && s_dtype == kF32)   // d > 960
@@ -462,7 +474,7 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
     launch_cuda_cores<__nv_bfloat16, __nv_bfloat16, float>(
         qc, qidx, slabs, bias, vals, idx, n_clusters, cap, qn, d, maxc, k,
         scale, st);
-  else if (q_dtype == kI8 && s_dtype == kI8)
+  else if (q_dtype == kI8 && s_dtype == kI8)   // d > 3840
     launch_cuda_cores<int8_t, int8_t, int>(qc, qidx, slabs, bias, vals, idx,
                                            n_clusters, cap, qn, d, maxc, k,
                                            scale, st);
@@ -478,8 +490,9 @@ extern "C" int grouped_scan(const void* qc, const void* qidx,
 // The entry point for any 1 <= k <= maxc: the arguments of grouped_scan,
 // and `scratch`, global memory for the rows' buffers of
 // grouped_scan_general_scratch(...) bytes when that is not 0, else null.
-// scan_general_mma_kernel and scan_general_f32_kernel take the pairs and d
-// of scan_mma_kernel and scan_f32_kernel, scan_general_kernel the rest.
+// scan_general_mma_kernel, scan_general_i8_kernel and
+// scan_general_f32_kernel take the pairs and d of scan_mma_kernel,
+// scan_i8_kernel and scan_f32_kernel, scan_general_kernel the rest.
 extern "C" int grouped_scan_general(const void* qc, const void* qidx,
                                     const void* slabs, const void* bias,
                                     void* vals, void* idx, void* scratch,
@@ -493,11 +506,13 @@ extern "C" int grouped_scan_general(const void* qc, const void* qidx,
   const ScanArgs a{qc,   qidx, slabs, bias, vals, idx, scratch, n_clusters,
                    cap, qn,   d,     maxc, k,    scale};
   const bool tensor_cores = on_tensor_cores(q_dtype, s_dtype, d);
+  const bool i8_pipeline = on_i8_pipeline(q_dtype, s_dtype, d);
   const bool f32_pipeline = on_f32_pipeline(q_dtype, s_dtype, d);
-  if (tensor_cores || f32_pipeline) {
+  if (tensor_cores || i8_pipeline || f32_pipeline) {
     if ((cap + kRows - 1) / kRows > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
     if (f32_pipeline) return launch_scan_f32(true, a, st);
+    if (i8_pipeline) return launch_scan_i8(true, a, st);
     return s_dtype == kBF16 ? launch_scan_bf16(true, a, st)
                             : launch_scan_sq8(true, a, st);
   }
@@ -509,7 +524,7 @@ extern "C" int grouped_scan_general(const void* qc, const void* qidx,
     return launch_general_cuda_cores<__nv_bfloat16, __nv_bfloat16, float>(
         qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
         maxc, k, scale, st);
-  if (q_dtype == kI8 && s_dtype == kI8)
+  if (q_dtype == kI8 && s_dtype == kI8)   // d > 3840
     return launch_general_cuda_cores<int8_t, int8_t, int>(
         qc, qidx, slabs, bias, vals, idx, scratch, n_clusters, cap, qn, d,
         maxc, k, scale, st);
@@ -529,6 +544,8 @@ extern "C" long long grouped_scan_general_scratch(int n_clusters, int cap,
   if (on_tensor_cores(q_dtype, s_dtype, d))
     own = s_dtype == kBF16 ? general_own_bytes<__nv_bfloat16, __nv_bfloat16>(d)
                            : general_own_bytes<__nv_bfloat16, int8_t>(d);
+  else if (on_i8_pipeline(q_dtype, s_dtype, d))
+    own = general_own_bytes<int8_t, int8_t>(d);
   else if (on_f32_pipeline(q_dtype, s_dtype, d))
     own = general_own_bytes<float, float>(d);
   return topk_scratch_bytes(

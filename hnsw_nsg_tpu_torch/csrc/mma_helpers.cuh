@@ -1,7 +1,8 @@
 // Pieces shared by the tensor-core kernels of this directory
-// (cluster_join.cu, grouped_scan.cu): cp.async copies, ldmatrix and
-// mma.sync m16n8k16 bf16 -> f32 wrappers, (value, position) keys, and
-// per-row 4-ary heaps in shared memory. Everything has internal linkage.
+// (cluster_join.cu, scan_pipeline.cuh): cp.async copies, ldmatrix, the
+// mma.sync m16n8k16 bf16 -> f32 and m16n8k32 s8 -> s32 wrappers,
+// (value, position) keys, and per-row 4-ary heaps in shared memory.
+// Everything has internal linkage.
 
 #pragma once
 
@@ -61,6 +62,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on int8: A [16 x 32] row-major in 4 words (4 int8 each: row
+// lane / 4, k (lane % 4) * 4 ..; row + 8; k + 16; both), B [32 x 8] in 2
+// (column lane / 4, k (lane % 4) * 4 .. and + 16), C the m16n8k16 f32
+// layout in s32. Exact: no product or sum of int8 rows up to d = 3840
+// leaves s32.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

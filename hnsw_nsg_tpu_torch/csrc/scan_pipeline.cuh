@@ -1,16 +1,18 @@
-// The ring pipeline of the grouped scan's fast kernels, shared by
-// grouped_scan.cu (a bf16 query with bf16 or int8 slabs, on mma.sync
-// tensor cores) and grouped_scan_f32.cu (f32 x f32 in exact FMAs on CUDA
-// cores), which compile in parallel. Notes on the kernels' function are at
-// the top of grouped_scan.cu.
+// The ring pipeline of the grouped scan's fast kernels, one dtype pair's
+// instantiations a file so that they compile in parallel:
+// grouped_scan_bf16.cu and grouped_scan_sq8.cu (a bf16 query with bf16 or
+// int8 slabs, on mma.sync bf16 tensor cores), grouped_scan_i8.cu (int8 x
+// int8 on mma.sync s8 tensor cores, exact s32 sums), grouped_scan_f32.cu
+// (f32 x f32 in exact FMAs on CUDA cores). Notes on the kernels' function
+// are at the top of grouped_scan.cu.
 //
 // A block takes one cluster and up to 32 of its query rows, so at
 // cap <= 32 a slab is read once. scan_products is the product warps'
 // pipeline:
 //   * The query rows are gathered by pointer into shared memory once per
 //     block (zero for pad slots and past d), where they stay for the whole
-//     run; a bf16 query at d <= 128 is also kept as mma A fragments in
-//     registers.
+//     run; a bf16 or int8 query at d <= 128 is also kept as mma A
+//     fragments in registers.
 //   * The slab streams through a cp.async ring of [64 rows x 256 bytes]
 //     stages (128 d of bf16, 64 d of f32; 128 d of int8 in 128 bytes),
 //     rows padded by 16 bytes so that a warp's shared loads hit distinct
@@ -22,6 +24,9 @@
 //       products, B fragments by ldmatrix;
 //     - int8 slab (SQ8): the same, the B fragments read as words and
 //       upcast (every int8 is a bf16);
+//     - int8 slab and int8 query: mma.sync m16n8k32 s8 -> s32, A and B
+//       fragments read as words and used as they are; the s32 sums are
+//       exact, so their order does not matter;
 //     - f32 slab: each thread forms the 16 sums of its 4 query rows and 4
 //       slab rows (the mma accumulator layout) in fmaf, its operands read
 //       as float4 along d: 8 16-byte shared loads for 64 FMAs. Each sum
@@ -67,11 +72,12 @@ template <typename ST>
 __host__ __device__ constexpr int chunk_d() {
   return sizeof(ST) == 4 ? 64 : 128;
 }
-// The widest d the pipeline takes with slabs of type ST: the query tile,
-// 32 rows of up to 3,840 bytes (123 KB), must fit beside the ring.
-template <typename ST>
+// The widest d the pipeline takes with a query of type QT: the query
+// tile, 32 rows of up to 3,840 bytes (123 KB), must fit beside the ring
+// (f32: 960, bf16: 1920, int8: 3840).
+template <typename QT>
 __host__ __device__ constexpr int max_d() {
-  return sizeof(ST) == 4 ? 960 : 1920;
+  return 3840 / static_cast<int>(sizeof(QT));
 }
 
 // A ring stage: the [kTN x chunk_d] slab tile, rows padded by 16 bytes so
@@ -100,12 +106,15 @@ __host__ __device__ constexpr size_t q_tile_bytes(int n_dc) {
 }
 
 // Ring stages and blocks an SM of the k <= 32 kernels. d <= 128: a small
-// query tile leaves room for several blocks an SM (bf16: 3 of 2 stages;
-// f32: 2 of 3 stages), whose phases (wait, products, staging) overlap one
-// another; that measured faster than fewer blocks of more stages. Above,
-// the query tile fills the SM's shared memory and the ring is all the
-// overlap there is. The general kernels are alone on their SM (their
-// rows' buffers fill it) and take 3 stages (bf16: 2 above d = 128).
+// query tile leaves room for several blocks an SM (bf16 and int8 slabs: 3
+// of 2 stages; f32: 2 of 3 stages), whose phases (wait, products,
+// staging) overlap one another; that measured faster than fewer blocks of
+// more stages. int8 x int8 measured 1-2% faster at 3 blocks than at 4
+// (~52 KB each at k = 32; 5 do not fit), and 3 stages gained nothing.
+// Above, the query tile fills the SM's shared memory and the ring is all
+// the overlap there is. The general kernels are alone on their SM (their
+// rows' buffers fill it) and take 3 stages (bf16 and int8 slabs: 2 above
+// d = 128).
 template <typename ST>
 __host__ __device__ constexpr int ring_stages(bool narrow) {
   return narrow ? (sizeof(ST) == 4 ? 3 : 2) : 4;
@@ -161,6 +170,9 @@ __device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo,
   hi = __byte_perm(f2, f3, 0x7632);
 }
 
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int v) { return __int2float_rn(v); }
+
 // acc[mi][ni][hr * 2 + h] += a[mi * 2 + hr] . b[ni * 2 + h] over the 4 d
 // values of the float4s, one fmaf at a time in increasing d
 __device__ __forceinline__ void ffma_4x4(float (&acc)[2][2][4],
@@ -195,8 +207,8 @@ __device__ __forceinline__ void product_warps_sync() { named_sync(1, kPT); }
 // The product warps' pipeline, shared by the kernels of both files.
 //   * The block's 32 query rows (qrow_s: the gathered row, -1 for a pad)
 //     are copied into q_s, [rows][q_ld] of QT, zero for pad rows and past
-//     d. A bf16 query at d <= 128 (kNarrow) is kept as mma A fragments in
-//     registers for the whole run.
+//     d. A bf16 or int8 query at d <= 128 (kNarrow) is kept as mma A
+//     fragments in registers for the whole run.
 //   * The slab (rows slab_row0 .. + maxc) streams through a cp.async ring
 //     of kRing stages of [64 rows x chunk_d] (bf16 and int8: 128 d; f32:
 //     64 d), the tail of d zero-filled.
@@ -209,12 +221,17 @@ __device__ __forceinline__ void product_warps_sync() { named_sync(1, kPT); }
 //     stage: the thread's 32 bytes of a row's d chunk hold its 4 values of
 //     each of the chunk's 8 k-steps, and the query's A fragments are read
 //     in the same order, so the k order within a chunk is permuted alike
-//     on both sides. f32 slab: ffma_4x4 on float4 loads of the thread's
-//     4 query rows and 4 slab rows, in increasing d.
+//     on both sides. int8 slab and int8 query: mma.sync m16n8k32 s8 ->
+//     s32 on the words as they are: the thread's 32 bytes of a row's d
+//     chunk are two 16-byte halves, each the B words of 2 of the chunk's 4
+//     k-steps, and its A words are read in the same order from 16-byte
+//     loads of the query tile. f32 slab: ffma_4x4 on float4 loads of the
+//     thread's 4 query rows and 4 slab rows, in increasing d.
 //   * At the end of tile t, epi(t, dist) takes its distances:
 //     dist[mi][hr][ni][h] is query row mi * 16 + hr * 8 + lane / 4 against
 //     tile slot wn * 16 + ni * 8 + (lane % 4) * 2 + h, rounded as the plain
-//     version rounds bias - scale * dot; +inf past maxc.
+//     version rounds bias - scale * dot (an s32 dot converted to f32 in
+//     one rounding); +inf past maxc.
 template <typename QT, typename ST, bool kAsync, bool kNarrow, int kRing,
           typename Epi>
 __device__ __forceinline__ void scan_products(
@@ -223,8 +240,10 @@ __device__ __forceinline__ void scan_products(
     const float* __restrict__ bias, long long slab_row0, int d, int maxc,
     float scale, int tid, Epi&& epi) {
   constexpr bool kI8 = sizeof(ST) == 1;
+  constexpr bool kI8I8 = kI8 && sizeof(QT) == 1;   // s8 mma, s32 sums
   constexpr bool kF32 = sizeof(ST) == 4;
   constexpr bool kAReg = kNarrow && !kF32;    // A fragments in registers
+  constexpr int kKSteps = kI8I8 ? 4 : 8;      // mma k-steps a d chunk
   constexpr int kTD = chunk_d<ST>();
   constexpr int kRB = stage_row_bytes<ST>();
   constexpr int kSB = stage_bytes<ST>();
@@ -282,8 +301,9 @@ __device__ __forceinline__ void scan_products(
 #pragma unroll
   for (int s = 0; s < kRing - 1; ++s) issue();
 
-  float acc[2][2][4];
-  uint32_t af[kAReg ? 8 : 1][2][4];   // the resident query
+  using Acc = std::conditional_t<kI8I8, int, float>;
+  Acc acc[2][2][4];
+  uint32_t af[kAReg ? kKSteps : 1][2][4];   // the resident query
   // bf16: ldmatrix lane offsets: A rows lane % 16, columns (lane / 16) * 8;
   // B rows (lane / 16) * 8 + lane % 8, columns ((lane / 8) % 2) * 8
   const uint32_t a_base = smem_addr(q_s + (lane & 15) * ldq
@@ -292,8 +312,10 @@ __device__ __forceinline__ void scan_products(
                     : kI8 ? (wn * 16 + (lane >> 2)) * kRB + (lane & 3) * 32
                           : (wn * 16 + ((lane >> 4) << 3) + (lane & 7)) * kRB
                                 + ((lane >> 3) & 1) * 16;
-  // int8: the A pairs of k-step kk of a chunk for this thread, row
-  // mi * 16 + lane / 4 (+ 8): columns (lane % 4) * 32 + kk * 4 .. + 3
+  // int8 slabs: the A words of a chunk for this thread, row mi * 16 +
+  // lane / 4 (+ 8), from column (lane % 4) * 32: SQ8's bf16 pairs of
+  // k-step kk at kk * 4 .. + 3; int8 x int8's words of k-steps 2 h and
+  // 2 h + 1 in the 16 bytes at h * 16
   const QT* a8 = q_s + (lane >> 2) * ldq + (lane & 3) * 32;
   auto load_a8 = [&](uint32_t (&a)[4], int mi, int col) {
     const uint2 lo = *reinterpret_cast<const uint2*>(a8 + mi * 16 * ldq
@@ -304,6 +326,21 @@ __device__ __forceinline__ void scan_products(
     a[1] = hi.x;
     a[2] = lo.y;
     a[3] = hi.y;
+  };
+  auto load_a16 = [&](uint32_t (&a0)[4], uint32_t (&a1)[4], int mi,
+                      int col) {
+    const uint4 lo = *reinterpret_cast<const uint4*>(a8 + mi * 16 * ldq
+                                                     + col);
+    const uint4 hi = *reinterpret_cast<const uint4*>(a8 + (mi * 16 + 8) * ldq
+                                                     + col);
+    a0[0] = lo.x;
+    a0[1] = hi.x;
+    a0[2] = lo.y;
+    a0[3] = hi.y;
+    a1[0] = lo.z;
+    a1[1] = hi.z;
+    a1[2] = lo.w;
+    a1[3] = hi.w;
   };
   const int d16 = (d + 15) / 16;   // k-steps in all of d
 
@@ -320,7 +357,7 @@ __device__ __forceinline__ void scan_products(
 #pragma unroll
         for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+          for (int j = 0; j < 4; ++j) acc[mi][ni][j] = Acc(0);
     }
     if constexpr (kF32) {
       // the thread's query rows lane / 4 + 8 j and slab rows b_off / kRB
@@ -340,6 +377,48 @@ __device__ __forceinline__ void scan_products(
           b[n] = *reinterpret_cast<const float4*>(
               sp + ((n >> 1) * 8 + (n & 1)) * kRB + kk * 16);
         ffma_4x4(acc, a, b);
+      }
+    } else if constexpr (kI8I8) {
+      // every k-step of a chunk, as SQ8 below; k-step 2 h + q takes words
+      // 2 q and 2 q + 1 of the 16-byte half h, on both sides
+      const unsigned char* bp = st + b_off;
+      if constexpr (kAReg) {
+        if (s == 0) {   // the query tile landed with the first stage
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              load_a16(af[2 * h][mi], af[2 * h + 1][mi], mi, h * 16);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint4 w[2];
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+          w[ni] = *reinterpret_cast<const uint4*>(bp + ni * 8 * kRB + h * 16);
+        uint32_t a[2][2][4];   // [q][mi]
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if constexpr (kAReg) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              a[0][mi][j] = af[2 * h][mi][j];
+              a[1][mi][j] = af[2 * h + 1][mi][j];
+            }
+          } else {
+            load_a16(a[0][mi], a[1][mi], mi, dc * kTD + h * 16);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_s8(acc[mi][0], a[q][mi], (&w[0].x)[2 * q],
+                   (&w[0].x)[2 * q + 1]);
+            mma_s8(acc[mi][1], a[q][mi], (&w[1].x)[2 * q],
+                   (&w[1].x)[2 * q + 1]);
+          }
       }
     } else if constexpr (kI8) {
       // every k-step of a chunk: the permuted order mixes the tail of d
@@ -446,7 +525,8 @@ __device__ __forceinline__ void scan_products(
 #pragma unroll
             for (int h = 0; h < 2; ++h)
               dist[mi][hr][ni][h] = __fsub_rn(
-                  fb[ni][h], __fmul_rn(scale, acc[mi][ni][hr * 2 + h]));
+                  fb[ni][h],
+                  __fmul_rn(scale, as_f32(acc[mi][ni][hr * 2 + h])));
       epi(t, dist);
     }
     if (++dc == n_dc) {
@@ -469,7 +549,8 @@ size_t scan_heap_smem_bytes(int n_dc, int k, int stages) {
          + kRows * 12;                  // query rows, 2 x candidate counts
 }
 
-// The body of the k <= 32 kernels (scan_mma_kernel, scan_f32_kernel).
+// The body of the k <= 32 kernels (scan_mma_kernel, scan_i8_kernel,
+// scan_f32_kernel).
 template <typename QT, typename ST, bool kAsync, bool kNarrow>
 __device__ __forceinline__ void scan_heap_body(
     const QT* __restrict__ qc, const int* __restrict__ qidx,
@@ -689,7 +770,7 @@ size_t general_own_bytes(int d) {
 }
 
 // The body of the general kernels (scan_general_mma_kernel,
-// scan_general_f32_kernel).
+// scan_general_i8_kernel, scan_general_f32_kernel).
 template <typename QT, typename ST, bool kAsync, bool kNarrow>
 __device__ __forceinline__ void scan_general_body(
     const QT* __restrict__ qc, const int* __restrict__ qidx,
@@ -860,6 +941,32 @@ scan_general_mma_kernel(const __nv_bfloat16* __restrict__ qc,
       qc, qidx, slabs, bias, vals, idx, scratch, cap, qn, d, maxc, k, scale);
 }
 
+// int8 x int8 on s8 tensor cores, exact s32 sums (notes in
+// grouped_scan_i8.cu)
+template <bool kAsync, bool kNarrow>
+__global__ void __launch_bounds__(kPT + kHT, blocks_per_sm<int8_t>(kNarrow))
+scan_i8_kernel(const int8_t* __restrict__ qc, const int* __restrict__ qidx,
+               const int8_t* __restrict__ slabs,
+               const float* __restrict__ bias, float* __restrict__ vals,
+               int* __restrict__ idx, int cap, int qn, int d, int maxc, int k,
+               float scale) {
+  scan_heap_body<int8_t, int8_t, kAsync, kNarrow>(
+      qc, qidx, slabs, bias, vals, idx, cap, qn, d, maxc, k, scale);
+}
+
+template <bool kAsync, bool kNarrow>
+__global__ void __launch_bounds__(kGThreads, 1)
+scan_general_i8_kernel(const int8_t* __restrict__ qc,
+                       const int* __restrict__ qidx,
+                       const int8_t* __restrict__ slabs,
+                       const float* __restrict__ bias,
+                       float* __restrict__ vals, int* __restrict__ idx,
+                       Key* scratch, int cap, int qn, int d, int maxc, int k,
+                       float scale) {
+  scan_general_body<int8_t, int8_t, kAsync, kNarrow>(
+      qc, qidx, slabs, bias, vals, idx, scratch, cap, qn, d, maxc, k, scale);
+}
+
 // f32 x f32 in exact FMAs on CUDA cores (notes in grouped_scan_f32.cu)
 template <bool kAsync, bool kNarrow>
 __global__ void __launch_bounds__(kPT + kHT, blocks_per_sm<float>(kNarrow))
@@ -903,12 +1010,16 @@ int launch_pipeline(bool general, const ScanArgs& a, cudaStream_t st) {
   const auto go = [&](auto async, auto narrow) {
     constexpr bool kA = decltype(async)::value, kN = decltype(narrow)::value;
     constexpr bool kF32 = std::is_same<QT, float>::value;
-    const auto heap = [] {   // the pair's kernels: f32 has names of its own
+    constexpr bool kI8I8 = std::is_same<QT, int8_t>::value;
+    // the pair's kernels: f32 and int8 x int8 have names of their own
+    const auto heap = [] {
       if constexpr (kF32) return scan_f32_kernel<kA, kN>;
+      else if constexpr (kI8I8) return scan_i8_kernel<kA, kN>;
       else return scan_mma_kernel<ST, kA, kN>;
     }();
     const auto gen = [] {
       if constexpr (kF32) return scan_general_f32_kernel<kA, kN>;
+      else if constexpr (kI8I8) return scan_general_i8_kernel<kA, kN>;
       else return scan_general_mma_kernel<ST, kA, kN>;
     }();
     const dim3 grid(a.n_clusters, (a.cap + kRows - 1) / kRows);
@@ -956,9 +1067,11 @@ int launch_pipeline(bool general, const ScanArgs& a, cudaStream_t st) {
 
 }  // namespace
 
-// One pair's launch_pipeline a file, so that the three compile in
+// One pair's launch_pipeline a file, so that the four compile in
 // parallel: grouped_scan_bf16.cu (a bf16 query with bf16 slabs),
-// grouped_scan_sq8.cu (a bf16 query with int8 slabs), grouped_scan_f32.cu.
+// grouped_scan_sq8.cu (a bf16 query with int8 slabs), grouped_scan_i8.cu
+// (int8 x int8), grouped_scan_f32.cu.
 int launch_scan_bf16(bool general, const ScanArgs& a, cudaStream_t st);
 int launch_scan_sq8(bool general, const ScanArgs& a, cudaStream_t st);
+int launch_scan_i8(bool general, const ScanArgs& a, cudaStream_t st);
 int launch_scan_f32(bool general, const ScanArgs& a, cudaStream_t st);

@@ -23,19 +23,22 @@ the JAX functions. The kernel goes by the dtype pair, d and k alone
 one above:
 
   * a bf16 query with a bf16 or an int8 slab (SQ8) up to
-    d = ``MAX_D_BF16`` = 1920 on tensor cores, ``scan_mma`` and
+    d = ``MAX_D_BF16`` = 1920 on bf16 tensor cores, ``scan_mma`` and
     ``scan_general_mma``;
+  * int8 x int8 (uint8 data stored shift-by-128) up to d = ``MAX_D_I8`` =
+    3840 on s8 tensor cores, exact s32 sums, ``scan_i8`` and
+    ``scan_general_i8``;
   * f32 x f32 up to d = ``MAX_D_F32`` = 960 in exact FMAs on the same
     pipeline (the 32 query rows of a block held in shared memory, the slab
     streamed through a cp.async ring), ``scan_f32`` and
     ``scan_general_f32``;
-  * int8 x int8, and the pairs above past those widths, on CUDA cores,
-    ``grouped_scan`` and ``scan_general``.
+  * the pairs above past those widths, on CUDA cores, ``grouped_scan``
+    and ``scan_general``.
 
 The kernels for k > 32 (``CNNSIndex.search``'s default k = 100) keep each
 row's running k smallest in a buffer, in global scratch that the wrapper
 allocates when k passes what shared memory holds. ``launches`` counts
-kernel launches and ``launches_by_kernel`` splits them by those six
+kernel launches and ``launches_by_kernel`` splits them by those eight
 names.
 
 The cluster join of the kNN-graph builder lives here too, as in the JAX
@@ -81,8 +84,11 @@ _PAIRS = {
     (torch.bfloat16, torch.int8),
 }
 MAX_K = 32          # the heap kernels' k; the general kernels take any k
-MAX_D_BF16 = 1920   # a bf16 query on tensor cores; wider d: CUDA cores
-MAX_D_F32 = 960     # f32 on the ring pipeline; wider d: the CUDA-core kernels
+# the widest d of the ring pipeline's kernels, whose query tile (32 rows
+# of up to 3,840 bytes) must fit shared memory; wider d: CUDA cores
+MAX_D_BF16 = 1920   # a bf16 query (bf16 or SQ8 int8 slabs), tensor cores
+MAX_D_I8 = 3840     # int8 x int8, s8 tensor cores
+MAX_D_F32 = 960     # f32 x f32, exact FMAs
 
 
 def scan_kernel(q_dtype, s_dtype, d: int, k: int) -> str:
@@ -92,6 +98,8 @@ def scan_kernel(q_dtype, s_dtype, d: int, k: int) -> str:
     if (q_dtype == torch.bfloat16 and s_dtype in (torch.bfloat16, torch.int8)
             and d <= MAX_D_BF16):
         names = ("scan_mma", "scan_general_mma")
+    elif q_dtype == s_dtype == torch.int8 and d <= MAX_D_I8:
+        names = ("scan_i8", "scan_general_i8")
     elif q_dtype == s_dtype == torch.float32 and d <= MAX_D_F32:
         names = ("scan_f32", "scan_general_f32")
     else:

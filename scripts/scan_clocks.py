@@ -1,4 +1,5 @@
-"""Where the f32 scan's product warps spend their cycles, on one CUDA card.
+"""Where the f32 and int8 x int8 scans' product warps spend their cycles,
+on one CUDA card.
 
     python3 scripts/scan_clocks.py [--tree DIR]
 
@@ -8,8 +9,10 @@ counters to ``scan_products`` in its ``csrc/scan_pipeline.cuh``: for each
 d chunk, the cycles a product warp spends waiting on the ring and the
 product warps' barrier, forming its sums, and in the epilogue that hands
 a tile's distances on (with its barriers with the top-k warps), summed
-over the f32 kernels' product warps. The copy builds with the tree's own
-``_build``; nothing else changes. Then it runs the f32 scan at
+over the product warps of one dtype pair's kernels (each pair's file
+keeps counters of its own). The copy builds with the tree's own
+``_build``; nothing else changes. Then it runs the f32 scan, and the int8
+x int8 scan where the tree has it (``csrc/grouped_scan_i8.cu``), at
 ``chip_smoke.BENCH`` (k = 10, 20 and 200) and at d=960 (C=128,
 maxc=1024, k=10) on ``chip_smoke.make_case`` inputs, five launches each,
 and prints one JSON line a shape: the cycles of each phase per product
@@ -64,7 +67,7 @@ EDITS = [
 }""", """    stage = stage == kRing - 1 ? 0 : stage + 1;
   }
   cp_async_wait<0>();
-  if (kF32 && lane == 0) {
+  if (lane == 0) {
     atomicAdd(&g_clk[0], c_wait);
     atomicAdd(&g_clk[1], c_prod);
     atomicAdd(&g_clk[2], c_epi);
@@ -74,14 +77,16 @@ EDITS = [
   }
 }"""),
 ]
-# read and clear the counters
+# read and clear the counters of one pair's file
 ACCESSOR = """
-extern "C" int scan_clocks(unsigned long long* out) {
+extern "C" int scan_clocks_{pair}(unsigned long long* out) {{
   cudaMemcpyFromSymbol(out, g_clk, sizeof(g_clk));
-  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};
+  const unsigned long long zero[6] = {{0, 0, 0, 0, 0, 0}};
   return static_cast<int>(cudaMemcpyToSymbol(g_clk, zero, sizeof(zero)));
-}
+}}
 """
+# the pairs counted: (name, the file of its instantiations)
+PAIRS = (("f32", "grouped_scan_f32.cu"), ("i8", "grouped_scan_i8.cu"))
 
 
 def main():
@@ -101,14 +106,18 @@ def main():
                 raise SystemExit(f"anchor not found once: {anchor[:60]!r}")
             text = text.replace(anchor, new)
         src.write_text(text)
-        f32 = pkg / "csrc" / "grouped_scan_f32.cu"
-        f32.write_text(f32.read_text() + ACCESSOR)
-        run(tmp)
+        pairs = []
+        for pair, name in PAIRS:
+            f = pkg / "csrc" / name
+            if f.exists():
+                f.write_text(f.read_text() + ACCESSOR.format(pair=pair))
+                pairs.append(pair)
+        run(tmp, pairs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run(tree: Path):
+def run(tree: Path, pairs):
     sys.path.insert(0, str(tree))
     import torch
 
@@ -127,23 +136,27 @@ def run(tree: Path):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     b = smoke.BENCH
-    f32 = torch.float32
-    for name, (c, maxc, d, cap, qn), ks in (
-            ("bench", (b["c"], b["maxc"], b["d"], b["cap"], b["qn"]),
-             (10, 20, 200)),
-            ("d=960", (128, 1024, 960, 32, 2048), (10,))):
+    dtypes = {"f32": torch.float32, "i8": torch.int8}
+    for pair, name, (c, maxc, d, cap, qn), ks in (
+            (pair, name, shape, ks) for pair in pairs
+            for name, shape, ks in (
+                ("bench", (b["c"], b["maxc"], b["d"], b["cap"], b["qn"]),
+                 (10, 20, 200)),
+                ("d=960", (128, 1024, 960, 32, 2048), (10,)))):
+        dt = dtypes[pair]
+        counters = getattr(lib, f"scan_clocks_{pair}")
         qc, qidx, slabs, bias, scale = smoke.make_case(
-            gen, c, maxc, d, cap, qn, f32, f32, "l2")
+            gen, c, maxc, d, cap, qn, dt, dt, "l2")
         for k in ks:
             cs.grouped_cluster_topk_gq(qc, qidx, slabs, bias, k, scale)
             torch.cuda.synchronize()
-            lib.scan_clocks(clk)   # clear
+            counters(clk)   # clear
             ms = smoke.cuda_ms(lambda: cs.grouped_cluster_topk_gq(
                 qc, qidx, slabs, bias, k, scale), reps=5, warmup=0)
-            lib.scan_clocks(clk)
+            counters(clk)
             wait, prod, epi, total, warps, steps = list(clk)
             print(json.dumps(dict(
-                shape=name, k=k, kernel=cs.scan_kernel(f32, f32, d, k),
+                shape=name, k=k, kernel=cs.scan_kernel(dt, dt, d, k),
                 ms_with_counters=ms, product_warps=warps,
                 chunks_per_warp=steps / warps,
                 wait_cycles=wait / steps, product_cycles=prod / steps,

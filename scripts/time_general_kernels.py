@@ -5,8 +5,8 @@ kernels at a k that both take, on one CUDA card.
 
 The wrapper picks a general kernel only above k = 32
 (``cluster_scan.scan_kernel``): scan_general_mma beside scan_mma for a
-bf16 query with a bf16 or int8 slab, scan_general_f32 beside scan_f32
-for f32, scan_general beside grouped_scan for int8 x int8. This script
+bf16 query with a bf16 or int8 slab, scan_general_i8 beside scan_i8
+for int8 x int8, scan_general_f32 beside scan_f32 for f32. This script
 calls both entry points of the library on the same inputs at a k the
 heap kernels take: the scan at
 chip_smoke.py's bench shape (C=1152, maxc=2056, d=128, cap=32) for every

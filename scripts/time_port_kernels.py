@@ -1,10 +1,12 @@
-"""Device times of the port's merge+select, grouped-scan (bf16, SQ8 and
-f32) and cluster-join kernels for one source tree, on one CUDA card.
+"""Device times of the port's merge+select, grouped-scan (bf16, SQ8, f32
+and int8 x int8) and cluster-join kernels for one source tree, on one
+CUDA card.
 
-    python3 scripts/time_port_kernels.py [--tree DIR]
+    python3 scripts/time_port_kernels.py [--tree DIR] [--only KIND ...]
 
 ``--tree`` is the root of a checkout of this repository (default: the one
-this script is in) whose ``hnsw_nsg_tpu_torch`` is built and timed. The
+this script is in) whose ``hnsw_nsg_tpu_torch`` is built and timed;
+``--only`` times some of the three kinds (merge, scan, join). The
 inputs, their seeds, the repetitions and the timer (``cuda_ms``: CUDA
 events around one launch queued behind a device sleep) are those of this
 checkout's ``chip_smoke.py``, so two checkouts can be timed one after the
@@ -13,7 +15,9 @@ own lines. The scan runs at ``chip_smoke.BENCH`` (C=1152, maxc=2056,
 d=128, cap=32) in bf16 at k = 10, 20, 100 and 200, and with int8 slabs
 and a bf16 query (SQ8) at k = 10, 20 and 200 there and at d=960 (C=128,
 maxc=1024); the bf16 d=960 shape at k=10; f32 (query and slabs) at the
-bench shape at k = 10, 20 and 200 and at d=960 at k=10. The join runs at
+bench shape at k = 10, 20 and 200 and at d=960 at k=10; int8 x int8 at
+the bench shape at k = 10, 20, 100 and 200 and at d=960 at k=10. The
+join runs at
 the 1M build shape of ``chip_smoke.py`` phase 7 (the 1091 clusters that
 phase 6's build of the 1M data makes, slabs of 2112 rows, M=8, d=128):
 bf16 at k = 52, 102 and 202, f32 at k = 10, 52 and 102. Prints one JSON line per
@@ -49,6 +53,8 @@ def digest(*ts) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--only", nargs="+", choices=("merge", "scan", "join"),
+                    default=("merge", "scan", "join"))
     args = ap.parse_args()
     sys.path.insert(0, args.tree)   # the package under test
     import torch
@@ -64,7 +70,7 @@ def main():
 
     card = smoke.card_line()
     for i, (name, q, l, c, expand, _, _) in enumerate(smoke.MERGE_CASES):
-        if name not in MERGE_TIMED:
+        if name not in MERGE_TIMED or "merge" not in args.only:
             continue
         state = smoke.merge_state(100 + i, q, l, c, expand)
         t = smoke.cuda_ms(lambda: ms.fused_merge_select(*state, expand),
@@ -74,24 +80,36 @@ def main():
                               Q=q, L=l, C=c, expand=expand, ms=t,
                               digest=out, card=card)))
         del state
-    # the scan: one input set a (shape, slab type) from chip_smoke's
-    # generator, every k on it
+    if "scan" in args.only:
+        time_scan(smoke, cs, args.tree, card)
+    if "join" in args.only:
+        time_join(smoke, cs, args.tree, card)
+
+
+def time_scan(smoke, cs, tree, card):
+    """The scan: one input set a (shape, pair) from chip_smoke's
+    generator, every k on it."""
+    import torch
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     b = smoke.BENCH
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     bench = (b["c"], b["maxc"], b["d"], b["cap"], b["qn"])
     d960 = (128, 1024, 960, 32, 2048)
-    label = {bf: "bf16", i8: "SQ8", f32: "f32"}
-    for name, (c, maxc, d, cap, qn), sdt, ks in (
-            ("bench", bench, bf, (10, 20, 100, 200)),
-            ("bench", bench, i8, (10, 20, 200)),
-            ("d=960", d960, bf, (10,)),
-            ("d=960", d960, i8, (10, 20, 200)),
-            ("bench", bench, f32, (10, 20, 200)),
-            ("d=960", d960, f32, (10,))):
+    label = {(bf, bf): "bf16", (bf, i8): "SQ8", (f32, f32): "f32",
+             (i8, i8): "int8xint8"}
+    for name, (c, maxc, d, cap, qn), (qdt, sdt), ks in (
+            ("bench", bench, (bf, bf), (10, 20, 100, 200)),
+            ("bench", bench, (bf, i8), (10, 20, 200)),
+            ("d=960", d960, (bf, bf), (10,)),
+            ("d=960", d960, (bf, i8), (10, 20, 200)),
+            ("bench", bench, (f32, f32), (10, 20, 200)),
+            ("d=960", d960, (f32, f32), (10,)),
+            ("bench", bench, (i8, i8), (10, 20, 100, 200)),
+            ("d=960", d960, (i8, i8), (10,))):
         qc, qidx, slabs, bias, scale = smoke.make_case(
-            gen, c, maxc, d, cap, qn, f32 if sdt == f32 else bf, sdt, "l2")
+            gen, c, maxc, d, cap, qn, qdt, sdt, "l2")
         live = qidx >= 0
         for k in ks:
             t = smoke.cuda_ms(lambda: cs.grouped_cluster_topk_gq(
@@ -99,12 +117,19 @@ def main():
             out = digest(*(o[live] for o in cs.grouped_cluster_topk_gq(
                 qc, qidx, slabs, bias, k, scale)))
             print(json.dumps(dict(
-                kernel="grouped_cluster_topk_gq " + label[sdt],
-                tree=args.tree, shape=name, C=c, maxc=maxc, d=d, cap=cap,
+                kernel="grouped_cluster_topk_gq " + label[qdt, sdt],
+                tree=tree, shape=name, C=c, maxc=maxc, d=d, cap=cap,
                 k=k, ms=t, digest=out, card=card)), flush=True)
         del qc, qidx, slabs, bias, live
         torch.cuda.empty_cache()
-    # chip_smoke.phase_join_build's inputs (its seed) at three k
+
+
+def time_join(smoke, cs, tree, card):
+    """chip_smoke.phase_join_build's inputs (its seed) at three k, bf16
+    and f32."""
+    import torch
+
+    bf = torch.bfloat16
     c, maxc, probes, d = BUILD_SLABS, 2112, 8, 128
     qv, st, bias, scale = smoke.join_case(4, c, maxc, probes * maxc, d, bf,
                                           "l2")
@@ -114,7 +139,7 @@ def main():
                           reps=3, warmup=1)
         out = digest(*cs.cluster_join_topk(qv, st, bias, k, scale))
         print(json.dumps(dict(kernel="cluster_join_topk bf16",
-                              tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
+                              tree=tree, C=c, maxc=maxc, M=probes, d=d,
                               k=k, ms=t, digest=out, card=card)))
         torch.cuda.empty_cache()
     del qv, st, bias
@@ -129,7 +154,7 @@ def main():
                           reps=3, warmup=1)
         out = digest(*cs.cluster_join_topk(qv, st, bias, k, scale))
         print(json.dumps(dict(kernel="cluster_join_topk f32",
-                              tree=args.tree, C=c, maxc=maxc, M=probes, d=d,
+                              tree=tree, C=c, maxc=maxc, M=probes, d=d,
                               k=k, ms=t, digest=out, card=card)))
         torch.cuda.empty_cache()
 

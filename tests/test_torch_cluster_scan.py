@@ -195,14 +195,19 @@ def test_main_path_call_matches_pallas(qd, sd, metric):
     ("f32", "f32", 960, 100, "scan_general_f32"),
     ("f32", "f32", 968, 10, "grouped_scan"),        # past the query tile
     ("f32", "f32", 968, 200, "scan_general"),
-    ("int8", "int8", 128, 32, "grouped_scan"),
-    ("int8", "int8", 128, 33, "scan_general"),
+    ("int8", "int8", 128, 32, "scan_i8"),
+    ("int8", "int8", 128, 33, "scan_general_i8"),
+    ("int8", "int8", 3840, 10, "scan_i8"),          # d = MAX_D_I8
+    ("int8", "int8", 3840, 100, "scan_general_i8"),
+    ("int8", "int8", 3848, 10, "grouped_scan"),     # past the query tile
+    ("int8", "int8", 3848, 200, "scan_general"),
 ])
 def test_scan_kernel_goes_by_dtypes_d_and_k(qd, sd, d, k, kernel):
-    """The kernel a launch counts under: tensor cores for a bf16 query
-    with a bf16 or int8 slab up to d = 1920, exact f32 FMAs on the same
-    ring pipeline up to d = 960, the CUDA-core kernels for the rest; the
-    heap kernels up to k = 32, the general ones above."""
+    """The kernel a launch counts under: bf16 tensor cores for a bf16
+    query with a bf16 or int8 slab up to d = 1920, s8 tensor cores for
+    int8 x int8 up to d = 3840, exact f32 FMAs on the same ring pipeline
+    up to d = 960, the CUDA-core kernels for the rest; the heap kernels up
+    to k = 32, the general ones above."""
     assert cs.scan_kernel(_T[qd], _T[sd], d, k) == kernel
 
 

@@ -731,9 +731,10 @@ def test_api_and_hybrid_default_to_the_card(card):
 @pytest.mark.parametrize("qdt,sdt", PAIRS)
 @pytest.mark.parametrize("k", [33, 64, 100, 200, 256, "maxc"])
 def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
-    """k > 32 runs a general kernel (on tensor cores for a bf16 query with
-    a bf16 or int8 slab, in exact FMAs on the same pipeline for f32, else
-    on the CUDA-core kernel): vals within f32 summation
+    """k > 32 runs a general kernel (on bf16 tensor cores for a bf16 query
+    with a bf16 or int8 slab, on s8 tensor cores for int8 x int8, in exact
+    FMAs on the same pipeline for f32, else on the CUDA-core kernel): vals
+    within f32 summation
     order (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an
     int8 slab's |bias| ~ 7e5); ids equal except where a near-tie swaps,
     and a returned slot scores its value. The +inf tail comes back with
@@ -746,7 +747,8 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
     rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                   scale)
     kern = cs.scan_kernel(qdt, sdt, d, k)
-    assert kern in ("scan_general_mma", "scan_general_f32", "scan_general")
+    assert kern in ("scan_general_mma", "scan_general_i8", "scan_general_f32",
+                    "scan_general")
     before, k0 = cs.launches, cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
@@ -778,8 +780,11 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qdt,sdt,k,in_scratch", [
-    # the CUDA-core kernel's buffers leave shared memory past k = 396
+    # int8 x int8 on s8 tensor cores at d <= 128: past k = 306 (its query
+    # tile is half SQ8's)
     (torch.int8, torch.int8, 500, True),
+    (torch.int8, torch.int8, 306, False),
+    (torch.int8, torch.int8, 307, True),
     # the f32 pipeline's at d = 32: past k = 250, as bf16's
     (torch.float32, torch.float32, 250, False),
     (torch.float32, torch.float32, 251, True),
@@ -1122,27 +1127,69 @@ def test_hnsw_accel_insert_on_card(card):
 
 # -- the f32 scan on the ring pipeline (scan_f32, scan_general_f32) --------
 
-def _f32_int_case(seed, c, cap, maxc, d, qn, dup=False):
-    """Integer-valued f32 rows in [-6, 6]: every product and every sum is
-    exact whatever the order, so the kernels and the plain version agree
-    bit for bit. L2 bias (slab norms, +inf on ~20% of the slots and the
-    last cluster), ~20% pad query slots, cluster 1 with 7 live rows, the
-    query list of cluster 0 all pad. dup: every odd slab row repeats the
-    row before it, so equal values must come back lowest slot first."""
+def _int_case(seed, c, cap, maxc, d, qn, dtype=torch.float32, lo=-6,
+              hi=7, metric="l2", dup=False):
+    """Integer-valued rows in [lo, hi) (f32 rows in [-6, 6], or int8 rows
+    as uint8 data shifted by 128 gives them): every product and every sum
+    is exact whatever the order, so the kernels and the plain version
+    agree bit for bit. L2 bias (slab norms) or ip bias 1, +inf on ~20% of
+    the slots and the last cluster; ~20% pad query slots, cluster 1 with
+    7 live rows, the query list of cluster 0 all pad. dup: every odd slab
+    row repeats the row before it, so equal values must come back lowest
+    slot first; a narrow [lo, hi) makes ties everywhere. Returns (qc,
+    qidx, slabs, bias, scale)."""
+    np_dt = np.int8 if dtype == torch.int8 else np.float32
     rng = np.random.default_rng(seed)
-    qc = torch.from_numpy(rng.integers(-6, 7, (qn, d)).astype(np.float32))
-    slabs = torch.from_numpy(
-        rng.integers(-6, 7, (c, maxc, d)).astype(np.float32))
+    qc = torch.from_numpy(rng.integers(lo, hi, (qn, d)).astype(np_dt))
+    slabs = torch.from_numpy(rng.integers(lo, hi, (c, maxc, d)).astype(np_dt))
     if dup:
         slabs[:, 1::2] = slabs[:, 0:maxc - 1:2]
     valid = torch.from_numpy(rng.random((c, maxc)) < 0.8)
     valid[-1] = False
     valid[1, 7:] = False
-    bias = torch.where(valid, (slabs ** 2).sum(-1), float("inf"))
+    if metric == "l2":
+        base, scale = (slabs.double() ** 2).sum(-1).float(), 2.0
+    else:
+        base, scale = torch.ones((c, maxc)), 1.0
+    bias = torch.where(valid, base, float("inf"))
     qidx = torch.from_numpy(rng.integers(0, qn, (c, cap)).astype(np.int32))
     qidx[torch.from_numpy(rng.random((c, cap)) < 0.2)] = -1
     qidx[0, :] = -1
-    return qc, qidx, slabs, bias
+    return qc, qidx, slabs, bias, scale
+
+
+# the ring pipeline's exact pairs: (widest d, heap kernel, general kernel)
+_EXACT_PAIRS = {torch.float32: ("MAX_D_F32", "scan_f32", "scan_general_f32"),
+                torch.int8: ("MAX_D_I8", "scan_i8", "scan_general_i8")}
+
+
+def _check_exact(card, qc, qidx, slabs, bias, k, scale):
+    """Launch an exact pair (f32 on integer data, or int8 x int8) on the
+    card and hold it to the plain version: the pipeline's kernels up to
+    the pair's widest d, the CUDA-core ones past it; torch.equal on vals
+    and ids of every live row (the k <= 32 kernels give slot 0 in the
+    +inf tail, the general ones the plain version's slots). Returns the
+    plain version's vals on the live rows."""
+    dt, d = qc.dtype, qc.shape[1]
+    max_d, heap, general = _EXACT_PAIRS[dt]
+    want_kern = ((heap, general) if d <= getattr(cs, max_d)
+                 else ("grouped_scan", "scan_general"))[k > cs.MAX_K]
+    kern = cs.scan_kernel(dt, dt, d, k)
+    assert kern == want_kern
+    before = cs.launches_by_kernel[kern]
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
+    torch.cuda.synchronize()
+    assert cs.launches_by_kernel[kern] == before + 1
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                  scale)
+    live = qidx >= 0
+    kv, ki, rv, ri = kv.cpu()[live], ki.cpu()[live], rv[live], ri[live]
+    assert torch.equal(kv, rv)
+    if k <= cs.MAX_K:
+        ri = torch.where(torch.isinf(rv), 0, ri)
+    assert torch.equal(ki, ri)
+    return rv
 
 
 @pytest.mark.cuda
@@ -1176,25 +1223,9 @@ def test_f32_scan_equals_plain_on_integer_data(card, name, c, cap, maxc, d,
     and on integer-valued data gives the plain version's vals and ids,
     torch.equal on every live row; in the +inf tail the general kernels
     give the plain version's slots, the k <= 32 kernels slot 0."""
-    qc, qidx, slabs, bias = _f32_int_case(c * 1000 + d + k, c, cap, maxc,
-                                          d, qn, dup="duplicate" in name)
-    kern = cs.scan_kernel(torch.float32, torch.float32, d, k)
-    want_kern = (("scan_f32", "scan_general_f32") if d <= cs.MAX_D_F32
-                 else ("grouped_scan", "scan_general"))[k > cs.MAX_K]
-    assert kern == want_kern
-    before = cs.launches_by_kernel[kern]
-    kv, ki = cs.grouped_cluster_topk_gq(
-        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, 2.0)
-    torch.cuda.synchronize()
-    assert cs.launches_by_kernel[kern] == before + 1
-    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
-                                                  2.0)
-    live = qidx >= 0
-    kv, ki, rv, ri = kv.cpu()[live], ki.cpu()[live], rv[live], ri[live]
-    assert torch.equal(kv, rv)
-    if k <= cs.MAX_K:
-        ri = torch.where(torch.isinf(rv), 0, ri)
-    assert torch.equal(ki, ri)
+    qc, qidx, slabs, bias, scale = _int_case(
+        c * 1000 + d + k, c, cap, maxc, d, qn, dup="duplicate" in name)
+    rv = _check_exact(card, qc, qidx, slabs, bias, k, scale)
     assert bool(torch.isinf(rv).any())   # the +inf tail ran
 
 
@@ -1218,3 +1249,141 @@ def test_f32_scan_unaligned_views(card, k):
                                      scale)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- int8 x int8 on s8 tensor cores (scan_i8, scan_general_i8) -------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c,cap,maxc,d,qn,k,metric", [
+    ("k = 1", 4, 32, 300, 128, 200, 1, "l2"),
+    ("bench-like k = 10", 4, 32, 300, 128, 200, 10, "l2"),
+    ("main path k = 20", 4, 32, 300, 128, 200, 20, "l2"),
+    ("k = 32", 4, 32, 300, 128, 200, 32, "l2"),
+    ("k = 33", 4, 32, 300, 128, 200, 33, "l2"),
+    ("k = 100", 3, 32, 600, 128, 200, 100, "l2"),
+    ("k = 200", 3, 32, 600, 128, 200, 200, "l2"),
+    ("k = maxc, maxc % 64 != 0", 3, 32, 130, 128, 60, 130, "l2"),
+    ("ip, maxc % 64 != 0", 3, 32, 130, 128, 60, 10, "ip"),
+    ("ip, k = 100", 3, 32, 300, 128, 60, 100, "ip"),
+    ("d = 100: rows off 16 bytes", 3, 32, 200, 100, 80, 10, "l2"),
+    ("d = 100, k = 100", 3, 32, 200, 100, 80, 100, "l2"),
+    ("d = 960", 2, 32, 150, 960, 40, 10, "l2"),
+    ("d = 960, k = 20", 2, 32, 150, 960, 40, 20, "l2"),
+    ("d = 960, k = 200", 2, 32, 300, 960, 40, 200, "l2"),
+    ("d = MAX_D_I8", 2, 32, 100, 3840, 40, 10, "l2"),
+    ("d = MAX_D_I8, k = 33", 2, 32, 100, 3840, 40, 33, "l2"),
+    ("d = MAX_D_I8, k = maxc", 2, 32, 100, 3840, 40, 100, "l2"),
+    ("d = MAX_D_I8 + 8: CUDA cores", 2, 32, 100, 3848, 40, 10, "l2"),
+    ("d = MAX_D_I8 + 8, k = 100: CUDA cores", 2, 32, 150, 3848, 40, 100,
+     "l2"),
+    ("cap = 80", 4, 80, 200, 128, 300, 10, "l2"),
+    ("cap = 80, k = 32", 4, 80, 200, 128, 300, 32, "l2"),
+    ("cap = 80, k = 100", 4, 80, 200, 128, 300, 100, "l2"),
+    ("cap = 80, d = 960, k = 10", 2, 80, 150, 960, 100, 10, "l2"),
+    ("maxc < 64", 3, 32, 40, 16, 50, 10, "l2"),
+    ("k = 307: buffers in scratch", 2, 40, 600, 32, 100, 307, "l2"),
+])
+def test_i8_scan_equals_plain(card, name, c, cap, maxc, d, qn, k, metric):
+    """int8 x int8 on the card launches scan_i8 (k <= 32) or
+    scan_general_i8 up to d = MAX_D_I8 and the CUDA-core kernels past it,
+    and gives the plain version's vals and ids, torch.equal on every live
+    row: the s32 sums are exact in any order and each distance is rounded
+    as the plain version rounds it."""
+    qc, qidx, slabs, bias, scale = _int_case(
+        c * 1000 + d + k, c, cap, maxc, d, qn, torch.int8, -128, 128,
+        metric)
+    _check_exact(card, qc, qidx, slabs, bias, k, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,d,k,lo,hi,dup", [
+    ("duplicate rows", 128, 10, -128, 128, True),
+    ("duplicate rows, k = 64", 128, 64, -128, 128, True),
+    ("duplicate rows, d = 960, k = 20", 960, 20, -128, 128, True),
+    ("values in -1..1", 128, 10, -1, 2, False),
+    ("values in -1..1, k = 32", 128, 32, -1, 2, False),
+    ("values in -1..1, k = 100", 128, 100, -1, 2, False),
+    ("values in 0..1, d = 100, k = 200", 100, 200, 0, 2, True),
+])
+def test_i8_scan_exact_ties_go_to_the_lowest_slot(card, name, d, k, lo, hi,
+                                                  dup):
+    """Exact ties, as uint8 data has them everywhere: repeated slab rows,
+    and values so narrow that most distances tie. Both kernels must give
+    the plain version's (stable sort) ids, lowest slot first."""
+    c, cap, maxc, qn = 3, 40, 400, 100
+    qc, qidx, slabs, bias, scale = _int_case(d * 7 + k, c, cap, maxc, d, qn,
+                                             torch.int8, lo, hi, dup=dup)
+    _check_exact(card, qc, qidx, slabs, bias, k, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,d,k,in_scratch", [
+    (torch.int8, cs.MAX_D_I8 + 8, 396, False),
+    (torch.int8, cs.MAX_D_I8 + 8, 397, True),
+    (torch.bfloat16, cs.MAX_D_BF16 + 8, 500, True),
+])
+def test_cuda_core_scan_large_k_in_scratch(card, qdt, d, k, in_scratch):
+    """The CUDA-core general kernel (int8 x int8 past MAX_D_I8, a bf16
+    query past MAX_D_BF16) keeps its rows' buffers in shared memory up to
+    k = 396 and in global scratch past it; vals as the plain version's
+    (exact for int8 x int8), a returned slot scores its value."""
+    from hnsw_nsg_tpu_torch.ops._build import load_library
+
+    c, cap, maxc, qn = 2, 40, 600, 60
+    qc, qidx, slabs, bias, scale = _case(91 + k, qdt, qdt, "l2", c, cap,
+                                         maxc, d, qn)
+    assert cs.scan_kernel(qdt, qdt, d, k) == "scan_general"
+    codes = (cs._DTYPE_CODE[qdt],) * 2
+    assert (load_library().grouped_scan_general_scratch(
+        c, cap, d, k, *codes) > 0) == in_scratch
+    before = cs.launches_by_kernel["scan_general"]
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
+    torch.cuda.synchronize()
+    assert cs.launches_by_kernel["scan_general"] == before + 1
+    rv, _ = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                 scale)
+    kv, ki = kv.cpu(), ki.cpu()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    fin = live & torch.isfinite(rv)
+    tol = (dict(rtol=0.0, atol=0.0) if qdt == torch.int8
+           else dict(rtol=1e-5, atol=1e-2))
+    torch.testing.assert_close(kv[live], rv[live], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
+
+
+@pytest.mark.cuda
+def test_uint8_cnns_search_on_card_equals_cpu(card, tmp_path):
+    """A uint8 CNNS index (int8 slabs shifted by 128, exact integer
+    arithmetic end to end) searched on the card through scan_i8 (k=10)
+    and scan_general_i8 (k=100) gives the CPU search's ids and distances,
+    torch.equal, and the distances are the exact squared L2 distances of
+    the uint8 rows."""
+    x, q = make_data(20000, 128, 256, "l2", seed=0, uint8=True)
+    cpu_idx = cnns.build_cnns(
+        x, CNNSConfig(n_clusters=20, m=4, kmeans_iters=5, replicate=True),
+        slab_dtype=torch.int8, device="cpu")
+    assert cpu_idx.qshift == 128.0 and cpu_idx.qscale == 1.0
+    cpu_idx.save(str(tmp_path / "u8.npz"))
+    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "u8.npz"))
+    cpu_idx = cnns.CNNSIndex.load(str(tmp_path / "u8.npz"), device="cpu")
+    assert torch.equal(gpu_idx._route(torch.from_numpy(q - 128).to(card),
+                                      3).cpu(),
+                       cpu_idx._route(torch.from_numpy(q - 128), 3))
+    for k, kern in ((10, "scan_i8"), (100, "scan_general_i8")):
+        before = cs.launches_by_kernel[kern]
+        gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), k=k, nprobe=3,
+                                group=True)
+        assert cs.launches_by_kernel[kern] > before
+        cd, ci = cpu_idx.search(torch.from_numpy(q), k=k, nprobe=3,
+                                group=True)
+        gd, gi = gd.cpu(), gi.cpu()
+        assert torch.equal(gi, ci) and torch.equal(gd, cd)
+        ok = gi >= 0
+        assert bool(ok.all())
+        ex = ((torch.from_numpy(x).double()[gi]
+               - torch.from_numpy(q).double()[:, None, :]) ** 2).sum(-1)
+        assert torch.equal(gd.double(), ex)
