@@ -61,6 +61,16 @@ Phases, each of which fails the run (non-zero exit) on its own:
      kernels against their plain version (torch.equal on vals and ids) on
      the scan inputs of one of its searches, at k = 10, 20, 100 and 200,
      timed;
+ 3d. the host-spill index (``SpillCNNSIndex``, bench.py:339-412) over
+     phase 3c's index under a device budget of 1.0 GB below its 3.09 GB:
+     the spill index takes its pinned host copy, the resident index goes
+     (``torch.cuda.empty_cache()``), then an nprobe sweep over 2, 4, 8 at
+     k=10 (median of 3 timed repetitions): rounds, bytes moved, the
+     largest group (at most the budget), the peak device memory of the
+     search, and one group's host gather and host-to-device copy rates.
+     The distances at nprobe 2 must equal phase 3c's resident search
+     there (the per-query flat path) exactly, the ids too except among
+     equal distances (counted);
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
@@ -118,6 +128,25 @@ Phases, each of which fails the run (non-zero exit) on its own:
      kernels' launch counts are set to 0 before and read after each
      path, merge+select's also by shape and by kernel, the join's by
      kernel;
+ 6b. CNNS with NSG locals on phase 3's data (bench.py:414-444, engine
+     cnns_nsg): ``build_cnns(x, CNNSConfig(n_clusters=976, m=4,
+     kmeans_iters=12), local_index="nsg")`` with f32 slabs, no
+     replication: build seconds by stage (k-means, pools+prune,
+     interinsert, repair), the arena's mean degree, a BFS from the entry
+     points that must reach every node, the bytes of ``flat_adj`` and of
+     the index; an nprobe sweep at k=10, l_search=100 (median of 10) that
+     fails unless recall@10 >= 0.95 at some nprobe <= 8, with
+     merge+select's launches by shape and kernel around it (it fails if
+     none launched), and the output checked against exact f32 distances;
+     at that nprobe ``router="hnsw"`` on this index and on phase 3's flat
+     index, each within 0.05 recall of its flat router; then
+     ``local_index="hnsw"`` on the first 65,536 rows in 64 clusters (cut:
+     an ablation whose build runs one HNSW a cluster in turn): its arena
+     must reach every node, its recall@10 at l_search 64 and nprobe 1, 2,
+     4, 6 is printed (it falls as more clusters share the beam: reported,
+     not gated), and its search on the card must equal the same index's
+     on the CPU for 1,024 queries (ids at >= 99% of the slots, distances
+     within rtol 1e-5, atol 1e-3 where the ids agree);
   7. the cluster-join kernels versus their plain versions at the build
      shape (C from phase 6, maxc 2112, M=8, d=128; bf16 at k=52, 102 and
      202, f32 at k=10, 52 and 102): both times, the rows a block, the id
@@ -136,6 +165,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -515,10 +545,11 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
            - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
     if not torch.allclose(ddh[:256], ex, rtol=1e-2, atol=1e-1):
         raise AssertionError("returned distances disagree with exact ones")
-    del idx, dd, d100, i100
+    del dd, d100, i100
     f32_counts = phase_f32_search(card, x, qd, gt, reached,
                                   sweep[-1]["recall"], device)
-    return counts, f32_counts
+    # the index stays for phase 6b's HNSW router
+    return counts, f32_counts, idx
 
 
 def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
@@ -759,6 +790,7 @@ def phase_sift10m_u8(card, n=10_000_000, nq=8192, device="cuda"):
     without a card. Returns the scan's launches by kernel and, on the
     card, each k's (error, ms, plain ms, bound)."""
     from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
+    from hnsw_nsg_tpu_torch.models.spill import SpillCNNSIndex
     from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
     from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
@@ -877,12 +909,20 @@ def phase_sift10m_u8(card, n=10_000_000, nq=8192, device="cuda"):
 
     check_rows(*res10[reached], f"k=10, nprobe={reached}")
     check_rows(d100, i100, f"k=100, nprobe={reached}")
+    res2 = res10[SPILL_CHECK_NPROBE]   # phase 3d's reference
     del x, d100, i100, res10
 
     # the scan inputs of the k=10 search at that nprobe, then both
     # kernels against their plain version on them
     qc, qidx, slabs, bias, call_k, scale = scan_call(
         lambda: idx.search(qd, k=10, nprobe=reached))
+    # phase 3d's spill index takes its host copy of this index; then the
+    # resident index goes (its slabs with the scan call's inputs below)
+    sync()
+    t0 = time.perf_counter()
+    sp = SpillCNNSIndex(idx, SPILL_BUDGET)
+    spill_copy_s = time.perf_counter() - t0
+    index_bytes = idx.index_bytes()
     del idx
     peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
     live = qidx >= 0
@@ -918,11 +958,116 @@ def phase_sift10m_u8(card, n=10_000_000, nq=8192, device="cuda"):
                   f"{p_ms:.4f} ms (median); bound {b_k[0]:.4f} ms "
                   f"({b_k[1]}), kernel at {b_k[0] / k_ms:.1%} of it [{card}]")
         del got
-    del qc, qidx, slabs, bias, qd, live
+    del qc, qidx, slabs, bias, live
     if on_card:
         torch.cuda.empty_cache()
     print(f"sift10m_u8 phase: {time.perf_counter() - t_phase:.1f} s")
-    return counts, timed
+    spill_in = dict(sp=sp, qd=qd, gt=gt, resident=res2,
+                    copy_s=spill_copy_s, index_bytes=index_bytes)
+    return counts, timed, spill_in
+
+
+# phase 3d: the host-spill index over phase 3c's index (bench.py:339-412)
+SPILL_BUDGET = int(1.0e9)
+SPILL_NPROBE = (2, 4, 8)
+SPILL_CHECK_NPROBE = 2   # phase 3c took the per-query flat path there
+
+
+def tie_mismatches(dd, ii, ref_d, ref_i):
+    """Positions where ids differ although the distances are equal, when
+    every such position lies in a run of equal distances of its row (the
+    two searches merged equal candidates in another order); raises at any
+    other difference. Returns the count of differing ids."""
+    if not torch.equal(dd, ref_d):
+        raise AssertionError("the distances are not the reference's")
+    diff = ii != ref_i
+    tied = torch.zeros_like(diff)
+    tied[:, 1:] |= dd[:, 1:] == dd[:, :-1]
+    tied[:, :-1] |= dd[:, :-1] == dd[:, 1:]
+    if bool((diff & ~tied).any()):
+        raise AssertionError(f"{int((diff & ~tied).sum())} ids differ at "
+                             f"distances that are not tied")
+    return int(diff.sum())
+
+
+def phase_spill(card, sp, qd, gt, resident, copy_s, index_bytes,
+                device="cuda"):
+    """Phase 3d, the host-spill CNNS index (``SpillCNNSIndex``) under a
+    device budget of 1.0 GB below the size of phase 3c's index, which it
+    wraps; the resident index is gone. An nprobe sweep over 2, 4, 8 at
+    k=10 (bench.py:386), the median of 3 timed repetitions each: rounds,
+    bytes moved, the largest group (which must fit the budget), the peak
+    device memory of the search and the host-to-device rate of a group's
+    copy. The distances at nprobe 2 must equal phase 3c's resident search
+    (the per-query flat path there) exactly, the ids too except among
+    equal distances (counted). Smaller inputs and ``device="cpu"``
+    rehearse it without a card."""
+    from hnsw_nsg_tpu_torch.models.spill import SpillStats
+    from hnsw_nsg_tpu_torch.ops import recall
+
+    on_card = device == "cuda"
+    nq = qd.shape[0]
+    print(f"spill: index {index_bytes / 1e9:.4f} GB, budget "
+          f"{SPILL_BUDGET / 1e9:.2f} GB, {sp.slab_bytes} B a slab, "
+          f"group_size={sp.group_size} slabs "
+          f"({sp.group_size * sp.slab_bytes / 1e9:.4f} GB a group), host "
+          f"copy {copy_s:.2f} s (pinned: {sp.data_h.is_pinned()}); device "
+          f"memory after the resident index went: "
+          f"{torch.cuda.memory_allocated() / 1e9 if on_card else 0.0:.2f} "
+          f"GB [{card}]")
+    if sp.group_size * sp.slab_bytes > SPILL_BUDGET:
+        raise AssertionError("a spill group passes the budget")
+    out = {}
+    for nprobe in SPILL_NPROBE:
+        sp.stats = SpillStats()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        dd, ii = sp.search(qd, k=10, nprobe=nprobe)
+        dd, ii = dd.cpu(), ii.cpu()
+        peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+        st = dataclasses.replace(sp.stats)   # this one search's counts
+        r = recall(ii, gt)
+        med, lo, hi = timed_query(
+            lambda: sp.search(qd, k=10, nprobe=nprobe)[1].cpu(), reps=3)
+        print(f"spill nprobe={nprobe}: recall@10={r:.4f} median "
+              f"{med * 1e3:.3f} ms QPS={nq / med:.1f} (min {lo * 1e3:.3f}, "
+              f"max {hi * 1e3:.3f} ms); a search: {st.transfer_rounds} "
+              f"rounds, {st.bytes_transferred / 1e9:.4f} GB moved, largest "
+              f"group {st.peak_group_bytes / 1e9:.4f} GB, peak device memory "
+              f"{peak:.2f} GB [{card}]")
+        if st.peak_group_bytes > SPILL_BUDGET or st.transfer_rounds < 1:
+            raise AssertionError(f"spill nprobe={nprobe}: {st}")
+        if not bool(torch.isfinite(dd).all()) or not bool(
+                (dd[:, 1:] >= dd[:, :-1]).all()):
+            raise AssertionError(f"spill nprobe={nprobe}: bad distances")
+        out[nprobe] = dict(recall=r, ms=med * 1e3, rounds=st.transfer_rounds,
+                           bytes=st.bytes_transferred,
+                           peak_group=st.peak_group_bytes, peak_mem=peak)
+        if nprobe == SPILL_CHECK_NPROBE:
+            n_diff = tie_mismatches(dd, ii, *resident)
+            print(f"spill nprobe={nprobe}: every distance equal to phase "
+                  f"3c's resident search; {n_diff} of {ii.numel()} ids "
+                  f"differ, all among equal distances")
+    # one group's copy: the host gather into the pinned staging rows and
+    # the copy to the card (as a search makes it), then the copy alone
+    grp = np.arange(min(sp.group_size, sp.data_h.shape[0]))
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    *_, nbytes = sp._load_group(grp)
+    if on_card:
+        torch.cuda.synchronize()
+    both_s = time.perf_counter() - t0
+    rows = -(-len(grp) // sp.group_pad) * sp.group_pad
+    copy_ms = (cuda_ms(lambda: [st[:rows].to(device, non_blocking=True)
+                                for st in sp._stage], reps=3)
+               if on_card else float("nan"))
+    print(f"spill group copy ({nbytes / 1e9:.4f} GB): host gather + copy "
+          f"{both_s * 1e3:.1f} ms ({nbytes / both_s / 1e9:.2f} GB/s), "
+          f"host-to-device copy alone {copy_ms:.2f} ms "
+          f"({nbytes / copy_ms / 1e6:.2f} GB/s) [{card}]")
+    return out
 
 
 def reset_scan_counts(cs):
@@ -1913,6 +2058,218 @@ def phase_hybrid(card, x, queries, gt, hnsw_graph, tally):
             graphs[50])
 
 
+# phase 6b: CNNS with NSG locals (bench.py:414-444, engine cnns_nsg) and
+# the router x local ablation (the reference's experiment_feature/)
+NSG_NPROBE = (1, 2, 3, 4, 6, 8)
+HNSW_LOCAL_N = 65_536       # the local HNSW ablation's cut of the data
+HNSW_LOCAL_CLUSTERS = 64
+LOCAL_NPROBE = (1, 2, 4, 6)
+PARITY_Q = 1024
+
+
+def arena_reach(idx):
+    """Live rows of a graph-local index's arena, and how many of them a
+    BFS from every non-empty cluster's entry point reaches."""
+    from hnsw_nsg_tpu_torch.models.cnns import _bfs, _dead_rows
+
+    adj = idx.flat_adj.cpu().numpy()
+    live = ~_dead_rows(idx.sizes, idx.maxc)
+    seeds = np.asarray(idx.eps_flat)[idx.sizes > 0]
+    reached = _bfs(adj, seeds, ~live)
+    return adj, live, int(reached[live].sum())
+
+
+def phase_cnns_nsg(card, x, queries, gt, flat_idx, tally, device="cuda",
+                   n_clusters=None, local_n=HNSW_LOCAL_N,
+                   local_clusters=HNSW_LOCAL_CLUSTERS):
+    """Phase 6b: ``build_cnns(x, CNNSConfig(n_clusters=976, m=4,
+    kmeans_iters=12), local_index="nsg")`` on phase 3's data, f32 slabs, no
+    replication (bench.py:419-444): build seconds by stage, the arena's
+    mean degree, a BFS from the entry points reaching every real node, the
+    bytes of ``flat_adj`` and of the index; an nprobe sweep at k=10 and
+    l_search=100 (median of 10) that must reach recall@10 >= 0.95 at some
+    nprobe <= 8, merge+select's launches by shape and kernel around it
+    (some must launch), and the output checks; at that nprobe
+    ``router="hnsw"`` on this index and on phase 3's flat index, each
+    within 0.05 recall of its flat router; then ``local_index="hnsw"`` on
+    the first 65,536 rows in 64 clusters (cut: an ablation of sequential
+    per-cluster HNSW builds): BFS, the recall at l_search 64 by nprobe,
+    and the card's search against the CPU's. Smaller inputs and
+    ``device="cpu"`` rehearse it.
+    Returns the scan's launches by kernel of the flat index's HNSW-routed
+    search."""
+    from hnsw_nsg_tpu_torch.models.cnns import build_cnns
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n, nq = x.shape[0], queries.shape[0]
+    qd = torch.from_numpy(queries).to(device)
+    n_clusters = n_clusters or max(n // 1024, 8)
+    t_phase = time.perf_counter()
+
+    stages = {}
+    reset_counts(cs, ms)
+    sync()
+    t0 = time.perf_counter()
+    idx = build_cnns(x, CNNSConfig(n_clusters=n_clusters, m=4,
+                                   kmeans_iters=12),
+                     local_index="nsg", device=device, stage_seconds=stages)
+    sync()
+    build_s = time.perf_counter() - t0
+    rest = build_s - sum(stages.values())
+    launch_split(ms, "cnns nsg build", tally)
+    adj, live, reached_nodes = arena_reach(idx)
+    deg = (adj[live] >= 0).sum(1)
+    # every member of a slab with another member has an out-edge (a slab
+    # of one member, the tail of a split cluster, has none)
+    alone = np.repeat(idx.sizes == 1, idx.maxc)[live]
+    print(f"cnns nsg build: {build_s:.2f} s (k-means {stages['kmeans']:.2f}, "
+          f"pools+prune {stages['pools_prune']:.2f}, interinsert "
+          f"{stages['interinsert']:.2f}, repair {stages['repair']:.2f}, "
+          f"layout and slabs {rest:.2f} s), C={idx.n_clusters} "
+          f"({idx.n_real} real) maxc={idx.maxc}, arena "
+          f"{adj.shape[0]} x {adj.shape[1]}; mean degree {deg.mean():.3f} "
+          f"(max {deg.max()}; {int(alone.sum())} members alone in their "
+          f"slab); BFS from the entry points reaches "
+          f"{reached_nodes} of {int(live.sum())} real nodes; flat_adj "
+          f"{adj.nbytes / 1e9:.4f} GB, index {idx.index_bytes() / 1e9:.4f} "
+          f"GB [{card}]")
+    if reached_nodes != int(live.sum()) or int(live.sum()) != n:
+        raise AssertionError("the local NSG arena does not reach every node")
+    if deg.max() > idx.flat_adj.shape[1] or deg[~alone].min() < 1:
+        raise AssertionError(f"arena degrees {deg.min()}..{deg.max()}")
+    del adj, live
+
+    reset_counts(cs, ms)
+    sweep, reached = {}, None
+    for nprobe in NSG_NPROBE:
+        dd, ii = idx.search(qd, k=10, nprobe=nprobe)
+        dd, ii = dd.cpu(), ii.cpu()
+        r = recall(ii, gt)
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=10, nprobe=nprobe)[1].cpu())
+        sweep[nprobe] = r
+        print(f"cnns nsg nprobe={nprobe} l_search=100: recall@10={r:.4f} "
+              f"median {med * 1e3:.3f} ms QPS={nq / med:.1f} (min "
+              f"{lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) [{card}]")
+        if r >= TARGET_RECALL:
+            reached = nprobe
+            break
+    if reached is None:
+        raise AssertionError(f"cnns nsg: recall@10 >= {TARGET_RECALL} not "
+                             f"reached at nprobe <= 8: {sweep}")
+    launch_split(ms, "cnns nsg sweep", tally)
+    if on_card and ms.launches <= 0:
+        raise AssertionError("the nsg-local sweep launched no merge+select")
+    if on_card and cs.launches:
+        raise AssertionError("the nsg-local search launched the grouped scan")
+    # finite, ascending, in-range ids, distances within rtol 1e-4 of the
+    # exact f32 ones (f32 slabs)
+    if not bool(torch.isfinite(dd).all()) or not bool(
+            (dd[:, 1:] >= dd[:, :-1]).all()):
+        raise AssertionError("cnns nsg: bad distances")
+    if not bool(((ii >= 0) & (ii < n)).all()):
+        raise AssertionError("cnns nsg: ids out of range")
+    ex = ((torch.from_numpy(x)[ii[:256].long()]
+           - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
+    if not torch.allclose(dd[:256], ex, rtol=1e-4, atol=1e-2):
+        raise AssertionError("cnns nsg: distances disagree with exact ones")
+
+    # the HNSW router at that nprobe, on this index and on phase 3's flat
+    # index (bf16 slabs, replicated); its knn_query runs merge+select
+    routed = {}
+    scan_hnsw = {}
+    for name, ix in (("nsg locals", idx), ("flat locals", flat_idx)):
+        reset_counts(cs, ms)
+        sync()
+        t0 = time.perf_counter()
+        ix.build_router_hnsw()
+        sync()
+        rb_s = time.perf_counter() - t0
+        r_flat = recall(ix.search(qd, k=10, nprobe=reached)[1].cpu(), gt)
+        reset_counts(cs, ms)
+        r_h = recall(ix.search(qd, k=10, nprobe=reached,
+                               router="hnsw")[1].cpu(), gt)
+        med, lo, hi = timed_query(
+            lambda: ix.search(qd, k=10, nprobe=reached,
+                              router="hnsw")[1].cpu(), reps=3)
+        print(f"router=hnsw on {name}, nprobe={reached}: recall@10={r_h:.4f} "
+              f"(flat router {r_flat:.4f}); router build {rb_s:.2f} s over "
+              f"{ix._router_hnsw.n} representatives; median {med * 1e3:.3f} "
+              f"ms (min {lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) [{card}]")
+        launch_split(ms, f"router=hnsw on {name}", tally)
+        if name == "flat locals":
+            scan_hnsw = scan_counts(cs, "router=hnsw on the flat index",
+                                    device)
+        routed[name] = (r_h, r_flat)
+        if r_h < r_flat - 0.05:
+            raise AssertionError(f"router=hnsw on {name}: {r_h} against "
+                                 f"the flat router's {r_flat}")
+        ix._router_hnsw = None
+    del idx
+
+    # the local HNSW ablation on a cut of the data
+    xs = x[:local_n]
+    _, gt_s = brute_force_topk(qd, torch.from_numpy(xs).to(device), 10)
+    gt_s = gt_s.cpu()
+    reset_counts(cs, ms)
+    sync()
+    t0 = time.perf_counter()
+    idx_h = build_cnns(xs, CNNSConfig(n_clusters=local_clusters, m=4,
+                                      kmeans_iters=12),
+                       local_index="hnsw", device=device)
+    sync()
+    hb_s = time.perf_counter() - t0
+    launch_split(ms, "local hnsw build", tally)
+    _, live_h, reach_h = arena_reach(idx_h)
+    deg_h = (idx_h.flat_adj.cpu().numpy()[live_h] >= 0).sum(1)
+    print(f"local_index=hnsw on the first {local_n} rows, {local_clusters} "
+          f"clusters (C={idx_h.n_real} real, maxc={idx_h.maxc}): build "
+          f"{hb_s:.2f} s (one HNSW a cluster, in turn); mean level-0 degree "
+          f"{deg_h.mean():.3f}; BFS reaches {reach_h} of "
+          f"{int(live_h.sum())} real nodes [{card}]")
+    if reach_h != int(live_h.sum()) or reach_h != local_n:
+        raise AssertionError("the local HNSW arena does not reach every node")
+    reset_counts(cs, ms)
+    local = {}
+    for nprobe in LOCAL_NPROBE:
+        _, ii = idx_h.search(qd, k=10, nprobe=nprobe, l_search=64)
+        local[nprobe] = recall(ii.cpu(), gt_s)
+        print(f"local_index=hnsw nprobe={nprobe} l_search=64: recall@10="
+              f"{local[nprobe]:.4f} [{card}]")
+    med, lo, hi = timed_query(
+        lambda: idx_h.search(qd, k=10, nprobe=6, l_search=64)[1].cpu(),
+        reps=3)
+    print(f"local_index=hnsw nprobe=6 l_search=64: median {med * 1e3:.3f} ms "
+          f"(min {lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) [{card}]")
+    launch_split(ms, "local hnsw search", tally)
+    # the card's search against the same index searched on the CPU: one
+    # beam algorithm, f32 sums in another order (near-ties may swap)
+    if on_card:
+        cpu_h = dataclasses.replace(idx_h, **{
+            f: getattr(idx_h, f).cpu() for f in ("reps", "data_c", "ids_c",
+                                                 "cnorms_c", "flat_adj")})
+        qs = qd[:PARITY_Q]
+        gd, gi = idx_h.search(qs, k=10, nprobe=6, l_search=64)
+        cd, ci = cpu_h.search(qs.cpu(), k=10, nprobe=6, l_search=64)
+        same = gi.cpu() == ci
+        print(f"local_index=hnsw on the card against the CPU ({PARITY_Q} "
+              f"queries): {int((~same).sum())} of {same.numel()} ids differ")
+        if same.float().mean() < 0.99 or not torch.allclose(
+                gd.cpu()[same], cd[same], rtol=1e-5, atol=1e-3):
+            raise AssertionError("local hnsw: the card's search is not the "
+                                 "CPU's")
+    del idx_h, qd
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"cnns nsg phase: {time.perf_counter() - t_phase:.1f} s")
+    return scan_hnsw
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1932,9 +2289,12 @@ def main() -> int:
     print("grouped scan kernels vs plain PyTorch version:")
     scan_err, scan_times = phase_kernels(gen)
 
-    sift_counts, f32_counts = phase_main_path(card)
+    sift_counts, f32_counts, flat_idx = phase_main_path(card)
     gist_counts, gist_times = phase_gist(card)
-    u8_counts, u8_times = phase_sift10m_u8(card)
+    u8_counts, u8_times, spill_in = phase_sift10m_u8(card)
+    phase_spill(card, **spill_in)
+    del spill_in
+    torch.cuda.empty_cache()
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
@@ -1957,8 +2317,11 @@ def main() -> int:
     a_launches = phase_accel_insert(card, x, queries, tally)
     (j_launches, n_slabs, y_rec, j64_launches,
      f32_launches) = phase_hybrid(card, x, queries, gt, hnsw_graph, tally)
+    nsg_scan = phase_cnns_nsg(card, x, queries, gt, flat_idx, tally)
+    del flat_idx
     m_launches = sum(tally.values())
-    print(f"merge_select launches over the HNSW and hybrid paths: "
+    print(f"merge_select launches over the HNSW, hybrid and CNNS graph-local "
+          f"paths: "
           f"{m_launches}, by kernel "
           + ", ".join(f"{kern} {n} ({n / m_launches:.3%})"
                       for kern, n in tally.items())
@@ -2014,7 +2377,7 @@ def main() -> int:
     kernels = [
         scan_entry("grouped_cluster_topk_gq (bf16 tensor cores, k <= 32: "
                    "scan_mma_kernel)", "scan_mma",
-                   sift_counts["scan_mma"],
+                   count("scan_mma", sift_counts, nsg_scan),
                    scan_times["main path bf16 l2 k=20"],
                    err("scan_mma", bf)),
         scan_entry("grouped_cluster_topk_gq (SQ8, int8 slab x bf16 query, "
@@ -2023,7 +2386,8 @@ def main() -> int:
                    max(g20[0], err("scan_mma", i8))),
         scan_entry("grouped_cluster_topk_gq (tensor cores, k > 32, bf16 and "
                    "SQ8: scan_general_mma_kernel)", "scan_general_mma",
-                   count("scan_general_mma", sift_counts, gist_counts),
+                   count("scan_general_mma", sift_counts, gist_counts,
+                         nsg_scan),
                    scan_times["main path bf16 l2 k=200"],
                    max(g200[0], err("scan_general_mma", bf, i8))),
         scan_entry("grouped_cluster_topk_gq (f32, exact FMAs on the ring "

@@ -234,12 +234,21 @@ def test_save_load_round_trips(tmp_path, sdt):
     _check_search(sdt + "_rt", jd, jid, t2d, t2id)
 
 
-def test_unported_local_indexes_raise(jax_indexes):
-    x, q, _, _, ti = jax_indexes["f32_l2"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.build_cnns(x, CNNSConfig(**CFG), local_index="nsg", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ti.search(torch.from_numpy(q), k=10, nprobe=2, router="hnsw")
+def test_unported_local_indexes_raise(jax_indexes, monkeypatch):
+    """The local indexes build_cnns cannot build raise ValueError before
+    k-means runs: boundary replication with graph locals (as in the JAX
+    package) and an unknown local index."""
+    x, _, _, _, _ = jax_indexes["f32_l2"]
+
+    def no_kmeans(*args, **kwargs):
+        raise AssertionError("k-means ran before the check")
+
+    monkeypatch.setattr(tc, "kmeans", no_kmeans)
+    with pytest.raises(ValueError, match="replication"):
+        tc.build_cnns(x, CNNSConfig(replicate=True, **CFG),
+                      local_index="nsg", device="cpu")
+    with pytest.raises(ValueError, match="unknown local_index"):
+        tc.build_cnns(x, CNNSConfig(**CFG), local_index="ivf", device="cpu")
 
 
 def test_search_on_cpu_launches_no_kernel(jax_indexes):

@@ -21,6 +21,7 @@ from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG  # noqa: E402
 from hnsw_nsg_tpu_torch.models.kmeans import kmeans  # noqa: E402
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
 from hnsw_nsg_tpu_torch.models.nsg import build_nsg  # noqa: E402
+from hnsw_nsg_tpu_torch.models.spill import SpillCNNSIndex  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import cluster_scan as cs  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import merge_select as ms  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
@@ -276,6 +277,64 @@ def test_build_on_card_keeps_every_point(card):
     ids = idx.ids_c.cpu().numpy()
     members = np.concatenate([row[:s] for row, s in zip(ids, idx.sizes)])
     np.testing.assert_array_equal(np.sort(members), np.arange(len(x)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.float32, torch.bfloat16])
+def test_nsg_local_search_on_card_matches_cpu(card, tmp_path, slab_dtype):
+    """An nsg-local index built on the CPU, loaded on the card and on the
+    CPU: the same ids through both routers (the beams' merge+select kernel
+    on the card), distances within rtol 1e-5, atol 1e-3."""
+    x, q = make_data(20000, 32, 256, "l2", seed=3)
+    idx = cnns.build_cnns(
+        x, CNNSConfig(n_clusters=20, m=3, kmeans_iters=6,
+                      nsg=NSGBuildConfig(L=24, R=16, C=100)),
+        local_index="nsg", slab_dtype=slab_dtype, device="cpu")
+    idx.save(str(tmp_path / "n.npz"))
+    gpu_idx = cnns.CNNSIndex.load(str(tmp_path / "n.npz"))
+    cpu_idx = cnns.CNNSIndex.load(str(tmp_path / "n.npz"), device="cpu")
+    for router in ("flat", "hnsw"):
+        before = ms.launches
+        gd, gi = gpu_idx.search(torch.from_numpy(q).to(card), k=10,
+                                nprobe=4, l_search=64, router=router)
+        assert gi.device.type == "cuda" and ms.launches > before
+        cd, ci = cpu_idx.search(torch.from_numpy(q), k=10, nprobe=4,
+                                l_search=64, router=router)
+        assert torch.equal(gi.cpu(), ci)
+        torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.bfloat16, torch.int8])
+def test_spill_search_on_card_matches_resident(card, slab_dtype):
+    """The spill search on the card (groups copied from pinned host memory)
+    equals the resident per-query search of the same index: distances
+    equal (the same products of the same slabs), ids equal except inside
+    runs of equal distance (the uint8 index's integer distances tie, and
+    the two searches merge tied candidates in another order), every group
+    within the budget; the slab copies live in pinned memory."""
+    x, q = make_data(40000, 32, 512, "l2", seed=4,
+                     uint8=slab_dtype == torch.int8)
+    idx = cnns.build_cnns(
+        x, CNNSConfig(n_clusters=40, m=4, kmeans_iters=6, replicate=True),
+        slab_dtype=slab_dtype, device=card)
+    qd = torch.from_numpy(q).to(card)
+    rd, ri = idx.search(qd, k=10, nprobe=3, group=False)
+    budget = 16 * idx.data_c[0].numel() * idx.data_c.element_size()
+    sp = SpillCNNSIndex(idx, budget)
+    assert sp.data_h.is_pinned()
+    del idx
+    sd, si = sp.search(qd, k=10, nprobe=3)
+    assert si.device.type == "cuda"
+    assert torch.equal(sd, rd)
+    tied = torch.zeros_like(sd, dtype=torch.bool)
+    tied[:, 1:] |= sd[:, 1:] == sd[:, :-1]
+    tied[:, :-1] |= sd[:, :-1] == sd[:, 1:]
+    assert torch.equal(si[~tied], ri[~tied])
+    if slab_dtype == torch.bfloat16:
+        assert torch.equal(si, ri)
+    assert sp.stats.transfer_rounds >= 2
+    assert sp.stats.peak_group_bytes <= budget
 
 
 def _merge_state(seed, q, l, c, n_ids=500, fill=0.7):

@@ -13,6 +13,7 @@ from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
 from hnsw_nsg_tpu_torch.models import hnsw  # noqa: E402
 from hnsw_nsg_tpu_torch.models import hybrid  # noqa: E402
 from hnsw_nsg_tpu_torch.models import nsg  # noqa: E402
+from hnsw_nsg_tpu_torch.models import spill  # noqa: E402
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
 from hnsw_nsg_tpu_torch.utils import io as io_utils  # noqa: E402
 from hnsw_nsg_tpu_torch.utils.device import resolve_device  # noqa: E402
@@ -43,6 +44,21 @@ def _load_cnns(tmp_path):
                     device="cpu").save(p)
     idx = cnns.CNNSIndex.load(p)
     return [idx.data_c, idx.ids_c, idx.reps]
+
+
+def _build_cnns_nsg(tmp_path):
+    idx = cnns.build_cnns(_data(), CNNSConfig(
+        n_clusters=4, m=2, kmeans_iters=2, nsg=NSGBuildConfig(L=8, R=4, C=16)),
+        local_index="nsg")
+    return [idx.data_c, idx.ids_c, idx.reps, idx.flat_adj]
+
+
+def _spill_index(tmp_path):
+    idx = cnns.build_cnns(_data(), CNNSConfig(n_clusters=4, m=2,
+                                              kmeans_iters=2))
+    sp = spill.SpillCNNSIndex(idx, 1 << 20)
+    d, i = sp.search(_data(4), k=2, nprobe=2)   # a group lands on the card
+    return [d, i, sp.reps]
 
 
 def _knn_graph(tmp_path):
@@ -163,6 +179,8 @@ def _api_bf_index(tmp_path):
 ENTRY_POINTS = {
     "build_cnns": _build_cnns,
     "CNNSIndex.load": _load_cnns,
+    "build_cnns(local_index='nsg')": _build_cnns_nsg,
+    "SpillCNNSIndex": _spill_index,
     "knn_graph_ivf": _knn_graph,
     "build_nsg": _build_nsg,
     "NSGIndex.load": _load_nsg,

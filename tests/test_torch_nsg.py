@@ -163,6 +163,7 @@ PORT_MODULES = [
     "hnsw_nsg_tpu_torch.models.prune", "hnsw_nsg_tpu_torch.models.knn_ivf",
     "hnsw_nsg_tpu_torch.models.nsg", "hnsw_nsg_tpu_torch.models.records",
     "hnsw_nsg_tpu_torch.models.inline_graph",
+    "hnsw_nsg_tpu_torch.models.cnns", "hnsw_nsg_tpu_torch.models.spill",
 ]
 
 
