@@ -16,7 +16,14 @@ the same path there. Ported so far:
     entry, deletes, filters, hnswlib's file format), the hybrid index
     (``models.hybrid.HybridHNSWNSG``: HNSW upper levels routing into an
     NSG base layer) and the hnswlib-compatible ``api.Index``,
-    ``LazyIndex`` and ``BFIndex``, on the same beam and kernel.
+    ``LazyIndex`` and ``BFIndex``, on the same beam and kernel;
+  * the search extensions (``models.extensions``: range search, top-k
+    distinct documents; ``api.Index.epsilon_query``,
+    ``api.MultiVectorIndex``), slot replacement
+    (``HNSWIndex.replace_point``, ``allow_replace_deleted``) and the
+    small-N graph builders (``models.nndescent``: ``nn_descent``,
+    ``graph_add``; ``models.rptree``: ``knn_graph_rp``), which the hybrid
+    index builds its kNN graph with between 8,192 and 200,000 points.
 
 Importing the package loads no GPU library; the kernels are compiled at
 the first launch on a CUDA tensor.

@@ -17,9 +17,11 @@ Every class takes a keyword ``device`` last (the JAX package has none):
 ``None`` puts the index on the card and raises where no card is visible,
 ``"cpu"`` keeps it on the CPU. Inputs and results are numpy, as hnswlib's.
 
-Waiting for their modules: ``MultiVectorIndex`` and ``Index.epsilon_query``
-(``models/extensions.py``), ``allow_replace_deleted`` with
-``add_items(replace_deleted=True)`` (``HNSWIndex.replace_point``).
+``Index.epsilon_query`` (range search) and ``MultiVectorIndex`` (top-k
+distinct documents) run the disciplines of ``models/extensions.py``;
+``add_items(replace_deleted=True)`` on an index made or loaded with
+``allow_replace_deleted`` reuses deleted slots through
+``HNSWIndex.replace_point``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from .models.hnsw import HNSWIndex
 from .ops.bruteforce import brute_force_topk
-from .ops.distance import normalize
+from .ops.distance import as_f32_queries, normalize
 from .utils.device import resolve_device
 from .utils.params import HNSWConfig
 
@@ -46,6 +48,7 @@ class Index:
         self.dim = int(dim)
         self.device = device   # resolved when the index is made or loaded
         self._index: HNSWIndex | None = None
+        self._replace_deleted = False
         self.ef = 10
 
     # -- lifecycle ---------------------------------------------------------
@@ -58,13 +61,13 @@ class Index:
         random_seed: int = 100,
         allow_replace_deleted: bool = False,
     ) -> None:
-        if allow_replace_deleted:
-            _replace_not_ported()
         cfg = HNSWConfig(
             M=M, ef_construction=ef_construction, random_seed=random_seed,
+            allow_replace_deleted=allow_replace_deleted,
         )
         self._index = HNSWIndex(self.dim, max_elements, cfg, self._metric,
                                 device=self.device)
+        self._replace_deleted = allow_replace_deleted
 
     @property
     def _metric(self) -> str:
@@ -94,13 +97,31 @@ class Index:
         x = self._prep(data)
         idx = self._require()
         if replace_deleted:
-            # (allow_replace_deleted is refused at init_index and load_index,
-            # so the flag is never set)
-            raise RuntimeError(
-                "replace_deleted=True requires "
-                "allow_replace_deleted at init"
-            )
+            if not self._replace_deleted:
+                raise RuntimeError(
+                    "replace_deleted=True requires "
+                    "allow_replace_deleted at init"
+                )
+            x, ids = self._replace_into_deleted(x, ids)
+            if x.shape[0] == 0:
+                return
         idx.add_items(x, ids, batch_size=batch_size)
+
+    def _replace_into_deleted(self, x, ids):
+        """addPoint(replace_deleted=true) semantics (hnswalg.h:954-992):
+        the first deleted slots, in slot order, take as many of the new
+        points as there are; returns the points and labels left over."""
+        idx = self._require()
+        dead = np.nonzero(idx.deleted[: idx.n])[0]
+        take = min(len(dead), x.shape[0])
+        if ids is None:
+            ids = np.arange(idx.n, idx.n + x.shape[0], dtype=np.int64)
+        ids = np.asarray(ids, np.int64).reshape(x.shape[0])
+        for j in range(take):
+            slot = int(dead[j])
+            idx.label_to_id.pop(int(idx.labels[slot]), None)
+            idx.replace_point(slot, x[j], int(ids[j]))
+        return x[take:], ids[take:]
 
     def mark_deleted(self, label: int) -> None:
         self._require().mark_deleted(label)
@@ -146,10 +167,13 @@ class Index:
 
     def epsilon_query(self, data, epsilon: float,
                       max_candidates: int = 128):
-        raise NotImplementedError(
-            "Index.epsilon_query needs models/extensions.py "
-            "(epsilon_search), which is not ported yet (ROADMAP.md Queue 1 "
-            "step 7)")
+        """Range search (EpsilonSearchStopCondition semantics,
+        stop_condition.h:218-275 via searchStopConditionClosest,
+        hnswalg.h:1327-1378): all points with distance <= epsilon among
+        the max_candidates closest explored. Returns (labels [Q, C]
+        -1-padded, dists [Q, C], counts [Q])."""
+        x = self._prep(data)
+        return self._require().epsilon_query(x, epsilon, max_candidates)
 
     def get_items(self, ids) -> np.ndarray:
         return self._require().get_items(ids)
@@ -186,8 +210,6 @@ class Index:
     ) -> None:
         """Load either a reference/hnswlib binary index or a native .npz
         (sniffed by the zip magic that np.savez always writes)."""
-        if allow_replace_deleted:
-            _replace_not_ported()
         with open(path, "rb") as f:
             magic = f.read(4)
         if magic[:2] == b"PK":
@@ -198,6 +220,7 @@ class Index:
                 path, metric=self._metric,
                 max_elements=max_elements or None, device=self.device,
             )
+        self._replace_deleted = allow_replace_deleted
 
     # -- pickle (bindings.cpp getAnnData/setAnnData, :351-610, 978-987) ----
 
@@ -207,6 +230,7 @@ class Index:
         loads where ``device`` resolves on the reading side."""
         state = {"space": self.space, "dim": self.dim, "ef": self.ef,
                  "device": None if self.device is None else str(self.device),
+                 "_replace_deleted": self._replace_deleted,
                  "index": None}
         if self._index is not None:
             idx = self._index
@@ -222,6 +246,7 @@ class Index:
         self.dim = state["dim"]
         self.ef = state["ef"]
         self.device = state["device"]
+        self._replace_deleted = state.get("_replace_deleted", False)
         self._index = None
         s = state["index"]
         if s is None:
@@ -231,13 +256,6 @@ class Index:
             s["data"], s["adj0"], s["adj_up"], s["levels"], s["labels"],
             s["deleted"], cap=cap, cfg=HNSWConfig(M=m, ef_construction=efc),
             metric=metric, max_level=max_level, ep=ep, device=self.device)
-
-
-def _replace_not_ported():
-    raise NotImplementedError(
-        "allow_replace_deleted needs HNSWIndex.replace_point (slot reuse "
-        "with in-link repair), which is not ported yet (ROADMAP.md Queue 1 "
-        "step 7)")
 
 
 class LazyIndex(Index):
@@ -345,11 +363,51 @@ class BFIndex:
 
 
 class MultiVectorIndex(Index):
-    """Multivector document retrieval (top-k distinct documents, each
-    scored by its closest vector). Not ported."""
+    """Multivector document retrieval.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MultiVectorIndex needs models/extensions.py "
-            "(multivector_search), which is not ported yet (ROADMAP.md "
-            "Queue 1 step 7)")
+    Reference: ``MultiVectorL2Space/InnerProductSpace`` append a document
+    id to each stored vector and ``MultiVectorSearchStopCondition``
+    returns the top-k distinct documents, each scored by its closest
+    vector (hnswlib/hnswlib/stop_condition.h:10-215). Here the document
+    id travels in a side array: the graph is a plain vector-level HNSW,
+    and the distinct-document top-k is applied to the level-0 beam
+    (``models/extensions.topk_distinct_docs``)."""
+
+    def add_items(self, data, doc_ids, ids=None, **kwargs) -> None:
+        idx = self._require()
+        if not hasattr(self, "_docs"):
+            self._docs = np.full(idx.cap, -1, np.int64)
+        start = idx.n
+        super().add_items(data, ids=ids, **kwargs)
+        docs = np.asarray(doc_ids, np.int64).reshape(-1)
+        if len(docs) != idx.n - start:
+            raise ValueError("doc_ids must have one entry per vector")
+        if idx.cap > len(self._docs):
+            grown = np.full(idx.cap, -1, np.int64)
+            grown[: len(self._docs)] = self._docs
+            self._docs = grown
+        self._docs[start : idx.n] = docs
+
+    def knn_doc_query(self, data, k: int = 1, ef: int | None = None):
+        """Top-k distinct documents: the per-level greedy descent to a
+        level-0 entry, then a beam of width max(ef, 4k) and the
+        distinct-document top-k. Returns (doc_ids [Q, k] int64 -1-padded,
+        dists [Q, k]), numpy."""
+        from .models.beam import greedy_descent
+        from .models.extensions import multivector_search
+
+        x = self._prep(data)
+        idx = self._require()
+        q = as_f32_queries(x, idx.device)
+        cur = torch.full((q.shape[0],), idx.ep, dtype=torch.int32,
+                         device=idx.device)
+        for lvl in range(idx.max_level, 0, -1):
+            cur, _ = greedy_descent(q, idx.data, idx.norms,
+                                    idx.adj_up[lvl - 1], cur,
+                                    metric=idx.metric)
+        width = max(ef or self.ef, 4 * k)
+        d, docs, _ = multivector_search(
+            q, idx.data, idx.norms, idx.adj0, cur[:, None],
+            torch.from_numpy(self._docs).to(idx.device), k, width=width,
+            metric=idx.metric)
+        return docs.cpu().numpy(), d.cpu().numpy()

@@ -23,9 +23,16 @@ tensors, as in the JAX package, where neither reaches the kernel: the
 filtered beam kills frontier slots between its merge and its select, and
 its width can grow to N. Their loops test for convergence on the host
 every few hops; a hop after convergence changes nothing, so the results
-are those of a test every hop. The while-loop ``beam_search`` and
-``beam_search_collect`` (for callers inside ``jit``/``shard_map``,
-``parallel/mesh.py``) and ``random_fill_ids`` are not ported and raise.
+are those of a test every hop.
+
+The JAX package's while-loop ``beam_search`` (for callers inside one
+compiled program) runs here on the same chunked loop: its fused
+merge+select is ``merge_into_retset`` then ``_select_frontier`` bit for
+bit, so select-expand-merge hops equal the expand-first chunked ones,
+and only its stopping rule (the largest per-query hop count, not the
+count of loop turns) is its own. ``random_fill_ids`` draws from a
+``torch.Generator``. ``beam_search_collect`` waits for
+``parallel/mesh.py`` and raises.
 """
 
 from __future__ import annotations
@@ -106,8 +113,36 @@ def beam_search_chunked(
     queries [Q, d]; data [N, d]; norms [N] (l2); adj [N, R] int32
     PAD_ID-padded; init_ids [Q, I] int32; width = retset width L. All on
     one device. Returns distances in FastL2 form for metric="l2" (exact =
-    + ||q||^2). Converged queries leave the batch between chunks once the
-    live count (at least ``min_compact``) is at most half the batch."""
+    + ||q||^2). At most ``max_hops`` hops; converged queries leave the
+    batch between chunks once the live count (at least ``min_compact``)
+    is at most half the batch."""
+    return _adj_beam(queries, data, norms, adj, init_ids, width, metric,
+                     max_hops, expand, chunk_hops, min_compact, None)
+
+
+def beam_search(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    init_ids: torch.Tensor,
+    width: int,
+    metric: str = "l2",
+    max_hops: int = 512,
+    expand: int = 1,
+) -> BeamResult:
+    """The JAX package's while-loop beam (beam.py:73-127): arguments and
+    results as ``beam_search_chunked``. Its loop turns while some query
+    has an unexpanded retset slot and the LARGEST per-query hop count is
+    below ``max_hops``; with ``expand`` = 1 that is the chunked beam's
+    count of hops, above 1 it can stop sooner. Ids, distances, hops and
+    evaluations equal the JAX function's."""
+    return _adj_beam(queries, data, norms, adj, init_ids, width, metric,
+                     max_hops, expand, 32, 256, max_hops)
+
+
+def _adj_beam(queries, data, norms, adj, init_ids, width, metric, max_hops,
+              expand, chunk_hops, min_compact, hop_limit):
     init_ids = init_ids.to(torch.int32)
     state = _start(queries, data, norms, init_ids, width, metric, expand)[1:]
 
@@ -116,11 +151,12 @@ def beam_search_chunked(
         return gathered_dists(q, data, nbrs, metric, norms), nbrs
 
     return run_chunks(queries, state, hop, width, max_hops, expand,
-                      chunk_hops, min_compact)
+                      chunk_hops, min_compact, hop_limit)
 
 
 def run_chunks(q, state, hop, width: int, max_hops: int, expand: int,
-               chunk_hops: int, min_compact: int) -> BeamResult:
+               chunk_hops: int, min_compact: int,
+               hop_limit: int | None = None) -> BeamResult:
     """The expand-first hop loop of the chunked beams, with compaction.
 
     ``state`` = (r_d, r_i, r_e, sel_ids, sel_valid, hops, evals) after the
@@ -130,7 +166,9 @@ def run_chunks(q, state, hop, width: int, max_hops: int, expand: int,
     state. Each hop folds them in with ``fused_merge_select``. One host
     check a chunk; converged rows leave the batch once the live count (at
     least ``min_compact``) is at most half of it, and are scattered back
-    to their slots at the end."""
+    to their slots at the end. ``hop_limit``: a hop expands nothing once
+    the largest hop count of any query, compacted ones included, has
+    reached it (the while-loop beam's rule)."""
     r_d, r_i, r_e, sel_ids, sel_valid, hops, evals = state
     qn = q.shape[0]
     dev = q.device
@@ -138,17 +176,23 @@ def run_chunks(q, state, hop, width: int, max_hops: int, expand: int,
     orig = torch.arange(qn, device=dev)
     cur_q = qn
     hops_left = max_hops
+    top = torch.zeros((), dtype=torch.int32, device=dev)  # largest hop count
     while hops_left > 0:
         n_hops = min(chunk_hops, hops_left)
         for _ in range(n_hops):
+            if hop_limit is not None:
+                sel_valid = sel_valid & (top < hop_limit)
             cd, ci = hop(q, sel_ids, sel_valid)
             _hop_counts(hops, evals, sel_valid, ci)
+            if hop_limit is not None:
+                top = torch.maximum(top, hops.max())
             r_d, r_i, r_e, sel_ids, sel_valid = fused_merge_select(
                 r_d, r_i, r_e, cd, ci, expand)
         hops_left -= n_hops
         act = sel_valid.any(1)
         n_act = int(act.sum())
-        if n_act == 0:
+        if n_act == 0 or (hop_limit is not None
+                          and int(top) >= hop_limit):
             break
         if max(min_compact, n_act) <= cur_q // 2 and hops_left > 0:
             if final is None:
@@ -300,24 +344,18 @@ def beam_search_filtered(
     return BeamResult(p_d, p_i, hops, evals)
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"{name} is not ported: it serves callers inside one compiled "
-        f"program (parallel/mesh.py, models/extensions.py), which are not "
-        f"ported yet (ROADMAP.md Queue 1 steps 7 and 10); host-driven code "
-        f"uses the chunked beams of this module")
-
-
-def beam_search(*args, **kwargs):
-    """The while-loop beam of the JAX package (beam.py:73)."""
-    _not_ported("beam_search")
-
-
 def beam_search_collect(*args, **kwargs):
     """The while-loop collect beam of the JAX package (beam.py:418)."""
-    _not_ported("beam_search_collect")
+    raise NotImplementedError(
+        "beam_search_collect is not ported: it serves the sharded indexes "
+        "of parallel/mesh.py (ROADMAP.md Queue 1 step 5); host-driven code "
+        "uses beam_search_collect_chunked")
 
 
-def random_fill_ids(*args, **kwargs):
-    """The JAX package's random init fill (beam.py:558)."""
-    _not_ported("random_fill_ids")
+def random_fill_ids(gen: torch.Generator, n: int, shape, forbid=None):
+    """Uniform random node ids in [0, n), int32, on the generator's device:
+    the reference's random init fill (index_nsg.cpp:522-528; the JAX
+    package's beam.py:558). ``forbid`` is not used: duplicates of ids
+    already held are dropped by the retset dedup downstream."""
+    return torch.randint(0, n, tuple(shape), generator=gen,
+                         device=gen.device, dtype=torch.int32)

@@ -46,10 +46,14 @@ inserts (a quantized copy of the data at a scale fixed by the first
 batch, the rows of new nodes, reverse-edge destinations and repair edges
 repacked after each batch) and runs the inserts' level-0 beam on them,
 with the candidate pools re-distanced exactly. A mutation without
-``accel`` drops them, as do ``resize_index`` and loading.
+``accel`` drops them, as do ``resize_index``, ``replace_point`` and
+loading.
 
-Waiting for their modules: ``epsilon_query`` (``models/extensions.py``),
-``replace_point`` (slot reuse with in-link repair).
+``epsilon_query`` is the range search of ``models/extensions.py`` from
+the routed entry. ``replace_point`` reuses a slot for a new vector: new
+out-links from a beam at each of the slot's levels, the reverse edges,
+and a re-prune of the old neighbourhood (hnswlib's updatePoint and
+repairConnectionsForUpdate), one point at a time as in the reference.
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ from ..ops.distance import (
     pairwise_dists,
     squared_norms,
 )
-from ..ops.topk import empty_retset, merge_into_retset_sorted, topk_smallest
+from ..ops.topk import (empty_retset, merge_into_retset_sorted,
+                        scatter_last, topk_smallest)
 from ..utils.device import resolve_device
 from ..utils.params import HNSWConfig
 from .beam import beam_search_chunked, beam_search_filtered, greedy_descent
@@ -117,19 +122,11 @@ def _reverse_insert_round(adj_l, cache_d, data, norms, kept_i, kept_d, cols,
     b, m = kept_i.shape
     n_dst = rows.shape[0]
     dev = kept_i.device
-    dump = n_dst * cap_deg                      # where losing proposals go
-    pos = torch.searchsorted(rows, kept_i.clamp(min=0))
-    key = torch.where(kept_i >= 0, pos * cap_deg + cols, dump).reshape(-1)
-    sk, order = torch.sort(key, stable=True)
-    last = torch.ones_like(sk, dtype=torch.bool)
-    last[:-1] = sk[1:] != sk[:-1]
-    tgt = torch.where(last, sk, dump)
-    src_b = src[:, None].expand(b, m).reshape(-1)
-    inc = torch.full((dump + 1,), PAD_ID, dtype=torch.int32, device=dev)
-    inc = inc.scatter_(0, tgt, src_b[order])[:-1].view(n_dst, cap_deg)
-    inc_d = torch.full((dump + 1,), float(PAD_DIST), device=dev)
-    inc_d = inc_d.scatter_(0, tgt, kept_d.reshape(-1)[order])[:-1].view(
-        n_dst, cap_deg)
+    pos = torch.where(kept_i >= 0,
+                      torch.searchsorted(rows, kept_i.clamp(min=0)), -1)
+    inc, inc_d = scatter_last(n_dst, cap_deg, pos, cols,
+                              (src[:, None].expand(b, m), PAD_ID),
+                              (kept_d, float(PAD_DIST)))
 
     rl = rows.long()
     vecs = data[rl]
@@ -170,12 +167,6 @@ def _arena_cap(max_elements: int) -> int:
         return cap
     g = 1 << 21
     return -(-max_elements // g) * g
-
-
-def _not_ported(what: str, module: str):
-    raise NotImplementedError(
-        f"{what} needs {module}, which is not ported yet (ROADMAP.md "
-        f"Queue 1)")
 
 
 class HNSWIndex:
@@ -721,7 +712,24 @@ class HNSWIndex:
 
     def epsilon_query(self, queries, epsilon: float, max_candidates: int,
                       expand: int = 1):
-        _not_ported("HNSWIndex.epsilon_query", "models/extensions.py")
+        """Range search: every point with metric distance <= epsilon among
+        the ``max_candidates`` closest explored (searchStopConditionClosest
+        + EpsilonSearchStopCondition, hnswalg.h:1327-1378,
+        stop_condition.h:218-275), from the routed entry. Returns (labels
+        [Q, C] int64 -1-padded, dists [Q, C], counts [Q]), numpy."""
+        from .extensions import epsilon_search
+
+        if self.n == 0:
+            raise RuntimeError("cannot query an empty index")
+        q = as_f32_queries(queries, self.device)
+        cur = self._entry_points(q)
+        d, i, counts = epsilon_search(
+            q, self.data, self.norms, self.adj0, cur[:, None],
+            epsilon=epsilon, max_candidates=max_candidates,
+            metric=self.metric, expand=expand)
+        i_np = i.cpu().numpy()
+        labels = np.where(i_np >= 0, self.labels[np.clip(i_np, 0, None)], -1)
+        return labels, d.cpu().numpy(), counts.cpu().numpy()
 
     # ------------------------------------------------------------------
     # mutation API (markDelete etc., hnswalg.h:853-992)
@@ -742,10 +750,86 @@ class HNSWIndex:
         return bool(self.deleted[self.label_to_id[int(label)]])
 
     def replace_point(self, slot: int, vec, label: int) -> None:
-        raise NotImplementedError(
-            "HNSWIndex.replace_point (slot reuse with in-link repair, "
-            "hnsw.py:904-1026 of the JAX package) is not ported yet "
-            "(ROADMAP.md Queue 1 step 7)")
+        """Reuse a (deleted) slot for a new point: the vector changes in
+        place, the slot's out-links are rebuilt at its existing levels, and
+        the out-links of its former neighbourhood are re-selected: the
+        updatePoint / repairConnectionsForUpdate analogue (hnswalg.h:
+        995-1139). Without the repair the old neighbourhood keeps edges
+        chosen for the old vector, which under churn degrade recall
+        (bindings_test_replace.py:155).
+
+        The records, the router and the link-distance cache go first: an
+        in-link to the slot from outside its old neighbourhood would keep
+        a stale cached distance (later inserts then recompute them)."""
+        self._records = None
+        self._dataq = None
+        self._maintain_records = False
+        self._router = None
+        self.adj0_d = None
+        cfg = self.cfg
+        dev = self.device
+        x = torch.from_numpy(
+            np.asarray(vec, np.float32).reshape(1, self.dim)).to(dev)
+        # the old neighbourhoods, copied BEFORE the vector and the links
+        # change: their link choices referenced the old point (updatePoint's
+        # sCand set, hnswalg.h:1000-1032)
+        node_level = int(self.levels[slot])
+        old_nbrs = {lvl: self._adj_at(lvl)[slot].cpu().numpy().copy()
+                    for lvl in range(node_level + 1)}
+        self.data[slot] = x[0].to(self.dtype)
+        self.norms[slot] = squared_norms(x)[0]
+        if self.deleted[slot]:
+            self.deleted[slot] = False
+            self.num_deleted -= 1
+        self.labels[slot] = label
+        self.label_to_id[int(label)] = slot
+
+        cur = torch.full((1,), self.ep, dtype=torch.int32, device=dev)
+        sid = torch.tensor([slot], dtype=torch.int32, device=dev)
+        for lvl in range(self.max_level, -1, -1):
+            adj_l = self._adj_at(lvl)
+            res = beam_search_chunked(
+                x, self.data, self.norms, adj_l, cur[:, None],
+                width=cfg.ef_construction, metric=self.metric, max_hops=256)
+            cur = res.ids[:, 0]
+            if lvl > node_level:
+                continue
+            pd = res.dists
+            if self.metric == "l2":
+                pd = pd + squared_norms(x)[:, None]
+            kept_i, kept_d = occlusion_prune_padded(
+                x, res.ids, pd, self.data, self.norms, max_keep=cfg.M,
+                metric=self.metric, self_ids=sid)
+            adj_l[slot] = PAD_ID
+            adj_l[slot, : cfg.M] = kept_i[0]
+            self._reverse_insert(lvl, sid, kept_i, kept_d, 1)
+            self._repair_in_links(lvl, old_nbrs[lvl], slot)
+
+    def _repair_in_links(self, lvl: int, nbr_ids: np.ndarray,
+                         slot: int) -> None:
+        """Re-select the out-links of the nodes that used to neighbour
+        ``slot`` (repairConnectionsForUpdate, hnswalg.h:1074-1139): each
+        such node re-runs the occlusion rule over its current links plus
+        the old neighbourhood (each other and the moved node), distances
+        recomputed against the new vector store."""
+        nbrs = np.unique(nbr_ids[nbr_ids >= 0])
+        if len(nbrs) == 0:
+            return
+        cap_deg = 2 * self.cfg.M if lvl == 0 else self.cfg.M
+        adj_l = self._adj_at(lvl)
+        dev = self.device
+        rows = torch.from_numpy(nbrs.astype(np.int64)).to(dev)
+        vecs = self.data[rows]
+        extra = torch.from_numpy(
+            np.append(nbrs, slot).astype(np.int32)).to(dev)
+        pool_i = torch.cat(
+            [adj_l[rows, :cap_deg], extra.expand(len(nbrs), -1)], 1)
+        pool_d = gathered_dists(vecs, self.data, pool_i, self.metric,
+                                self.norms, exact=True)
+        kept_i, _ = occlusion_prune_padded(
+            vecs, pool_i, pool_d, self.data, self.norms, max_keep=cap_deg,
+            metric=self.metric, self_ids=rows.to(torch.int32))
+        adj_l[rows, :cap_deg] = kept_i
 
     def resize_index(self, new_cap: int) -> None:
         """resizeIndex (hnswalg.h:633-656): the arena grows to ``new_cap``

@@ -15,11 +15,11 @@ as the reference's test program does (hnsw_nsg/tests/test_hnsw_nsg_search.cpp:
 331-347). Both live on one device (``device=None``: the card).
 
 ``build_nsg_layer`` picks how the kNN graph is made by N as the JAX package
-does: exact up to 8,192 points and the cluster join above 200,000 are
-ported; between them the JAX package runs its rp-tree construction
-(``models/rptree.py``), which is not ported, so there a ``knn_adj`` must
-be passed. ``build_accel`` packs the NSG layer into the int8 records
-(``models/records.py``), which its searches then traverse.
+does: exact up to 8,192 points, rp-trees refined by two nn-descent
+iterations up to 200,000 (``models/rptree.py``, ``models/nndescent.py``),
+and the cluster join above (``models/knn_ivf.py``). ``build_accel`` packs
+the NSG layer into the int8 records (``models/records.py``), which its
+searches then traverse.
 """
 
 from __future__ import annotations
@@ -31,9 +31,10 @@ import torch
 
 from ..ops.bruteforce import knn_graph_exact
 from ..ops.distance import as_f32_queries
-from ..utils.params import HNSWConfig, NSGBuildConfig
+from ..utils.params import HNSWConfig, NNDescentConfig, NSGBuildConfig
 from .hnsw import HNSWIndex
 from .nsg import NSGIndex, build_nsg
+from .rptree import knn_graph_rp
 
 
 class HybridHNSWNSG:
@@ -73,9 +74,10 @@ class HybridHNSWNSG:
         ``knn_adj`` [N, K]: a kNN graph to build from (numpy or a tensor);
         by default one is made, with K = L + 10. When ``stats`` is a dict
         it receives the kNN graph (``knn_adj``), the cluster join's shape
-        where the join ran (``n_slabs``, ``maxc``, ``probes``, ``k``)
-        and the wall seconds of the kNN graph (``knn``) and of each NSG
-        build stage."""
+        where the join ran (``n_slabs``, ``maxc``, ``probes``, ``k``),
+        the wall seconds of the rp-trees (``rp_trees``) and of their
+        nn-descent refinement (``nndescent``) where they ran, and those of
+        the kNN graph (``knn``) and of each NSG build stage."""
         n = self.hnsw.n
         data = self.hnsw.data[:n]
         stats = {} if stats is None else stats
@@ -85,10 +87,10 @@ class HybridHNSWNSG:
             if n <= 8192:
                 knn_adj = knn_graph_exact(data, k, query_block=4096)
             elif n <= 200_000:
-                raise NotImplementedError(
-                    "build_nsg_layer for 8,192 < N <= 200,000 builds its kNN "
-                    "graph with models/rptree.py, which is not ported yet "
-                    "(ROADMAP.md Queue 1 step 8); pass knn_adj")
+                knn_adj = knn_graph_rp(
+                    data, k, metric=self.metric, seed=seed,
+                    refine=NNDescentConfig(K=k, L=k + 20, iters=2, S=8, R=8),
+                    stats=stats)
             else:
                 # large N: the cluster join (models/knn_ivf.py)
                 from .knn_ivf import knn_graph_ivf

@@ -1,6 +1,6 @@
 """Exact top-k search: one GEMM + running top-k per database tile
 (counterpart of hnsw_nsg_tpu/ops/bruteforce.py: brute_force_topk,
-knn_graph_exact, recall).
+brute_force_topk_approx, knn_graph_exact, recall).
 
 It is the recall oracle of the port: f32 products with TF32 off.
 """
@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .distance import PAD_DIST, PAD_ID, pairwise_dists, squared_norms
+from .distance import (PAD_DIST, PAD_ID, f32_dots, pairwise_dists,
+                       squared_norms)
 from .topk import topk_smallest
 
 _Q_BLOCK = 4096
@@ -63,6 +64,48 @@ def brute_force_topk(
         out_d.append(best_d)
         out_i.append(best_i)
     return torch.cat(out_d), torch.cat(out_i)
+
+
+def brute_force_topk_approx(
+    q: torch.Tensor,
+    x: torch.Tensor,
+    k: int,
+    metric: str = "l2",
+    x_norms: torch.Tensor | None = None,
+    tile: int = 262144,
+    recall_target: float = 0.95,
+    use_bf16: bool = True,
+):
+    """The throughput form of the exact scan: with ``use_bf16`` the
+    operands are rounded to bf16 (products and sums stay f32), and each
+    database tile's top-k is merged into a running top-k. Returns
+    (dists [Q, k] exact-form, ids [Q, k] int64).
+
+    The JAX function takes each tile's top-k with ``jax.lax.approx_max_k``,
+    a TPU partial reduce whose per-query recall is about
+    ``recall_target``. That is TPU scaffolding: here every top-k is exact
+    (a stable sort, ties to the lower id), so ``recall_target`` is taken
+    for the signature and ignored."""
+    n = x.shape[0]
+    k = min(k, n)
+    if metric == "l2" and x_norms is None:
+        x_norms = squared_norms(x)
+    dt = torch.bfloat16 if use_bf16 else torch.float32
+    qc = q.to(dt)
+    best_s = torch.full((q.shape[0], k), float("inf"), device=q.device)
+    best_i = torch.full((q.shape[0], k), PAD_ID, dtype=torch.int64,
+                        device=q.device)
+    for s in range(0, n, tile):
+        e = min(s + tile, n)
+        dots = f32_dots(qc, x[s:e].to(dt))
+        # the negated score, so that the smallest is the closest
+        neg = 0.5 * x_norms[None, s:e] - dots if metric == "l2" else -dots
+        ids = torch.arange(s, e, device=q.device).expand(q.shape[0], -1)
+        best_s, best_i = topk_smallest(torch.cat([best_s, neg], 1),
+                                       torch.cat([best_i, ids], 1), k)
+    if metric == "l2":
+        return squared_norms(q)[:, None] + 2.0 * best_s, best_i
+    return 1.0 + best_s, best_i
 
 
 def knn_graph_exact(x: torch.Tensor, k: int, metric: str = "l2",

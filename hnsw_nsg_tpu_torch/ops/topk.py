@@ -99,3 +99,26 @@ def init_retset(c_dists, c_ids, width: int):
     """A fresh sorted retset of the given width from raw candidates."""
     d0, i0, e0 = empty_retset(c_dists.shape[0], width, c_dists.device)
     return merge_into_retset(d0, i0, e0, c_dists, c_ids)
+
+
+def scatter_last(n_rows: int, width: int, dst, col, *vals_fill):
+    """For each (vals, fill): an [n_rows, width] tensor of ``fill`` with
+    out[dst[j], col[j]] = vals[j] over the flattened proposals; where
+    several land on one cell the last in flattened order wins, on every
+    device (a scatter on the card keeps an arbitrary one). Proposals with
+    dst outside [0, n_rows) are dropped. The random-column reservoirs of
+    HNSW's reverse edges and nn-descent's reverse lists."""
+    dump = n_rows * width
+    ok = (dst >= 0) & (dst < n_rows)
+    key = torch.where(ok, dst.long() * width + col.long(), dump).reshape(-1)
+    sk, order = torch.sort(key, stable=True)
+    last = torch.ones_like(sk, dtype=torch.bool)
+    last[:-1] = sk[1:] != sk[:-1]
+    tgt = torch.where(last, sk, dump)
+    out = []
+    for vals, fill in vals_fill:
+        buf = torch.full((dump + 1,), fill, dtype=vals.dtype,
+                         device=vals.device)
+        buf.scatter_(0, tgt, vals.reshape(-1)[order])
+        out.append(buf[:-1].view(n_rows, width))
+    return out

@@ -1,7 +1,8 @@
 """The hnswlib-compatible API of the PyTorch port on the CPU: the cases
 of tests/test_api.py that the ported part covers, the same calls through
 both packages (labels equal, distances allclose 1e-5, saved files
-byte-equal), pickle, LazyIndex and what waits for its module."""
+byte-equal), pickle and LazyIndex. Range search, multivector documents
+and slot replacement are in tests/test_torch_extensions.py."""
 
 import pickle
 
@@ -277,21 +278,3 @@ class TestLazyIndex:
         assert p.get_current_count() == 300 and p.max_elements >= 300
         labels, _ = p.knn_query(small[:30], k=1, ef=40)
         assert (labels[:, 0] == np.arange(30)).mean() > 0.95
-
-
-class TestWhatWaits:
-    def test_multivector_and_epsilon_name_extensions(self, small):
-        with pytest.raises(NotImplementedError, match="extensions"):
-            tapi.MultiVectorIndex("l2", 16)
-        with pytest.raises(NotImplementedError, match="extensions"):
-            _index(small, n=20).epsilon_query(small[:1], 1.0)
-
-    def test_allow_replace_deleted_names_replace_point(self, small,
-                                                       tmp_path):
-        p = Index("l2", 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="replace_point"):
-            p.init_index(500, allow_replace_deleted=True)
-        path = str(tmp_path / "i.bin")
-        _index(small, n=20).save_index(path)
-        with pytest.raises(NotImplementedError, match="replace_point"):
-            p.load_index(path, allow_replace_deleted=True)

@@ -772,16 +772,21 @@ def test_api_and_hybrid_default_to_the_card(card):
     h = HybridHNSWNSG(16, 9000, HNSWConfig(M=8, ef_construction=40),
                       NSGBuildConfig(L=24, R=16, C=100))
     h.add_points(x)
-    with pytest.raises(NotImplementedError, match="rptree"):
-        h.build_nsg_layer()
-    h.build_nsg_layer(knn_adj=knn_graph_ivf(h.hnsw.data[: h.n], 34,
-                                            n_clusters=12, probes=4,
-                                            as_device=True))
-    assert h.nsg.adj.device.type == h.hnsw.data.device.type == "cuda"
-    hl, _ = h.search_knn(q, k=10, l_search=64)
     _, gt = brute_force_topk(torch.from_numpy(q).to(card),
                              torch.from_numpy(x).to(card), 10)
-    assert recall(hl, gt) >= 0.9
+    # the default build at 8,192 < N <= 200,000 (rp-trees + nn-descent),
+    # then one from a passed graph
+    m0 = ms.launches
+    stats = {}
+    h.build_nsg_layer(stats=stats)
+    assert {"rp_trees", "nndescent"} <= set(stats) and ms.launches > m0
+    for knn in (None, knn_graph_ivf(h.hnsw.data[: h.n], 34, n_clusters=12,
+                                    probes=4, as_device=True)):
+        if knn is not None:
+            h.build_nsg_layer(knn_adj=knn)
+        assert h.nsg.adj.device.type == h.hnsw.data.device.type == "cuda"
+        hl, _ = h.search_knn(q, k=10, l_search=64)
+        assert recall(hl, gt) >= 0.9
 
 
 # -- the general scan (k > 32), the join past k = 64, and the records ------
@@ -1446,3 +1451,105 @@ def test_uint8_cnns_search_on_card_equals_cpu(card, tmp_path):
         ex = ((torch.from_numpy(x).double()[gi]
                - torch.from_numpy(q).double()[:, None, :]) ** 2).sum(-1)
         assert torch.equal(gd.double(), ex)
+
+
+# -- the search extensions, slot replacement and the small-N builders ------
+
+def _carried_graph(tmp_path, n=3000, d=16, seed=3):
+    """An HNSW graph of integer-valued rows (every distance exact) built on
+    the card and written to the .npz both devices read."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-4, 5, (n, d)).astype(np.float32)
+    q = rng.integers(-4, 5, (256, d)).astype(np.float32)
+    idx = HNSWIndex(d, n, HNSWConfig(M=8, ef_construction=40))
+    idx.add_items(x)
+    path = str(tmp_path / "g.npz")
+    idx.save(path)
+    return x, q, path
+
+
+@pytest.mark.cuda
+def test_extensions_on_card_equal_cpu(card, tmp_path):
+    """epsilon_query and knn_doc_query on one graph, on the card and on the
+    CPU: equal labels, distances and counts (integer-valued rows), and the
+    card's beams launched merge+select."""
+    from hnsw_nsg_tpu_torch.api import MultiVectorIndex
+
+    x, q, path = _carried_graph(tmp_path)
+    out = []
+    for dev in (None, "cpu"):
+        p = Index("l2", 16, device=dev)
+        p.load_index(path)
+        m = MultiVectorIndex("l2", 16, device=dev)
+        m.load_index(path)
+        m._docs = np.arange(len(x), dtype=np.int64) // 4
+        m0 = ms.launches
+        out.append((*p.epsilon_query(q, 150.0, max_candidates=128),
+                    *m.knn_doc_query(q, k=10, ef=64)))
+        if dev is None:
+            assert p._index.data.device.type == "cuda"
+            assert ms.launches > m0
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+    assert out[0][2].sum() > 0
+
+
+@pytest.mark.cuda
+def test_replace_point_on_card_equals_cpu(card, tmp_path):
+    """Ten replacing adds through the API on both devices: every level's
+    adjacency equal row for row (integer-valued rows), the deleted labels
+    gone, the new points found."""
+    x, q, path = _carried_graph(tmp_path)
+    new = np.random.default_rng(9).integers(-4, 5, (10, 16)).astype(
+        np.float32)
+    graphs = []
+    for dev in (None, "cpu"):
+        p = Index("l2", 16, device=dev)
+        p.load_index(path, allow_replace_deleted=True)
+        for lab in range(0, 100, 10):
+            p.mark_deleted(lab)
+        p.add_items(new, np.arange(9000, 9010), replace_deleted=True)
+        assert p.get_current_count() == len(x)
+        assert not set(range(0, 100, 10)) & set(p.get_ids_list())
+        labels, _ = p.knn_query(new, k=1, ef=64)
+        assert (labels[:, 0] >= 9000).mean() >= 0.9
+        idx = p._index
+        graphs.append([a[: idx.n].cpu().numpy()
+                       for a in (idx.adj0, *idx.adj_up)])
+    for a, b in zip(*graphs):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_small_n_builders_on_card(card):
+    """nn_descent, knn_graph_rp (refined) and graph_add with numpy input run
+    on the card by default; their recalls against the exact graph come
+    within 0.02 of the same calls on the CPU (the generators differ), and
+    graph_add's beams launch merge+select's warp kernel."""
+    from hnsw_nsg_tpu_torch.models.nndescent import graph_add, nn_descent
+    from hnsw_nsg_tpu_torch.models.rptree import knn_graph_rp
+    from hnsw_nsg_tpu_torch.ops import knn_graph_exact
+    from hnsw_nsg_tpu_torch.utils.params import NNDescentConfig
+
+    x = np.random.default_rng(3).standard_normal((6000, 24)).astype(
+        np.float32)
+    gt = knn_graph_exact(torch.from_numpy(x).to(card), 10).cpu().numpy()
+    base = knn_graph_exact(torch.from_numpy(x[:5000]).to(card),
+                           10).cpu().numpy()
+    cfg = NNDescentConfig(K=10, L=24, iters=4, S=8, R=8)
+    rec = {}
+    for dev in (None, "cpu"):
+        torch.cuda.reset_peak_memory_stats()
+        a = nn_descent(x, cfg, seed=1, device=dev)
+        b = knn_graph_rp(x, 10, n_trees=4, leaf_size=256, seed=2,
+                         refine=cfg, device=dev)
+        if dev is None:
+            assert torch.cuda.max_memory_allocated() > x.nbytes
+        m0 = ms.launches_by_shape.copy()
+        _, c = graph_add(x[:5000], base, x[5000:], seed=7, device=dev)
+        if dev is None:
+            grown = ms.launches_by_shape - m0
+            assert grown and all(ms_l <= ms.MAX_L for _, ms_l, _, _ in grown)
+        rec[dev] = [recall(a, gt), recall(b, gt), recall(c[5000:], gt[5000:])]
+    for r_card, r_cpu in zip(rec[None], rec["cpu"]):
+        assert abs(r_card - r_cpu) <= 0.02, rec

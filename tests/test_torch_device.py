@@ -12,13 +12,15 @@ from hnsw_nsg_tpu_torch import api  # noqa: E402
 from hnsw_nsg_tpu_torch.models import cnns  # noqa: E402
 from hnsw_nsg_tpu_torch.models import hnsw  # noqa: E402
 from hnsw_nsg_tpu_torch.models import hybrid  # noqa: E402
+from hnsw_nsg_tpu_torch.models import nndescent  # noqa: E402
 from hnsw_nsg_tpu_torch.models import nsg  # noqa: E402
+from hnsw_nsg_tpu_torch.models import rptree  # noqa: E402
 from hnsw_nsg_tpu_torch.models import spill  # noqa: E402
 from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf  # noqa: E402
 from hnsw_nsg_tpu_torch.utils import io as io_utils  # noqa: E402
 from hnsw_nsg_tpu_torch.utils.device import resolve_device  # noqa: E402
 from hnsw_nsg_tpu_torch.utils.params import (  # noqa: E402
-    CNNSConfig, HNSWConfig, NSGBuildConfig)
+    CNNSConfig, HNSWConfig, NNDescentConfig, NSGBuildConfig)
 
 
 def _data(n=600, d=8, seed=0):
@@ -176,6 +178,32 @@ def _api_bf_index(tmp_path):
     return []
 
 
+def _nn_descent(tmp_path):
+    nndescent.nn_descent(_data(), NNDescentConfig(K=4, L=8, iters=1, S=2,
+                                                  R=4))
+    return []
+
+
+def _knn_graph_rp(tmp_path):
+    rptree.knn_graph_rp(_data(), 4, n_trees=1, leaf_size=128)
+    return []
+
+
+def _graph_add(tmp_path):
+    x = _data()
+    nndescent.graph_add(x[:500], _knn(x[:500], 4), x[500:])
+    return []
+
+
+def _api_multivector(tmp_path):
+    p = api.MultiVectorIndex("l2", 8)
+    p.init_index(300, M=4, ef_construction=16)
+    p.add_items(_data(300), np.arange(300) // 3)
+    docs, _ = p.knn_doc_query(_data(4), k=2)
+    assert docs.shape == (4, 2)
+    return _hnsw_arrays(p._index)
+
+
 ENTRY_POINTS = {
     "build_cnns": _build_cnns,
     "CNNSIndex.load": _load_cnns,
@@ -195,6 +223,10 @@ ENTRY_POINTS = {
     "api.Index unpickled": _api_unpickle,
     "api.LazyIndex": _api_lazy_index,
     "api.BFIndex": _api_bf_index,
+    "api.MultiVectorIndex": _api_multivector,
+    "nn_descent": _nn_descent,
+    "knn_graph_rp": _knn_graph_rp,
+    "graph_add": _graph_add,
 }
 
 

@@ -13,7 +13,8 @@ from hnsw_nsg_tpu.models.hybrid import HybridHNSWNSG as JHybrid  # noqa: E402
 from hnsw_nsg_tpu.utils.params import HNSWConfig as JConfig  # noqa: E402
 from hnsw_nsg_tpu.utils.params import NSGBuildConfig as JNSGConfig  # noqa: E402,E501
 from hnsw_nsg_tpu_torch.models.hybrid import HybridHNSWNSG  # noqa: E402
-from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import (  # noqa: E402
+    brute_force_topk, knn_graph_exact, recall)
 from hnsw_nsg_tpu_torch.utils.params import HNSWConfig, NSGBuildConfig  # noqa: E402,E501
 
 N, D, NQ, M, EFC = 1024, 16, 64, 8, 32
@@ -123,15 +124,36 @@ def test_load_without_a_base_layer(built, tmp_path):
 
 def test_knn_graph_source_by_size(built):
     """The kNN graph's source follows N as in the JAX package: exact up
-    to 8,192; the rp-tree range raises until that module is ported,
-    unless a graph is passed."""
+    to 8,192, rp-trees refined by nn-descent above (here 8,200 rows, a
+    small NSG configuration to keep the CPU build short), and any [N, K]
+    graph passed in is taken."""
     x, _, _, _, th, _ = built
+    n = 8200
+    rows = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (n, 8)).astype(np.float32))
     big = HybridHNSWNSG.__new__(HybridHNSWNSG)
-    big.hnsw = type("H", (), {"n": 9000, "data": torch.zeros((9000, 2)),
+    big.hnsw = type("H", (), {"n": n, "data": rows,
                               "device": torch.device("cpu")})()
-    big.nsg_cfg, big.metric, big.nsg = NSGBuildConfig(**NSG), "l2", None
-    with pytest.raises(NotImplementedError, match="rptree"):
-        big.build_nsg_layer()
+    cfg = NSGBuildConfig(L=10, R=8, C=32)
+    big.nsg_cfg, big.metric, big.nsg = cfg, "l2", None
+    stats = {}
+    big.build_nsg_layer(stats=stats)
+    assert {"rp_trees", "nndescent", "knn"} <= set(stats)
+    knn = stats["knn_adj"]
+    assert knn.shape == (n, cfg.L + 10)
+    assert recall(knn[:1000], knn_graph_exact(rows, cfg.L + 10)[:1000]) \
+        >= 0.9
+    assert big.nsg.adj.shape == (n, cfg.R)
+    adj = big.nsg.adj.numpy()
+    seen = np.zeros(n, bool)
+    frontier = np.array([big.nsg.ep])
+    seen[frontier] = True
+    while len(frontier):
+        nxt = np.unique(adj[frontier].reshape(-1))
+        nxt = nxt[(nxt >= 0) & ~seen[np.clip(nxt, 0, None)]]
+        seen[nxt] = True
+        frontier = nxt
+    assert seen.all()
     knn = th.nsg.adj.numpy()                  # any [N, K] graph is taken
     th2 = HybridHNSWNSG.__new__(HybridHNSWNSG)
     th2.hnsw, th2.nsg_cfg, th2.metric = th.hnsw, th.nsg_cfg, "l2"
