@@ -197,6 +197,34 @@ Phases, each of which fails the run (non-zero exit) on its own:
      peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
      f32), and the last line:
      ``{"ok": true, "device": ...}``.
+  9. (run after 6c, before 7) the sharded indexes (``parallel/mesh.py``)
+     on a mesh naming the card four times (four logical shards, so every
+     merge runs on it), on
+     phase 3's data and index: (a) ``ShardedFlatIndex`` at k=10 against
+     ``brute_force_topk`` (distances within rtol 1e-5, ids equal outside
+     ties); (b) ``sharded_knn_build_step`` at k=10 over the 1M rows, its
+     seconds and its recall on a 10k-row sample (1.0 outside exact ties);
+     (c) ``ShardedGraphIndex`` over four 250,000-row blocks, an NSG each
+     (``knn_graph_ivf`` k=50 + ``NSGBuildConfig()``, blocks of 4096) and 1024
+     representatives a shard, nprobe 4 and 2 over l_search 32, 64, 128:
+     recall@10 >= 0.95 at nprobe 4 by l_search 128, fewer evaluations at
+     nprobe 2, merge+select's warp kernel launched; (d)
+     ``ShardedCNNSIndex`` over phase 3's index: with every probe kept
+     four shards give one shard's distances exactly; an nprobe sweep (2,
+     4, 8) at the default slots within 0.03 recall of one shard; the f32
+     scans only; (e) ``MultiSliceCNNSIndex`` on a (2, 2) mesh equal row
+     for row to two shards; (f) a 100,000-row uint8 index sharded gives
+     ``CNNSIndex.search``'s distances exactly (F-R9); ``entry()`` and
+     ``dryrun_multichip(4)``; the peak device memory of (a)-(e);
+ 10. (run after 9) the command line and the examples, as processes of
+     their own: 200,000 rows, 1,000 queries and their exact top-10 as fvecs/ivecs, then
+     ``python -m hnsw_nsg_tpu_torch.cli`` build-clusters -> build-nsg ->
+     search-clusters (nsg and flat locals), build-knn --method ivf,
+     build-hnsw -> search-hnsw (recall@10 >= 0.9 at its largest ef),
+     build-hybrid -> search-hybrid --accel, convert (a byte-identical round
+     trip), calculate-recall, in five chains side by side, each rc 0 with
+     its seconds and recall, and beside them the eight examples, each rc
+     0 (their launches are their processes' own, not in the kernels line);
 Imports nothing of JAX.
 """
 
@@ -1010,15 +1038,17 @@ SPILL_NPROBE = (2, 4, 8)
 SPILL_CHECK_NPROBE = 2   # phase 3c took the per-query flat path there
 
 
-def tie_mismatches(dd, ii, ref_d, ref_i):
+def tie_mismatches(dd, ii, ref_d, ref_i, boundary=False):
     """Positions where ids differ although the distances are equal, when
     every such position lies in a run of equal distances of its row (the
-    two searches merged equal candidates in another order); raises at any
-    other difference. Returns the count of differing ids."""
+    two searches merged equal candidates in another order; with
+    ``boundary`` also a run ending at the row's last column, whose ties
+    past k either search may have kept); raises at any other difference.
+    Returns the count of differing ids."""
     if not torch.equal(dd, ref_d):
         raise AssertionError("the distances are not the reference's")
     diff = ii != ref_i
-    tied = torch.zeros_like(diff)
+    tied = (dd == dd[:, -1:]) if boundary else torch.zeros_like(diff)
     tied[:, 1:] |= dd[:, 1:] == dd[:, :-1]
     tied[:, :-1] |= dd[:, :-1] == dd[:, 1:]
     if bool((diff & ~tied).any()):
@@ -2591,6 +2621,429 @@ def phase_small_n(card, x, queries, tally):
     torch.cuda.empty_cache()
 
 
+
+# phase 9: the sharded indexes (parallel/mesh.py) on one card: a mesh that
+# names the card four times holds four logical shards, so every per-shard
+# search and every merge runs on it
+SHARDS = 4
+SHARD_ROWS = 250_000     # phase 9c: one of four shards of the 1M rows
+SHARD_REPS = 1024        # phase 9c's representatives a shard (see there)
+U8_N = 100_000           # phase 9f: the uint8 index's rows
+
+
+def flat_tie_mismatches(dd, ii, ref_d, ref_i, rtol=1e-5):
+    """Distances allclose ``rtol``; ids equal except in runs of distances
+    equal within ``rtol`` (two f32 products of another blocking). Returns
+    the count of differing ids."""
+    if not torch.allclose(dd, ref_d, rtol=rtol, atol=0):
+        raise AssertionError("the distances are not within rtol of the "
+                             "reference's")
+    close = torch.isclose(ref_d[:, 1:], ref_d[:, :-1], rtol=rtol, atol=0)
+    tied = torch.isclose(ref_d, ref_d[:, -1:], rtol=rtol, atol=0)
+    tied[:, 1:] |= close
+    tied[:, :-1] |= close
+    diff = ii.long() != ref_i.long()
+    if bool((diff & ~tied).any()):
+        raise AssertionError(f"{int((diff & ~tied).sum())} ids differ at "
+                             f"distances that are not tied")
+    return int(diff.sum())
+
+
+def phase_sharded(card, x, queries, gt, flat_idx, tally, device="cuda",
+                  shard_rows=SHARD_ROWS, u8_n=U8_N):
+    """Phase 9 on phase 3's data and index, on a mesh of ``SHARDS``
+    logical shards of ``device``: (a) ``ShardedFlatIndex`` at k=10
+    against ``brute_force_topk`` (distances allclose 1e-5, ids equal
+    outside ties); (b) ``sharded_knn_build_step`` at k=10 over every row,
+    its recall on a 10k-row sample against the exact graph (1.0 outside
+    exact ties: the sorted distances of each sampled row equal the exact
+    ones); (c) ``ShardedGraphIndex`` over four ``shard_rows`` blocks, each
+    with its own NSG (``knn_graph_ivf`` k=50 + ``NSGBuildConfig()``, as
+    phase 6), searched at nprobe 4 and 2 over l_search 32, 64, 128:
+    recall@10 >= 0.95 at nprobe 4 by l_search 128, fewer evaluations at
+    nprobe 2 than at 4, merge+select's warp kernel launched; (d)
+    ``ShardedCNNSIndex`` over phase 3's index: with every probe kept four
+    shards give one shard's distances exactly (ids outside ties); an
+    nprobe sweep (2, 4, 8) at the default slots within 0.03 recall of one
+    shard; the f32 scan kernels launched; (e) ``MultiSliceCNNSIndex`` on a
+    (2, 2) mesh equal, row for row, to a two-shard index; (f) a uint8
+    index of ``u8_n`` rows (qshift 128) sharded gives ``CNNSIndex.search``'s
+    distances (F-R9); then ``entry()`` and ``dryrun_multichip``. Prints the
+    peak device memory of (a)-(e). Returns the scan's launches by kernel
+    from (d) on and the tensor-core join's launches of (c)."""
+    from hnsw_nsg_tpu_torch import entry as port_entry
+    from hnsw_nsg_tpu_torch.models.cnns import build_cnns
+    from hnsw_nsg_tpu_torch.models.knn_ivf import knn_graph_ivf
+    from hnsw_nsg_tpu_torch.models.nsg import build_nsg
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.ops import merge_select as ms
+    from hnsw_nsg_tpu_torch.parallel.mesh import (
+        MultiSliceCNNSIndex, ShardedCNNSIndex, ShardedFlatIndex,
+        ShardedGraphIndex, make_mesh, make_multislice_mesh,
+        sharded_knn_build_step,
+    )
+    from hnsw_nsg_tpu_torch.utils.metrics import device_memory_stats
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig, NSGBuildConfig
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n, nq = x.shape[0], queries.shape[0]
+    k = 10
+    t_phase = time.perf_counter()
+    mesh = make_mesh(SHARDS, devices=[device] * SHARDS)
+    print(f"phase 9: a mesh of {mesh.shape} on {device} [{card}]")
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    qd = torch.from_numpy(queries).to(device)
+    xd = torch.from_numpy(x).to(device)
+
+    # (a) the sharded exact search
+    ref_d, ref_i = brute_force_topk(qd, xd, k)
+    fidx = ShardedFlatIndex.build(mesh, x)
+    sync()
+    t0 = time.perf_counter()
+    fd, fi = fidx.search(qd, k)
+    sync()
+    f_s = time.perf_counter() - t0
+    n_tie = flat_tie_mismatches(fd, fi, ref_d, ref_i)
+    print(f"(a) ShardedFlatIndex: {n}x{x.shape[1]} over {SHARDS} shards, "
+          f"{nq} queries at k={k} in {f_s:.3f} s; distances within rtol "
+          f"1e-5 of brute_force_topk's, {n_tie} ids differ among ties "
+          f"[{card}]")
+    del fidx, fd, fi, ref_d, ref_i
+
+    # (b) the distributed kNN-graph build step
+    sync()
+    t0 = time.perf_counter()
+    adj = sharded_knn_build_step(mesh, x, k)
+    sync()
+    kb_s = time.perf_counter() - t0
+    rows = np.random.default_rng(0).choice(n, min(10_000, n), replace=False)
+    rec = exact_knn_recall(xd, adj, rows=rows)
+    rt = torch.from_numpy(rows).to(device)
+    got = ((xd[adj[rt].long()] - xd[rt][:, None]) ** 2).sum(-1)
+    want, _ = brute_force_topk(xd[rt], xd, k + 1)
+    want = want[:, 1:]              # the row itself first (distance 0)
+    same = torch.allclose(torch.sort(got, 1).values, want, rtol=1e-4,
+                          atol=1e-3)
+    print(f"(b) sharded_knn_build_step k={k} over {n} rows: {kb_s:.2f} s, "
+          f"recall on a {len(rows)}-row sample {rec:.6f}, its distances "
+          f"{'equal' if same else 'NOT equal'} to the exact ones [{card}]")
+    if not same or rec < 0.999:
+        raise AssertionError(f"the sharded kNN build is not exact: recall "
+                             f"{rec}")
+    del adj, got, want
+
+    # (c) graph shards: four row blocks, an NSG each. 1024 representatives
+    # a shard, where the JAX package defaults to 32: the data are a mixture
+    # of n / 2500 components, and an entry among 32 random rows misses the
+    # query's component as NSG's single medoid does (~0.73 at l_search 256
+    # at 1M, PERF.md), so most components get a representative
+    m_rows = min(shard_rows, n // SHARDS)
+    cut = SHARDS * m_rows
+    datas, adjs, eps = [], [], []
+    reset_counts(cs, ms)
+    sync()
+    t0 = time.perf_counter()
+    for m in range(SHARDS):
+        xs = xd[m * m_rows : (m + 1) * m_rows]
+        knn = knn_graph_ivf(xs, 50, as_device=True)
+        # blocks of 4096 nodes, as build_nsg takes from 2^18 rows: a
+        # shard's 1024-node default would quadruple the host-bound block
+        # loop, and no result depends on the block size
+        nsg = build_nsg(xs, knn, NSGBuildConfig(), block=4096)
+        datas.append(x[m * m_rows : (m + 1) * m_rows])
+        adjs.append(nsg.adj.cpu().numpy())
+        eps.append(nsg.ep)
+        del knn, nsg
+    sync()
+    g_build = time.perf_counter() - t0
+    join128 = cs.join_launches_by_kernel["join_mma_kernel"]
+    launch_split(ms, "sharded graph build (4 NSGs)", tally)
+    gidx = ShardedGraphIndex.build_from_shards(mesh, datas, adjs, eps,
+                                               n_reps=SHARD_REPS)
+    deg = np.mean([(a >= 0).sum(1).mean() for a in adjs])
+    print(f"(c) ShardedGraphIndex: {SHARDS} shards of {m_rows} rows"
+          + ("" if cut == n else f" (cut from {n // SHARDS})")
+          + f", NSGs built in {g_build:.2f} s (kNN graphs k=50 + "
+          f"NSGBuildConfig()), mean degree {deg:.3f}, {SHARD_REPS} "
+          f"representatives a shard [{card}]")
+    g_gt = gt if cut == n else brute_force_topk(qd, xd[:cut], k)[1].cpu()
+    reset_counts(cs, ms)
+    g_rec, g_ev = {}, {}
+    for nprobe in (4, 2):
+        for ls in (32, 64, 128):
+            sync()
+            t0 = time.perf_counter()
+            dd, ii, ev = gidx.search(qd, k, l_search=ls, nprobe=nprobe)
+            ii_h = ii.cpu()
+            ms_ = (time.perf_counter() - t0) * 1e3
+            g_rec[nprobe, ls] = recall(ii_h, g_gt)
+            g_ev[nprobe, ls] = ev.cpu().tolist()
+            print(f"  nprobe={nprobe} l_search={ls}: recall@10 "
+                  f"{g_rec[nprobe, ls]:.4f}, {ms_:.1f} ms, evals by shard "
+                  f"{g_ev[nprobe, ls]} [{card}]")
+            if not bool(torch.isfinite(dd).all()) or int(ii_h.max()) >= cut:
+                raise AssertionError("bad sharded graph result")
+    (part_launches if on_card else launch_split)(
+        ms, "sharded graph search", tally)
+    reset_counts(cs, ms)
+    if g_rec[4, 128] < TARGET_RECALL:
+        raise AssertionError(f"sharded graph recall@10 {g_rec[4, 128]} < "
+                             f"{TARGET_RECALL} at nprobe 4, l_search 128")
+    for ls in (32, 64, 128):
+        if sum(g_ev[2, ls]) >= sum(g_ev[4, ls]):
+            raise AssertionError(f"nprobe 2 did not cost fewer evaluations "
+                                 f"at l_search {ls}: {g_ev}")
+    del gidx, datas, adjs
+
+    # (d) the sharded CNNS index over phase 3's index
+    one = ShardedCNNSIndex.build(make_mesh(1, devices=[device]), flat_idx)
+    four = ShardedCNNSIndex.build(mesh, flat_idx)
+    d1, i1, e1 = one.search(qd, k, nprobe=4, slots=4)
+    d4, i4, e4 = four.search(qd, k, nprobe=4, slots=4)
+    n_tie = tie_mismatches(d4, i4, d1, i1, boundary=True)
+    print(f"(d) ShardedCNNSIndex over phase 3's index (C={flat_idx.n_real}, "
+          f"f32 slabs), nprobe=4 with every probe kept: {SHARDS} shards "
+          f"give one shard's distances exactly, {n_tie} ids differ among "
+          f"ties; evaluations {int(e4.sum())} = {int(e1.sum())} [{card}]")
+    if int(e4.sum()) != int(e1.sum()):
+        raise AssertionError("four shards evaluated another count")
+    for nprobe in (2, 4, 8):
+        r1 = recall(one.search(qd, k, nprobe=nprobe)[1].cpu(), gt)
+        sync()
+        t0 = time.perf_counter()
+        dd, ii, ev = four.search(qd, k, nprobe=nprobe)
+        ii_h = ii.cpu()
+        ms_ = (time.perf_counter() - t0) * 1e3
+        r4 = recall(ii_h, gt)
+        slots = min(nprobe, -(-nprobe // SHARDS) + 1)
+        print(f"  nprobe={nprobe} (slots {slots}): recall@10 {r4:.4f} (one "
+              f"shard {r1:.4f}), {ms_:.1f} ms, evals by shard "
+              f"{ev.cpu().tolist()} [{card}]")
+        if r4 < r1 - 0.03 or not bool(torch.isfinite(dd).all()):
+            raise AssertionError(f"sharded CNNS recall {r4} against {r1}")
+    del one
+
+    # (e) the multi-slice layout against a two-shard index
+    two = ShardedCNNSIndex.build(make_mesh(2, devices=[device] * 2),
+                                 flat_idx)
+    msi = MultiSliceCNNSIndex.build(
+        make_multislice_mesh(2, devices=[device] * 4), flat_idx)
+    dt, it, _ = two.search(qd, k, nprobe=4)
+    dm, im, em = msi.search(qd, k, nprobe=4)
+    if not (torch.equal(dt, dm) and torch.equal(it, im)):
+        raise AssertionError("the multi-slice index differs from two shards")
+    print(f"(e) MultiSliceCNNSIndex on a {msi.mesh.shape} mesh, nprobe=4: "
+          f"equal to a two-shard index row for row; evals by slice and "
+          f"shard {em.cpu().tolist()} [{card}]")
+    scans = scan_counts(cs, "sharded CNNS (d) + (e)", device)
+    if on_card and (scans.get("scan_f32", 0) <= 0
+                    or set(scans) - {"scan_f32", "scan_general_f32"}):
+        raise AssertionError(f"the sharded CNNS ran other scans: {scans}")
+    del two, msi, four, d1, d4, dd
+    mem = device_memory_stats(device)
+    print(f"(a)-(e) peak device memory {mem['peak_bytes_in_use'] / 1e9:.3f} "
+          f"GB of {mem['bytes_limit'] / 1e9:.3f} [{card}]")
+    del xd, qd
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (f) F-R9: a uint8 index keeps its query transform when sharded
+    xu, qu = make_data(u8_n, 128, 100, "l2", seed=0, uint8=True)
+    uidx = build_cnns(xu, CNNSConfig(n_clusters=max(u8_n // 1024, 8), m=4,
+                                     kmeans_iters=12),
+                      slab_dtype=torch.int8, device=device)
+    usharded = ShardedCNNSIndex.build(mesh, uidx)
+    qud = torch.from_numpy(qu).to(device)
+    for nprobe in (2, 4):
+        wd, wi = uidx.search(qud, k, nprobe=nprobe)
+        sd, si, _ = usharded.search(qud, k, nprobe=nprobe, slots=nprobe)
+        n_tie = tie_mismatches(sd, si, wd, wi, boundary=True)
+        print(f"(f) uint8 index ({u8_n} rows, qshift {uidx.qshift}, "
+              f"qscale {uidx.qscale}) over {SHARDS} shards, nprobe="
+              f"{nprobe}: CNNSIndex.search's distances exactly, {n_tie} ids "
+              f"differ among ties [{card}]")
+    del uidx, usharded, qud
+
+    fn, args = port_entry.entry(device)
+    ed, ei = fn(*args)
+    if tuple(ed.shape) != (16, 32) or not bool(torch.isfinite(ed).all()):
+        raise AssertionError(f"entry() gave {tuple(ed.shape)}")
+    port_entry.dryrun_multichip(SHARDS, devices=[device] * SHARDS)
+    launch_split(ms, "entry() and dryrun", tally)
+    all_scans = scan_counts(cs, "phase 9 (d)-(f), entry() and dryrun", device)
+    print(f"entry() and dryrun_multichip({SHARDS}) ran; phase 9: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return all_scans, join128
+
+
+# phase 10: the command line and the examples, each a process of its own
+CLI_N, CLI_NQ = 200_000, 1000
+
+
+def run_chains(chains, cwd, env, timeout=600):
+    """Run each chain (a list of (name, argv)) in a thread of its own, the
+    commands of a chain one after another as processes; every process is
+    waited for (killed at ``timeout``). Returns {name: (rc, seconds,
+    stdout, stderr)}."""
+    import threading
+
+    out, lock = {}, threading.Lock()
+
+    def go(chain):
+        for name, argv in chain:
+            t0 = time.perf_counter()
+            try:
+                p = subprocess.run(argv, cwd=cwd, env=env, timeout=timeout,
+                                   capture_output=True, text=True)
+                rc, so, se = p.returncode, p.stdout, p.stderr
+            except subprocess.TimeoutExpired as e:
+                rc, so, se = 124, "", f"timed out: {e}"
+            with lock:
+                out[name] = (rc, time.perf_counter() - t0, so, se)
+            if rc != 0:
+                return
+
+    threads = [threading.Thread(target=go, args=(c,)) for c in chains]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def phase_cli(card, x, queries, device=None, n=CLI_N, nq=CLI_NQ):
+    """Phase 10: the first ``n`` rows, ``nq`` queries and their exact
+    top-10 as fvecs/ivecs in a temporary directory, then
+    ``python -m hnsw_nsg_tpu_torch.cli`` (the card by default, or
+    ``--device``) in five chains run side by side: build-clusters ->
+    build-nsg -> search-clusters (nsg locals, then flat locals: the
+    artifacts' routing and slabs without the local graphs); build-knn
+    --method ivf; build-hnsw ->
+    search-hnsw; build-hybrid -> search-hybrid --accel; convert (fvecs ->
+    bin -> fvecs, the same bytes) -> calculate-recall. Every rc must be 0;
+    each command's seconds and reported recall are printed, and
+    search-hnsw must reach recall@10 >= 0.9 at its largest ef. The eight
+    examples of ``hnsw_nsg_tpu_torch/examples/`` run beside the chains,
+    each with rc 0. Their kernel launches are their own processes' and
+    are not in the kernels line."""
+    import filecmp
+    import os
+    import tempfile
+
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk
+    from hnsw_nsg_tpu_torch.utils import io
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    dev = [] if device is None else ["--device", device]
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        base, qf, gtf = (os.path.join(tmp, f) for f in
+                         ("base.fvecs", "query.fvecs", "gt.ivecs"))
+        xb, qb = x[:n], queries[:nq]
+        io.write_fvecs(base, xb)
+        io.write_fvecs(qf, qb)
+        tdev = device or "cuda"
+        _, g = brute_force_topk(torch.from_numpy(qb).to(tdev),
+                                torch.from_numpy(xb).to(tdev), 10)
+        io.write_gt(gtf, g.cpu().numpy().astype(np.int32))
+        io.write_ivecs(os.path.join(tmp, "res.ivecs"),
+                       g.cpu().numpy().astype(np.int32))
+        cli = [sys.executable, "-m", "hnsw_nsg_tpu_torch.cli"]
+        pre = os.path.join(tmp, "artifacts")
+        q_gt = [qf, "--gt", gtf, "--k", "10"]
+        chains = [
+            [("build-clusters", cli + ["build-clusters", base, "16", "4",
+                                       "32", "40", "5", "10", "50", pre,
+                                       "--kmeans-iters", "8"] + dev),
+             ("build-nsg", cli + ["build-nsg", pre, "40", "32", "200"] + dev),
+             ("search-clusters", cli + ["search-clusters", pre] + q_gt
+              + ["--nprobe", "4", "--local", "nsg"] + dev),
+             ("search-clusters flat", cli + ["search-clusters", pre] + q_gt
+              + ["--nprobe", "4", "--local", "flat"] + dev)],
+            [("build-knn", cli + ["build-knn", base,
+                                  os.path.join(tmp, "knn.graph"), "50",
+                                  "--method", "ivf"] + dev)],
+            [("build-hnsw", cli + ["build-hnsw", base,
+                                   os.path.join(tmp, "h.npz"), "--M", "16",
+                                   "--efc", "100"] + dev),
+             ("search-hnsw", cli + ["search-hnsw", os.path.join(tmp, "h.npz")]
+              + q_gt + ["--efs", "16,32,64,128"] + dev)],
+            [("build-hybrid", cli + ["build-hybrid", base,
+                                     os.path.join(tmp, "hyb"), "--M", "16",
+                                     "--efc", "40", "--L", "40", "--R", "32",
+                                     "--C", "200"] + dev),
+             ("search-hybrid", cli + ["search-hybrid",
+                                      os.path.join(tmp, "hyb")] + q_gt
+              + ["--search-ls", "32,64,128", "--accel"] + dev)],
+            [("convert", cli + ["convert", base,
+                                os.path.join(tmp, "base.bin")] + dev),
+             ("convert back", cli + ["convert", os.path.join(tmp, "base.bin"),
+                                     os.path.join(tmp, "back.fvecs")] + dev),
+             ("calculate-recall", cli + ["calculate-recall",
+                                         os.path.join(tmp, "res.ivecs"), gtf,
+                                         "--k", "10"] + dev)],
+        ]
+        # the examples run beside the chains
+        ex_dir = os.path.join(root, "hnsw_nsg_tpu_torch", "examples")
+        names = sorted(f[:-3] for f in os.listdir(ex_dir)
+                       if f.startswith("example_") and f.endswith(".py"))
+        examples = [[(nm, [sys.executable, "-m",
+                           f"hnsw_nsg_tpu_torch.examples.{nm}"]
+                      + ([] if device is None else [device]))]
+                    for nm in names]
+        t0 = time.perf_counter()
+        res = run_chains(chains + examples, root, env)
+        wall = time.perf_counter() - t0
+        for chain in chains:
+            for name, _ in chain:
+                rc, sec, so, se = res.get(name, (None, 0.0, "", "not run"))
+                tail = so.strip().splitlines()[-1] if so.strip() else ""
+                print(f"  cli {name}: rc {rc}, {sec:.1f} s; {tail} [{card}]")
+                if rc != 0:
+                    print(so[-2000:], se[-3000:])
+                    raise AssertionError(f"cli {name} failed: rc {rc}")
+        sweep = [l.split("\t") for l in res["search-hnsw"][2].splitlines()
+                 if l[:1].isdigit()]
+        r_hnsw = float(sweep[-1][1])
+        r_hyb = [l.split("\t") for l in res["search-hybrid"][2].splitlines()
+                 if l[:1].isdigit()]
+        r_clu, r_flat = (json.loads(res[c][2].strip().splitlines()[-1])
+                         for c in ("search-clusters", "search-clusters flat"))
+        r_calc = json.loads(res["calculate-recall"][2].strip()
+                            .splitlines()[-1])
+        same = filecmp.cmp(base, os.path.join(tmp, "back.fvecs"),
+                           shallow=False)
+        print(f"cli on {n} rows, {nq} queries ({len(chains)} chains and "
+              f"the examples side by side, {wall:.1f} s): search-clusters "
+              f"recall@10 "
+              f"{r_clu['recall']:.4f} (nsg locals; flat locals "
+              f"{r_flat['recall']:.4f}), search-hnsw {r_hnsw:.4f} at ef "
+              f"{sweep[-1][0]}, search-hybrid (records) {r_hyb[-1][1]} at "
+              f"l_search {r_hyb[-1][0]}, calculate-recall "
+              f"{r_calc['recall']}, convert round trip "
+              f"{'byte-identical' if same else 'DIFFERENT'} [{card}]")
+        if r_hnsw < 0.9 or not same or r_calc["recall"] != 1.0:
+            raise AssertionError("the cli's results are wrong")
+
+    for nm in names:
+        rc, sec, so, se = res[nm]
+        tail = so.strip().splitlines()[-1] if so.strip() else ""
+        print(f"  {nm}: rc {rc}, {sec:.1f} s; {tail} [{card}]")
+        if rc != 0:
+            print(so[-2000:], se[-3000:])
+            raise AssertionError(f"{nm} failed: rc {rc}")
+    print(f"examples: {len(names)}, each rc 0; phase 10: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if len(names) != 8:
+        raise AssertionError(f"{len(names)} examples, not 8")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2645,13 +3098,18 @@ def main() -> int:
     (j_launches, n_slabs, y_rec, j64_launches,
      f32_launches) = phase_hybrid(card, x, queries, gt, hnsw_graph, tally)
     nsg_scan = phase_cnns_nsg(card, x, queries, gt, flat_idx, tally)
-    del flat_idx
     t0 = time.perf_counter()
     phase_small_n(card, x, queries, tally)
     print(f"phase 6c: {time.perf_counter() - t0:.1f} s")
+    # phase 9 keeps phase 3's index for its sharded CNNS parts
+    sh_scans, sh_join = phase_sharded(card, x, queries, gt, flat_idx, tally)
+    j_launches += sh_join
+    del flat_idx
+    torch.cuda.empty_cache()
+    phase_cli(card, x, queries)
     m_launches = sum(tally.values())
     print(f"merge_select launches over the HNSW, range search, churn, hybrid, "
-          f"CNNS graph-local and small-N paths: "
+          f"CNNS graph-local, small-N and sharded paths: "
           f"{m_launches}, by kernel "
           + ", ".join(f"{kern} {n} ({n / m_launches:.3%})"
                       for kern, n in tally.items())
@@ -2707,7 +3165,7 @@ def main() -> int:
     kernels = [
         scan_entry("grouped_cluster_topk_gq (bf16 tensor cores, k <= 32: "
                    "scan_mma_kernel)", "scan_mma",
-                   count("scan_mma", sift_counts, nsg_scan),
+                   count("scan_mma", sift_counts, nsg_scan, sh_scans),
                    scan_times["main path bf16 l2 k=20"],
                    err("scan_mma", bf)),
         scan_entry("grouped_cluster_topk_gq (SQ8, int8 slab x bf16 query, "
@@ -2717,26 +3175,28 @@ def main() -> int:
         scan_entry("grouped_cluster_topk_gq (tensor cores, k > 32, bf16 and "
                    "SQ8: scan_general_mma_kernel)", "scan_general_mma",
                    count("scan_general_mma", sift_counts, gist_counts,
-                         nsg_scan),
+                         nsg_scan, sh_scans),
                    scan_times["main path bf16 l2 k=200"],
                    max(g200[0], err("scan_general_mma", bf, i8))),
         scan_entry("grouped_cluster_topk_gq (f32, exact FMAs on the ring "
                    "pipeline, k <= 32: scan_f32_kernel)", "scan_f32",
-                   f32_counts["scan_f32"],
+                   count("scan_f32", f32_counts, sh_scans),
                    scan_times["main path f32 l2 k=20"],
                    err("scan_f32", f32)),
         scan_entry("grouped_cluster_topk_gq (f32, exact FMAs on the ring "
                    "pipeline, k > 32: scan_general_f32_kernel)",
-                   "scan_general_f32", f32_counts["scan_general_f32"],
+                   "scan_general_f32",
+                   count("scan_general_f32", f32_counts, sh_scans),
                    scan_times["main path f32 l2 k=200"],
                    err("scan_general_f32", f32)),
         scan_entry("grouped_cluster_topk_gq (int8 x int8, s8 tensor cores, "
                    "k <= 32: scan_i8_kernel)", "scan_i8",
-                   u8_counts["scan_i8"], u8_times[10][1:],
+                   count("scan_i8", u8_counts, sh_scans), u8_times[10][1:],
                    err("scan_i8", i8)),
         scan_entry("grouped_cluster_topk_gq (int8 x int8, s8 tensor cores, "
                    "k > 32: scan_general_i8_kernel)", "scan_general_i8",
-                   u8_counts["scan_general_i8"], u8_times[100][1:],
+                   count("scan_general_i8", u8_counts, sh_scans),
+                   u8_times[100][1:],
                    err("scan_general_i8", i8)),
         # no main path runs f32, a bf16 query or int8 x int8 past the
         # pipeline's widths: timed on a bf16 query at d = 1928
@@ -2745,7 +3205,7 @@ def main() -> int:
                    "past d = 1920, int8 x int8 past d = 3840)",
                    "grouped_scan",
                    count("grouped_scan", sift_counts, gist_counts,
-                         f32_counts, u8_counts),
+                         f32_counts, u8_counts, sh_scans),
                    scan_times["d=1928 bf16 l2"],
                    err("grouped_scan", f32, i8, bf), on_path=False),
         scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
@@ -2753,7 +3213,7 @@ def main() -> int:
                    "past d = 1920, int8 x int8 past d = 3840)",
                    "scan_general",
                    count("scan_general", sift_counts, gist_counts,
-                         f32_counts, u8_counts),
+                         f32_counts, u8_counts, sh_scans),
                    scan_times["d=1928 bf16 l2 k=100"],
                    err("scan_general", f32, i8, bf), on_path=False),
     ]

@@ -23,7 +23,13 @@ the same path there. Ported so far:
     (``HNSWIndex.replace_point``, ``allow_replace_deleted``) and the
     small-N graph builders (``models.nndescent``: ``nn_descent``,
     ``graph_add``; ``models.rptree``: ``knn_graph_rp``), which the hybrid
-    index builds its kNN graph with between 8,192 and 200,000 points.
+    index builds its kNN graph with between 8,192 and 200,000 points;
+  * the sharded indexes (``parallel.mesh``: a mesh of devices, one
+    controller running every shard, top-k merges on its first device),
+    the entry points of ``__graft_entry__.py`` (``entry``), the command
+    line (``cli``),
+    ``utils.metrics``, ``utils.native`` and the ``examples``: every module
+    of the JAX package but its JAX-only compile cache.
 
 Importing the package loads no GPU library; the kernels are compiled at
 the first launch on a CUDA tensor.

@@ -31,8 +31,8 @@ merge+select is ``merge_into_retset`` then ``_select_frontier`` bit for
 bit, so select-expand-merge hops equal the expand-first chunked ones,
 and only its stopping rule (the largest per-query hop count, not the
 count of loop turns) is its own. ``random_fill_ids`` draws from a
-``torch.Generator``. ``beam_search_collect`` waits for
-``parallel/mesh.py`` and raises.
+``torch.Generator``. The while-loop ``beam_search_collect`` runs on the
+same loop with its pool folded in each hop and no compaction.
 """
 
 from __future__ import annotations
@@ -344,12 +344,46 @@ def beam_search_filtered(
     return BeamResult(p_d, p_i, hops, evals)
 
 
-def beam_search_collect(*args, **kwargs):
-    """The while-loop collect beam of the JAX package (beam.py:418)."""
-    raise NotImplementedError(
-        "beam_search_collect is not ported: it serves the sharded indexes "
-        "of parallel/mesh.py (ROADMAP.md Queue 1 step 5); host-driven code "
-        "uses beam_search_collect_chunked")
+def beam_search_collect(
+    queries: torch.Tensor,
+    data: torch.Tensor,
+    norms: torch.Tensor,
+    adj: torch.Tensor,
+    init_ids: torch.Tensor,
+    width: int,
+    collect: int,
+    metric: str = "l2",
+    max_hops: int = 512,
+    expand: int = 1,
+):
+    """The JAX package's while-loop collect beam (beam.py:414-470):
+    ``beam_search`` that also keeps the closest ``collect`` evaluated (id,
+    dist) pairs, the sorted, deduplicated top-``collect`` pool of the
+    reference's ``get_neighbors`` fullset (index_nsg.cpp:150-285). The
+    pool starts from the init candidates and folds every hop's candidates
+    with a throwaway selection, as in ``beam_search_collect_chunked``; the
+    hops run on ``run_chunks`` with the while-loop's stopping rule and no
+    compaction (the pool is indexed by the batch's rows).
+
+    Returns (BeamResult, pool_ids [Q, collect], pool_dists [Q, collect]);
+    ids, distances, hops and evals equal the JAX function's."""
+    init_ids = init_ids.to(torch.int32)
+    init_d, *state = _start(queries, data, norms, init_ids, width, metric,
+                            expand)
+    p_d, p_i, _ = init_retset(init_d, init_ids, collect)
+    pool = [p_d, p_i]
+    p_e0 = torch.zeros(p_d.shape, dtype=torch.bool, device=queries.device)
+
+    def hop(q, sel_ids, sel_valid):
+        nbrs = _expand(adj, sel_ids, sel_valid)
+        cd = gathered_dists(q, data, nbrs, metric, norms)
+        pool[0], pool[1], _, _, _ = fused_merge_select(
+            pool[0], pool[1], p_e0, cd, nbrs, 1)
+        return cd, nbrs
+
+    res = run_chunks(queries, state, hop, width, max_hops, expand, 32,
+                     queries.shape[0] + 1, max_hops)
+    return res, pool[1], pool[0]
 
 
 def random_fill_ids(gen: torch.Generator, n: int, shape, forbid=None):

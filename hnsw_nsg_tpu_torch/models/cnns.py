@@ -186,6 +186,50 @@ def _flat_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
     return torch.cat(out_d), torch.cat(out_i)
 
 
+def _invert_pairs(visit, c: int):
+    """The (query, probe slot) pairs of ``visit`` [Q, npr] (cluster ids,
+    PAD_ID padded) sorted by (cluster, probe rank). Returns, each [Q*npr]:
+    the query, the cluster (``c`` for a PAD pair), the position in its
+    cluster's list and the probe slot (``npr`` for a PAD pair)."""
+    dev = visit.device
+    qn, npr = visit.shape
+    flat_cid = visit.reshape(-1)
+    slot_iota = torch.arange(npr, device=dev).repeat(qn)
+    pair_q = torch.arange(qn, device=dev).repeat_interleave(npr)
+    sort_key = torch.where(flat_cid >= 0, flat_cid * npr + slot_iota,
+                           c * npr)
+    order = torch.argsort(sort_key, stable=True)
+    ocid = flat_cid[order]
+    scid = torch.where(ocid >= 0, ocid, c)
+    pos = (torch.arange(qn * npr, device=dev)
+           - torch.searchsorted(scid, scid, side="left"))
+    slot = torch.where(ocid >= 0, slot_iota[order], npr)
+    return pair_q[order], scid, pos, slot
+
+
+def _scan_bias(ids_c, cnorms_c, metric):
+    """The grouped scan's (bias [C, maxc], scale): ``dist = bias - scale *
+    dot`` is FastL2 (slab norms) or ``1 - dot``; +inf on pad slots."""
+    if metric in ("ip", "cosine"):
+        return torch.where(ids_c >= 0, 1.0, float("inf")), 1.0
+    return torch.where(ids_c >= 0, cnorms_c.float(), float("inf")), 2.0
+
+
+def _scan_lists(qc, qidx, data_c, ids_c, bias, k, scale):
+    """The grouped scan of the query lists ``qidx`` [C, cap] over the
+    slabs: each list slot's k smallest (dists, global ids) [C, cap, k],
+    PAD where the slot or the slab position is dead."""
+    c, cap = qidx.shape
+    maxc = ids_c.shape[1]
+    td, li = grouped_cluster_topk_gq(qc.contiguous(), qidx, data_c,
+                                     bias.contiguous(), k, scale)
+    live = (qidx >= 0)[:, :, None]
+    gi = torch.gather(ids_c[:, None, :].expand(c, cap, maxc), 2,
+                      li.long().clamp(0, maxc - 1))
+    gi = torch.where(live & torch.isfinite(td), gi, PAD_ID)
+    return torch.where(gi >= 0, td, PAD_DIST), gi
+
+
 def _grouped_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
                           cap: int, q_round: bool = True,
                           k_out: int | None = None,
@@ -208,17 +252,7 @@ def _grouped_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
     qc = _cast_q(qf, data_c.dtype, q_round)
 
     # ---- invert: pairs sorted by (cluster, probe rank) -> [C, cap] lists
-    flat_cid = visit.reshape(-1)
-    slot_iota = torch.arange(npr, device=dev).repeat(qn)
-    pair_q = torch.arange(qn, device=dev).repeat_interleave(npr)
-    sort_key = torch.where(flat_cid >= 0, flat_cid * npr + slot_iota,
-                           c * npr)
-    order = torch.argsort(sort_key, stable=True)
-    ocid = flat_cid[order]
-    scid = torch.where(ocid >= 0, ocid, c)
-    sq = pair_q[order]
-    pos = (torch.arange(qn * npr, device=dev)
-           - torch.searchsorted(scid, scid, side="left"))
+    sq, scid, pos, slot = _invert_pairs(visit, c)
     ok = (scid < c) & (pos < cap)
     spilled = (scid < c) & (pos >= cap)
     # Out-of-bounds scatter: JAX's .at[].set(mode="drop") silently drops
@@ -229,26 +263,14 @@ def _grouped_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
     qidx[scid[ok], pos[ok]] = sq[ok].to(torch.int32)
 
     # ---- contiguous slab sweep: the grouped scan kernel
-    if metric in ("ip", "cosine"):
-        bias = torch.where(ids_c >= 0, 1.0, float("inf"))
-        scale = 1.0
-    else:
-        bias = torch.where(ids_c >= 0, cnorms_c.float(), float("inf"))
-        scale = 2.0
-    td, li = grouped_cluster_topk_gq(qc.contiguous(), qidx, data_c,
-                                     bias.contiguous(), k, scale)
-    live = (qidx >= 0)[:, :, None]
-    gi = torch.gather(ids_c[:, None, :].expand(c, cap, maxc), 2,
-                      li.long().clamp(0, maxc - 1))
-    gi = torch.where(live & torch.isfinite(td), gi, PAD_ID)
-    td = torch.where(gi >= 0, td, PAD_DIST)
+    bias, scale = _scan_bias(ids_c, cnorms_c, metric)
+    td, gi = _scan_lists(qc, qidx, data_c, ids_c, bias, k, scale)
 
     # ---- route results back to (query, probe slot) cells
     safe_cid = torch.where(ok, scid, 0)
     safe_pos = torch.where(ok, pos, 0)
     rd = torch.where(ok[:, None], td[safe_cid, safe_pos], PAD_DIST)
     ri = torch.where(ok[:, None], gi[safe_cid, safe_pos], PAD_ID)
-    slot = torch.where(ocid >= 0, slot_iota[order], npr)
     out_d = torch.full((qn, npr, k), float(PAD_DIST), device=dev)
     out_i = torch.full((qn, npr, k), PAD_ID, dtype=ids_c.dtype, device=dev)
     # (out-of-bounds scatter) invalid pairs aim at slot npr: filtered

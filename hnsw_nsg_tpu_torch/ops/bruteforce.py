@@ -12,7 +12,7 @@ import torch
 
 from .distance import (PAD_DIST, PAD_ID, f32_dots, pairwise_dists,
                        squared_norms)
-from .topk import topk_smallest
+from .topk import topk_smallest, topk_smallest_wide
 
 _Q_BLOCK = 4096
 
@@ -31,7 +31,10 @@ def brute_force_topk(
     ids [Q, k] int64). q: [Q, d]; x: [N, d] on the same device. Rows
     ``>= valid_n`` of x are ignored. Queries run in blocks of _Q_BLOCK
     rows to bound the [_Q_BLOCK, tile] distance tile; rows are
-    independent, so blocking changes no result."""
+    independent, so blocking changes no result. Each tile's top-k is a
+    selection, not a sort of the tile (``topk_smallest_wide``), merged
+    into the running top-k: the same pairs in the same order as a stable
+    sort of all distances, ties to the lower id."""
     n = x.shape[0]
     k = min(k, n)
     limit = n if valid_n is None else int(valid_n)
@@ -54,12 +57,16 @@ def brute_force_topk(
             )
             if qn is not None:
                 d = d + qn[:, None]
-            ids = torch.arange(s, e, device=q.device)[None, :]
-            valid = ids < limit
-            d = torch.where(valid, d, PAD_DIST)
-            ids = torch.where(valid, ids, PAD_ID).expand(nq, -1)
+            if limit < e:
+                d[:, max(limit - s, 0):] = float(PAD_DIST)
+            # the tile's own top-k, then a merge of 2k: the top-k of
+            # [best, tile] in (value, position) order keeps exactly these
+            td, tpos = topk_smallest_wide(d, min(k, e - s))
+            tid = tpos + s
             best_d, best_i = topk_smallest(
-                torch.cat([best_d, d], 1), torch.cat([best_i, ids], 1), k
+                torch.cat([best_d, td], 1),
+                torch.cat([best_i, torch.where(tid < limit, tid, PAD_ID)], 1),
+                k,
             )
         out_d.append(best_d)
         out_i.append(best_i)

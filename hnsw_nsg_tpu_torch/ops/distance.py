@@ -97,7 +97,8 @@ def pairwise_dists(
         return 1.0 - dots
     if x_norms is None:
         x_norms = squared_norms(x)
-    d = x_norms[None, :] - 2.0 * dots
+    # one pass: norms + (-2) * dots rounds once, as norms - 2 * dots does
+    d = torch.add(x_norms[None, :], dots, alpha=-2.0)
     if exact:
         d = d + squared_norms(q)[:, None]
     return d

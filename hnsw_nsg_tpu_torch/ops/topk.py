@@ -28,6 +28,29 @@ def topk_smallest(dists: torch.Tensor, ids: torch.Tensor, k: int):
     return vals[..., :k], torch.gather(ids, -1, idx)
 
 
+def topk_smallest_wide(dists: torch.Tensor, k: int):
+    """``topk_smallest`` of the positions of 2-D rows much wider than k,
+    with the same result, by a selection instead of a sort of the row:
+    ``torch.topk`` picks k smallest entries; where it left out an entry
+    equal to the k-th value (it chooses among ties arbitrarily) or met
+    NaN, the row is taken by the stable sort. The k picks are then
+    ordered by value, ties by position. Returns (values, positions)."""
+    n = dists.shape[-1]
+    col = torch.arange(n, device=dists.device)
+    if k >= n:
+        return topk_smallest(dists, col.expand(dists.shape), k)
+    vals, pos = torch.topk(dists, k, dim=-1, largest=False, sorted=False)
+    kth = vals.amax(-1, keepdim=True)
+    redo = (((dists == kth).sum(-1) != (vals == kth).sum(-1))
+            | torch.isnan(kth[:, 0])).nonzero()[:, 0]
+    if redo.numel():
+        pos[redo] = topk_smallest(dists[redo],
+                                  col.expand(redo.numel(), n), k)[1]
+    pos = torch.sort(pos, dim=1).values                 # position order
+    vals, order = torch.sort(torch.gather(dists, 1, pos), dim=1, stable=True)
+    return vals, torch.gather(pos, 1, order)
+
+
 def empty_retset(batch: int, width: int, device=None):
     """An all-padding retset: dists=PAD_DIST, ids=PAD_ID, expanded=True
     (padded slots are never picked as frontier)."""

@@ -1,8 +1,9 @@
 """Byte-compatible readers/writers for the reference's on-disk formats
 (numpy-only copy of hnsw_nsg_tpu/utils/io.py; the port imports no JAX).
 
-The xvecs readers here are plain numpy: the JAX package's optional C++
-fast path (``utils/native.py``) is not carried over.
+The xvecs readers take the native reader (``utils/native.py``, the
+repository's ``native/xvecs_io.cpp``) where it built and loaded, numpy
+otherwise, as the JAX package's do; the bytes are the same.
 
 Formats (SURVEY.md §2.7):
   * fvecs/ivecs/bvecs — per row ``int32 dim`` + dim x (f32 / i32 / u8);
@@ -37,6 +38,10 @@ PAD_ID = -1
 
 
 def _read_xvecs(path: str, dtype, elem_size: int) -> np.ndarray:
+    from . import native
+    fast = native.read_xvecs(path, dtype, elem_size)
+    if fast is not None:
+        return fast
     raw = np.fromfile(path, dtype=np.uint8)
     if raw.size == 0:
         return np.zeros((0, 0), dtype=dtype)

@@ -1553,3 +1553,71 @@ def test_small_n_builders_on_card(card):
         rec[dev] = [recall(a, gt), recall(b, gt), recall(c[5000:], gt[5000:])]
     for r_card, r_cpu in zip(rec[None], rec["cpu"]):
         assert abs(r_card - r_cpu) <= 0.02, rec
+
+
+@pytest.mark.cuda
+def test_sharded_indexes_on_card_equal_cpu(card):
+    """The sharded indexes on a mesh of four logical shards of the card
+    give the CPU mesh's results: the CNNS search on the f32 scan kernels
+    (integer-valued rows: every product exact, distances equal), the graph
+    search on merge+select (equal), the flat search and the kNN build step
+    (ids equal on integer rows outside ties)."""
+    from hnsw_nsg_tpu_torch.parallel import mesh as tm
+
+    rng = np.random.default_rng(15)
+    centers = rng.integers(-8, 9, (30, 24))
+    x = (centers[rng.integers(0, 30, 6000)]
+         + rng.integers(-2, 3, (6000, 24))).astype(np.float32)
+    q = (centers[rng.integers(0, 30, 64)]
+         + rng.integers(-2, 3, (64, 24))).astype(np.float32)
+    idx = cnns.build_cnns(x, CNNSConfig(n_clusters=30, m=2, kmeans_iters=8),
+                          device="cpu")
+    cpu4 = tm.make_mesh(4, devices=["cpu"] * 4)
+    gpu4 = tm.make_mesh(4, devices=["cuda"] * 4)
+    before = cs.launches_by_kernel["scan_f32"]
+    want = tm.ShardedCNNSIndex.build(cpu4, idx).search(q, 10, nprobe=8)
+    got = tm.ShardedCNNSIndex.build(gpu4, idx).search(q, 10, nprobe=8)
+    assert cs.launches_by_kernel["scan_f32"] > before
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[2].cpu(), want[2])
+    assert (got[1].cpu() == want[1]).float().mean() > 0.99
+
+    datas = [x[i * 1500 : (i + 1) * 1500] for i in range(4)]
+    adjs = [knn_graph_ivf(d_, 10, device="cpu") for d_ in datas]
+    before = ms.launches
+    g_want = tm.ShardedGraphIndex.build_from_shards(
+        cpu4, datas, adjs).search(q, 10, l_search=32, nprobe=2)
+    g_got = tm.ShardedGraphIndex.build_from_shards(
+        gpu4, datas, adjs).search(q, 10, l_search=32, nprobe=2)
+    assert ms.launches > before
+    for a, b in zip(g_got, g_want):
+        assert torch.equal(a.cpu(), b)
+
+    f_want = tm.ShardedFlatIndex.build(cpu4, x).search(q, 10)
+    f_got = tm.ShardedFlatIndex.build(gpu4, x).search(q, 10)
+    assert torch.equal(f_got[0].cpu(), f_want[0])
+    adj_want = tm.sharded_knn_build_step(cpu4, x, 8)
+    adj_got = tm.sharded_knn_build_step(gpu4, x, 8)
+    d_w = ((x[adj_want.numpy()] - x[:, None]) ** 2).sum(-1)
+    d_g = ((x[adj_got.cpu().numpy()] - x[:, None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(d_g, d_w)
+
+
+@pytest.mark.cuda
+def test_entry_dryrun_and_metrics_on_card(card, tmp_path):
+    from hnsw_nsg_tpu_torch import entry
+    from hnsw_nsg_tpu_torch.utils import metrics
+
+    fn, args = entry.entry()
+    assert all(a.is_cuda for a in args)
+    d_gpu, i_gpu = fn(*args)
+    fn_c, args_c = entry.entry("cpu")
+    d_cpu, i_cpu = fn_c(*args_c)
+    assert (i_gpu.cpu() == i_cpu).float().mean() > 0.99
+    entry.dryrun_multichip(4, devices=["cuda"] * 4)
+    stats = metrics.device_memory_stats()
+    assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"] < (
+        stats["bytes_limit"])
+    with metrics.timed(sync=d_gpu) as t:
+        fn(*args)
+    assert t.elapsed > 0

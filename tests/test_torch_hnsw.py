@@ -109,12 +109,6 @@ def test_beam_search_filtered_matches_jax(built, expand):
     np.testing.assert_array_equal(tr.evals.numpy(), np.asarray(jr.evals))
 
 
-@pytest.mark.parametrize("name", ["beam_search_collect"])
-def test_unported_beam_variants_raise(name):
-    with pytest.raises(NotImplementedError, match="step 5"):
-        getattr(tbeam, name)()
-
-
 # -- (b) search parity on one graph ------------------------------------------
 
 @pytest.mark.parametrize("entry", ["routed", "descend"])

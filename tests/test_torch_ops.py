@@ -52,6 +52,52 @@ def test_topk_smallest_tie_order_matches_jax():
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
+@pytest.mark.parametrize("values", [3, 50, None])
+def test_topk_smallest_wide_equals_the_stable_sort(values):
+    """The selection-based top-k of the brute force picks the stable
+    sort's pairs in its order: many ties at the k-th value (3 values), a
+    few (50), none (normal), PAD rows, k = 1 and k past the width."""
+    from hnsw_nsg_tpu_torch.ops.topk import topk_smallest_wide
+
+    rng = np.random.default_rng(7)
+    d = (rng.standard_normal((64, 700)) if values is None
+         else rng.integers(0, values, (64, 700))).astype(np.float32)
+    d[5] = 3.4e37
+    d[6, ::3] = 3.4e37
+    dt = torch.from_numpy(d)
+    pos = torch.arange(700).expand(64, -1)
+    for k in (1, 10, 333, 700, 800):
+        want = tops.topk_smallest(dt, pos, k)
+        got = topk_smallest_wide(dt, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    dt[3, 4] = float("nan")                       # the sort's NaN order
+    assert torch.equal(topk_smallest_wide(dt, 10)[1],
+                       tops.topk_smallest(dt, pos, 10)[1])
+
+
+@pytest.mark.parametrize("tile,valid_n", [(65536, None), (64, None),
+                                          (64, 250), (7, 3)])
+def test_brute_force_topk_equals_a_stable_sort_of_all_distances(tile,
+                                                                valid_n):
+    """Integer-valued rows (many exact ties): each tile's selection and the
+    2k merge keep the pairs a stable sort of the whole distance row keeps,
+    in its order (ties to the lower id)."""
+    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST, PAD_ID
+
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(-2, 3, (300, 6)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-2, 3, (40, 6)).astype(np.float32))
+    got_d, got_i = tops.brute_force_topk(q, x, 25, tile=tile,
+                                         valid_n=valid_n)
+    full = tops.pairwise_dists(q, x, "l2")
+    ids = torch.arange(300).expand(40, -1)
+    live = ids < (300 if valid_n is None else valid_n)
+    want_d, want_i = tops.topk_smallest(torch.where(live, full, PAD_DIST),
+                                        torch.where(live, ids, PAD_ID), 25)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_d, want_d)
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("tile,valid_n", [(65536, None), (64, None),
                                           (64, 250)])
