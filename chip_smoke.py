@@ -9,13 +9,17 @@ Phases, each of which fails the run (non-zero exit) on its own:
   2. the grouped-scan kernels versus their plain PyTorch version on the
      card, per dtype pair, metric and shape (the bench shape at k=10, and
      at k=20 in bf16 and f32, d=960 in bf16, f32
-     and int8 x int8, d=1928 on the CUDA-core kernel in bf16 (k=10 and
-     k=100) and SQ8, d=3848 int8 x int8 on it, cap=80 with k=32, d=100),
+     and int8 x int8; past each pair's resident query tile, on the wide
+     kernels (the query streamed through the ring), at k=10 and k=100:
+     bf16 and SQ8 at d=1928 and d=3072, f32 at d=968 and d=1536, int8 x
+     int8 at d=3848, bf16 at d=1930 (rows off 16 bytes); cap=80 with
+     k=32, d=100),
      with the tolerance (int8 x int8: exact, ids equal too) and the count
      of near-tie ids stated
      beside each case, and both times and the bound of each; the general
      kernels (k > 32) at k = 33, 64, 100, 256 on the bench shape and
-     k = maxc on a small one, every dtype pair, and at k=200 on the bench
+     k = maxc on a small one (and past the pair's width), every dtype
+     pair, and at k=200 on the bench
      shape in bf16, f32 and SQ8, timed there and at k=100 (bf16 and int8 x
      int8). (The CNNS search scans at its own k, 10 or 100; a replicated
      index widens only the merge after the scan to 2k.) Each case asserts
@@ -24,8 +28,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
      tensor cores for a bf16 query with a bf16 or int8 slab up to
      d = 1920, scan_i8 or scan_general_i8 on s8 tensor cores for int8 x
      int8 up to d = 3840, scan_f32 or scan_general_f32 in exact FMAs for
-     f32 up to d = 960, grouped_scan or scan_general on CUDA cores for the
-     rest);
+     f32 up to d = 960, scan_wide or scan_general_wide past those widths,
+     the same kernels with the query's d chunks streamed through the
+     ring);
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
@@ -71,6 +76,20 @@ Phases, each of which fails the run (non-zero exit) on its own:
      The distances at nprobe 2 must equal phase 3c's resident search
      there (the per-query flat path) exactly, the ids too except among
      equal distances (counted);
+ 3e. an index at the width of OpenAI's text-embedding-3-large (Qdrant's
+     dbpedia-entities-openai3-text-embedding-3-large-3072-1M; synthetic at
+     that shape): 1M x 3072 unit-norm rows ranked by inner product
+     (``make_data(..., "ip")``, seed 0), the exact f32 ground truth at
+     k=100, a bf16 index (976 clusters, replicated) swept over nprobe
+     1..16 at k=10 (10 timed repetitions each), k=100 at the chosen
+     nprobe, the kernel against its plain version on one of its scan
+     calls at k=10 and k=100 (times, bound, near-tie ids), then the same
+     index on f32 slabs at that nprobe at k=10 and k=100; fails unless
+     the f32 index reaches recall@10 >= 0.95 there, bf16 is within 0.01
+     of it, each k=100 run within 0.002 of its k=10 run, the results are
+     finite, ascending and in range, and the scan launched scan_wide and
+     scan_general_wide only; prints the peak device memory and the
+     phase's seconds;
   4. the merge+select kernel versus its plain version (``torch.equal`` on
      all five outputs) on states that a membership test can get wrong
      (colliding ids, id 0, ids near 2**31 - 1, candidates that all repeat
@@ -190,9 +209,8 @@ Phases, each of which fails the run (non-zero exit) on its own:
      mismatches at near-ties, the bound (the products of the finite-bias
      slots only) and the kernel's share of it;
   8. the kernels line (fifteen entries, the scan's nine by kernel and
-     slab type, the CUDA-core scans with no launch on a main path (they
-     serve only d past the pipeline's widths): times, launches, errors
-     and each kernel's bound:
+     slab type, the wide ones timed on phase 3e's own scan call: times,
+     launches, errors and each kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
      f32), and the last line:
@@ -236,16 +254,18 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
 
 BENCH = dict(c=1152, maxc=2056, d=128, cap=32, k=10, qn=8192)
 # the scan's kernels: the ring pipeline's (bf16, SQ8, int8 x int8 and f32,
-# each pair's instantiations in a file of their own) and the CUDA-core ones
+# each pair's instantiations in a file of their own), the wide ones (past
+# a pair's resident query tile) in the d-blocked TPU kernel's place
 PIPELINE_SOURCE = "hnsw_nsg_tpu_torch/csrc/scan_pipeline.cuh"
-KERNEL_SOURCE = "hnsw_nsg_tpu_torch/csrc/grouped_scan.cu"
 REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:244"
+WIDE_REPLACES = "hnsw_nsg_tpu/ops/pallas_scan.py:354"
 TARGET_RECALL = 0.95
 # the graph phases' point count: the sift1m shape (bench.py:65)
 GRAPH_N = 1_000_000
@@ -400,15 +420,41 @@ def phase_kernels(gen):
          1e-5, 5e-3),
         ("d=960 int8xint8 l2", 128, 1024, 960, 32, 2048, i8, i8, "l2", 10,
          0.0, 0.0),
-        # past the s8 tensor-core kernel's d = 3840: the CUDA-core kernel
+        # past each pair's resident query tile (int8 x int8 3840, a bf16
+        # query 1920, f32 960): the wide kernels, the query streamed
+        # through the ring, at k <= 32 and k > 32
         ("d=3848 int8xint8 l2", 16, 512, 3848, 32, 512, i8, i8, "l2", 10,
          0.0, 0.0),
-        # past the tensor-core kernel's d = 1920: the CUDA-core kernel
+        ("d=3848 int8xint8 l2 k=100", 16, 512, 3848, 32, 512, i8, i8, "l2",
+         100, 0.0, 0.0),
         ("d=1928 bf16 l2", 64, 512, 1928, 32, 1024, bf, bf, "l2", 10,
          1e-5, 1e-2),
+        ("d=1928 bf16 l2 k=100", 64, 512, 1928, 32, 1024, bf, bf, "l2",
+         100, 1e-5, 1e-2),
         ("d=1928 SQ8 l2", 64, 512, 1928, 32, 1024, bf, i8, "l2", 10,
          1e-5, 0.5),
-        ("d=1928 bf16 l2 k=100", 64, 512, 1928, 32, 1024, bf, bf, "l2",
+        ("d=1928 SQ8 l2 k=100", 64, 512, 1928, 32, 1024, bf, i8, "l2", 100,
+         1e-5, 0.5),
+        ("d=3072 bf16 l2", 64, 512, 3072, 32, 1024, bf, bf, "l2", 10,
+         1e-5, 2e-2),
+        ("d=3072 bf16 l2 k=100", 64, 512, 3072, 32, 1024, bf, bf, "l2",
+         100, 1e-5, 2e-2),
+        ("d=3072 SQ8 l2", 64, 512, 3072, 32, 1024, bf, i8, "l2", 10,
+         1e-5, 0.5),
+        ("d=3072 SQ8 l2 k=100", 64, 512, 3072, 32, 1024, bf, i8, "l2", 100,
+         1e-5, 0.5),
+        ("d=968 f32 l2", 64, 512, 968, 32, 1024, f32, f32, "l2", 10,
+         1e-5, 5e-3),
+        ("d=968 f32 l2 k=100", 64, 512, 968, 32, 1024, f32, f32, "l2", 100,
+         1e-5, 5e-3),
+        ("d=1536 f32 l2", 64, 512, 1536, 32, 1024, f32, f32, "l2", 10,
+         1e-5, 1e-2),
+        ("d=1536 f32 l2 k=100", 64, 512, 1536, 32, 1024, f32, f32, "l2",
+         100, 1e-5, 1e-2),
+        # bf16 rows that start off 16 bytes: plain loads of slab and query
+        ("d=1930 bf16 l2", 64, 512, 1930, 32, 1024, bf, bf, "l2", 10,
+         1e-5, 1e-2),
+        ("d=1930 bf16 l2 k=100", 64, 512, 1930, 32, 1024, bf, bf, "l2",
          100, 1e-5, 1e-2),
         ("maxc=8200 cap=80 k=32 bf16 ip", 64, 8200, 128, 80, 4096, bf, bf,
          "ip", 32, 1e-5, 1e-4),
@@ -430,6 +476,12 @@ def phase_kernels(gen):
                           rtol, atol))
         cases.append((f"general {tag} l2 k=maxc=300", 16, 300, 64, 32, 500,
                       qdt, sdt, "l2", 300, rtol, atol))
+        # the same past the pair's resident width (the wide kernel)
+        wide_d = {(bf, bf): 1928, (f32, f32): 968, (i8, i8): 3848,
+                  (bf, i8): 1928}[qdt, sdt]
+        cases.append((f"wide {tag} l2 k=maxc=300", 16, 300, wide_d, 32,
+                      500, qdt, sdt, "l2", 300, rtol,
+                      atol if qdt == i8 or sdt == i8 else 1e-2))
     # k = 200 (each row's buffer 2k + 32 keys, one block an SM), on the
     # bf16, f32 and SQ8 general kernels
     cases.append(("main path bf16 l2 k=200", b["c"], b["maxc"], b["d"],
@@ -442,7 +494,8 @@ def phase_kernels(gen):
     timed_general = ("general bfloat16 l2 k=100", "general int8xint8 l2 k=100",
                      "main path bf16 l2 k=200",
                      "main path f32 l2 k=200", "main path SQ8 l2 k=200",
-                     "d=1928 bf16 l2 k=100")
+                     *(name for name, *_ in cases if name.startswith("wide ")
+                       or name.startswith("d=") and name.endswith("k=100")))
     times = {}     # case name -> (kernel ms, plain ms, bound)
     errs = {}      # (kernel name, slab dtype) -> max |vals error|
     for (name, c, maxc, d, cap, qn, qdt, sdt, metric, k, rtol,
@@ -675,7 +728,6 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
     from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
     from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
     from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
-    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
     from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
     from hnsw_nsg_tpu_torch.utils.synth import make_data
 
@@ -745,26 +797,10 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
     # as phase 3, on the k=10 result at that nprobe: finite, ascending
     # distances, in-range ids, and the returned distances (SQ8: from the
     # quantized slabs) against exact f32 distances of the returned ids,
-    # rtol 1e-2. Here a query may get PAD slots (PAD_ID with PAD_DIST):
-    # its probe pairs past a cluster's list capacity and past the spill
-    # budget drop, as in the reference, and a small probed cluster fills
-    # fewer than k. They are counted; every other id must be in range.
-    def check_rows(dd, ii, what):
-        pad = ii < 0
-        if not bool(torch.isfinite(dd).all()):
-            raise AssertionError(f"gist1m {what}: non-finite distances")
-        if not bool((dd[:, 1:] >= dd[:, :-1]).all()):
-            raise AssertionError(f"gist1m {what}: rows are not ascending")
-        if not bool((ii < n).all()) or not bool(
-                (dd[pad] == float(PAD_DIST)).all()):
-            raise AssertionError(f"gist1m {what}: ids out of range")
-        print(f"gist1m {what}: {int(pad.sum())} PAD slots in "
-              f"{int(pad.any(1).sum())} of {nq} rows")
-        return pad
-
+    # rtol 1e-2
     ddh, iih = res10[reached]
-    pad = check_rows(ddh, iih, f"k=10, nprobe={reached}")
-    check_rows(d100.cpu(), i100h, f"k=100, nprobe={reached}")
+    pad = check_rows(ddh, iih, n, f"gist1m k=10, nprobe={reached}")
+    check_rows(d100.cpu(), i100h, n, f"gist1m k=100, nprobe={reached}")
     real = ~pad[:256]
     ex = ((torch.from_numpy(x)[iih[:256].clamp(min=0)]
            - torch.from_numpy(queries)[:256, None, :]) ** 2).sum(-1)
@@ -813,6 +849,207 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
     if device == "cuda":
         torch.cuda.empty_cache()
     return counts, timed
+
+
+WIDE_NPROBE = (1, 2, 3, 4, 6, 8, 12, 16)
+WIDE_KERNELS = {"scan_wide", "scan_general_wide"}
+
+
+def phase_wide(card, n=1_000_000, d=3072, nq=8192, device="cuda",
+               n_clusters=976):
+    """An index at the published width of OpenAI's text-embedding-3-large
+    (d = 3072; Qdrant's dbpedia-entities-openai3-text-embedding-3-large-
+    3072-1M), the data synthetic at that shape: 1M unit-norm rows and
+    queries ranked by inner product (``make_data(..., "ip")``, seed 0, as
+    bench.py's glove configuration), the exact f32 ground truth at k=100.
+    A bf16 index (976 clusters, replicated): an nprobe sweep at k=10 with
+    10 timed repetitions each, ids fetched to the host, and one search at
+    k=100 at the chosen nprobe (the first whose recall@10 reaches 0.95,
+    else 16); then the kernel against its plain version on the scan
+    inputs of one of its searches at k=10 and k=100. The same index on
+    f32 slabs at that nprobe at k=10 and k=100. Every scan is past the
+    resident query tile's width (bf16 1920, f32 960): the wide kernels
+    only, the query streamed through the ring. Fails unless the f32 index
+    reaches recall@10 >= 0.95 there, the bf16 index is within 0.01 of it,
+    each k=100 run keeps recall@10 within 0.002 of its k=10 run, and the
+    results are finite, ascending and in range with distances near the
+    exact ones. One index at a time stays on the card. Smaller
+    ``n``/``nq`` and ``device="cpu"`` rehearse it without a card. Returns
+    the scan's launches by kernel and, on the card, each kernel's (error,
+    ms, plain ms, bound) on that call."""
+    from hnsw_nsg_tpu_torch.models import cnns as cnns_mod
+    from hnsw_nsg_tpu_torch.ops import brute_force_topk, recall
+    from hnsw_nsg_tpu_torch.ops import cluster_scan as cs
+    from hnsw_nsg_tpu_torch.utils.params import CNNSConfig
+    from hnsw_nsg_tpu_torch.utils.synth import make_data
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x, queries = make_data(n, d, nq, "ip", seed=0)
+    print(f"wide data: {n}x{d} ip + {nq} queries in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    qd = torch.from_numpy(queries).to(device)
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to(device)
+    _, gt100 = brute_force_topk(qd, xd, 100, "ip")
+    gt100 = gt100.cpu()
+    gt = gt100[:, :10].contiguous()
+    del xd   # the rows' device copy goes before the first index
+    if on_card:
+        torch.cuda.empty_cache()
+    print(f"wide ground truth (f32, TF32 off), k=100: "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = CNNSConfig(n_clusters=n_clusters, m=4, kmeans_iters=12,
+                     replicate=True)
+
+    def build(dtype):
+        sync()
+        t0 = time.perf_counter()
+        idx = cnns_mod.build_cnns(x, cfg, metric="ip", slab_dtype=dtype,
+                                  device=device)
+        sync()
+        print(f"wide {dtype} build: {time.perf_counter() - t0:.2f} s, "
+              f"C={idx.n_clusters} maxc={idx.maxc} index "
+              f"{idx.index_bytes() / 1e9:.4f} GB [{card}]")
+        return idx
+
+    def search(idx, label, k, nprobe, reps=10):
+        """recall@10 of one search, its host result, and the median batch
+        time of ``reps`` more, each fetching its ids to the host."""
+        dd, ii = idx.search(qd, k=k, nprobe=nprobe)
+        ddh, iih = dd.cpu(), ii.cpu()
+        r = recall(iih[:, :10], gt)
+        med, lo, hi = timed_query(
+            lambda: idx.search(qd, k=k, nprobe=nprobe)[1].cpu(), reps)
+        line = (f"wide {label} nprobe={nprobe} k={k}: recall@10={r:.4f}")
+        if k == 100:
+            line += f" recall@100={recall(iih, gt100):.4f}"
+        print(f"{line} median {med * 1e3:.3f} ms QPS={nq / med:.1f} (min "
+              f"{lo * 1e3:.3f}, max {hi * 1e3:.3f} ms) [{card}]")
+        return r, ddh, iih
+
+    def check_output(ddh, iih, what, rtol, atol):
+        """check_rows, and the returned distances of 256 queries against
+        exact ones, 1 - <x, q> in float64."""
+        pad = check_rows(ddh, iih, n, f"wide {what}")[:256]
+        xs = torch.from_numpy(x)[iih[:256].clamp(min=0)].double()
+        ex = 1.0 - (xs * torch.from_numpy(queries)[:256, None, :].double()
+                    ).sum(-1)
+        got = ddh[:256].double()
+        err = float((got - ex).abs()[~pad].max())
+        if not torch.allclose(got[~pad], ex[~pad], rtol=rtol, atol=atol):
+            raise AssertionError(f"wide {what}: distances off the exact "
+                                 f"ones by up to {err}")
+        print(f"wide {what}: distances within {err:.2e} of exact ones")
+
+    def wide_counts(what):
+        counts = scan_counts(cs, what, device)
+        if on_card and set(counts) != WIDE_KERNELS:
+            raise AssertionError(f"wide {what}: scan kernels {counts}, not "
+                                 f"{sorted(WIDE_KERNELS)} only")
+        return counts
+
+    # the bf16 index: the sweep, k=100 at the chosen nprobe, and the
+    # kernels against their plain version on one of its scan calls
+    reset_scan_counts(cs)
+    idx = build(torch.bfloat16)
+    sweep = {}
+    for nprobe in WIDE_NPROBE:
+        sweep[nprobe] = search(idx, "bf16", 10, nprobe)
+    chosen = min((p for p, r in sweep.items() if r[0] >= TARGET_RECALL),
+                 default=WIDE_NPROBE[-1])
+    r10_bf16, ddh, iih = sweep[chosen]
+    check_output(ddh, iih, f"bf16 k=10 nprobe={chosen}", 1e-3, 1e-3)
+    r100, ddh, iih = search(idx, "bf16", 100, chosen, reps=3)
+    check_output(ddh, iih, f"bf16 k=100 nprobe={chosen}", 1e-3, 1e-3)
+    if abs(r100 - r10_bf16) > 0.002:
+        raise AssertionError(f"wide bf16 k=100: recall@10 {r100} against "
+                             f"{r10_bf16} at k=10")
+    bf16_counts = wide_counts("wide bf16 build + sweep + k=100")
+    del sweep, ddh, iih
+    qc, qidx, slabs, bias, _, scale = scan_call(
+        lambda: idx.search(qd, k=10, nprobe=chosen))
+    print(f"wide scan call: C={slabs.shape[0]} cap={qidx.shape[1]} "
+          f"maxc={slabs.shape[1]} d={slabs.shape[2]}, "
+          f"{int((qidx >= 0).sum())} live rows")
+    timed = {}
+    for k in (10, 100):
+        kern = cs.scan_kernel(qc.dtype, slabs.dtype, slabs.shape[2], k)
+        args = (qc, qidx, slabs, bias, k, scale)
+        got = cs.grouped_cluster_topk_gq(*args)
+        sync()
+        want = cs.grouped_cluster_topk_gq_reference(*args)
+        full = bias[:, None, :] - scale * cs._dots_reference(
+            cs._gather_queries(qc, qidx), slabs)
+        err = check_scan(f"wide scan call k={k} ({kern})", got, want, full,
+                         qidx >= 0, 1e-5, 1e-4)
+        del want, full
+        if on_card:
+            k_ms = cuda_ms(lambda: cs.grouped_cluster_topk_gq(*args),
+                           reps=10)
+            p_ms = cuda_ms(
+                lambda: cs.grouped_cluster_topk_gq_reference(*args), reps=3)
+            b_k = scan_bound(qc, qidx, slabs, bias, got, qc.dtype,
+                             slabs.dtype)
+            timed[kern] = (err, k_ms, p_ms, b_k)
+            print(f"    kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.4f} ms "
+                  f"(median); bound {b_k[0]:.4f} ms ({b_k[1]}), kernel at "
+                  f"{b_k[0] / k_ms:.1%} of it [{card}]")
+        del got
+    del qc, qidx, slabs, bias, args, idx
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the same index on f32 slabs at the chosen nprobe
+    reset_scan_counts(cs)
+    idx = build(torch.float32)
+    r10_f32, ddh, iih = search(idx, "f32", 10, chosen)
+    check_output(ddh, iih, f"f32 k=10 nprobe={chosen}", 1e-5, 1e-5)
+    r100, ddh, iih = search(idx, "f32", 100, chosen, reps=3)
+    check_output(ddh, iih, f"f32 k=100 nprobe={chosen}", 1e-5, 1e-5)
+    f32_counts = wide_counts("wide f32 build + k=10 + k=100")
+    del idx, ddh, iih
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0
+    print(f"wide recall@10 at nprobe={chosen}: f32 {r10_f32:.4f}, bf16 "
+          f"{r10_bf16:.4f}; peak device memory {peak:.2f} GB; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    if (r10_f32 < TARGET_RECALL or abs(r10_bf16 - r10_f32) > 0.01
+            or abs(r100 - r10_f32) > 0.002):
+        raise AssertionError(
+            f"wide: f32 recall@10 {r10_f32} (k=100: {r100}), bf16 "
+            f"{r10_bf16} at nprobe {chosen}")
+    del x, queries, qd
+    if on_card:
+        torch.cuda.empty_cache()
+    counts = Counter(bf16_counts) + Counter(f32_counts)
+    return dict(counts), timed
+
+
+def check_rows(dd, ii, n, what):
+    """A CNNS search's host result: finite, ascending distances and ids
+    in range. A query may get PAD slots (PAD_ID with PAD_DIST): its probe
+    pairs past a cluster's list capacity and past the spill budget drop,
+    as in the reference, and a small probed cluster fills fewer than k.
+    They are counted; every other id must be in range. Returns the PAD
+    mask."""
+    from hnsw_nsg_tpu_torch.ops.distance import PAD_DIST
+
+    pad = ii < 0
+    if not bool(torch.isfinite(dd).all()):
+        raise AssertionError(f"{what}: non-finite distances")
+    if not bool((dd[:, 1:] >= dd[:, :-1]).all()):
+        raise AssertionError(f"{what}: rows are not ascending")
+    if not bool((ii < n).all()) or not bool(
+            (dd[pad] == float(PAD_DIST)).all()):
+        raise AssertionError(f"{what}: ids out of range")
+    print(f"{what}: {int(pad.sum())} PAD slots in "
+          f"{int(pad.any(1).sum())} of {ii.shape[0]} rows")
+    return pad
 
 
 def scan_call(search):
@@ -3069,6 +3306,7 @@ def main() -> int:
     phase_spill(card, **spill_in)
     del spill_in
     torch.cuda.empty_cache()
+    wide_counts, wide_times = phase_wide(card)
 
     print("merge_select and cluster_join kernels vs plain PyTorch versions:")
     ms_err, ms_times = phase_merge_select()
@@ -3135,8 +3373,8 @@ def main() -> int:
     # library time. The grouped scan's times: bf16 and f32 at the bench
     # shape at k = 20 and 200, SQ8 at gist1m's own scan call at k = 20 and
     # k = 200, int8 x int8 at sift10m_u8's own scan calls at k = 10 and
-    # k = 100 (the search scans at its own k), the CUDA-core scans on a
-    # bf16 query at d = 1928 at k = 10 and 100;
+    # k = 100 (the search scans at its own k), the wide scans on phase
+    # 3e's bf16 scan call at k = 10 and 100;
     # merge+select's at the NSG build's collect pool (L = 500), at L = 1024
     # for its 32-slot build (the ef = 1024 search's shape) and at L = 2048
     # for its general kernel (ef = 2048), the join's at the 1M build shape:
@@ -3150,14 +3388,12 @@ def main() -> int:
 
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
 
-    def scan_entry(name, kern, launches, timing, err, on_path=True):
-        if on_path and launches <= 0:
+    def scan_entry(name, kern, launches, timing, err, replaces=REPLACES):
+        if launches <= 0:
             raise AssertionError(f"{kern} was not launched on a main path")
         k_ms, p_ms, (b_ms, b_by) = timing
-        source = KERNEL_SOURCE if kern in ("grouped_scan", "scan_general") \
-            else PIPELINE_SOURCE
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": REPLACES, "launches": launches,
+        return {"name": name, "route": "cuda", "source": PIPELINE_SOURCE,
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -3198,24 +3434,29 @@ def main() -> int:
                    count("scan_general_i8", u8_counts, sh_scans),
                    u8_times[100][1:],
                    err("scan_general_i8", i8)),
-        # no main path runs f32, a bf16 query or int8 x int8 past the
-        # pipeline's widths: timed on a bf16 query at d = 1928
-        scan_entry("grouped_cluster_topk_gq (CUDA cores, k <= 32: "
-                   "grouped_scan_kernel; f32 past d = 960, a bf16 query "
-                   "past d = 1920, int8 x int8 past d = 3840)",
-                   "grouped_scan",
-                   count("grouped_scan", sift_counts, gist_counts,
-                         f32_counts, u8_counts, sh_scans),
-                   scan_times["d=1928 bf16 l2"],
-                   err("grouped_scan", f32, i8, bf), on_path=False),
-        scan_entry("grouped_cluster_topk_gq (CUDA cores, k > 32: "
-                   "scan_general_kernel; f32 past d = 960, a bf16 query "
-                   "past d = 1920, int8 x int8 past d = 3840)",
-                   "scan_general",
-                   count("scan_general", sift_counts, gist_counts,
-                         f32_counts, u8_counts, sh_scans),
-                   scan_times["d=1928 bf16 l2 k=100"],
-                   err("scan_general", f32, i8, bf), on_path=False),
+        # past each pair's resident width, the query streamed through the
+        # ring (phase 3e's d = 3072 bf16 and f32 indexes), timed on the
+        # bf16 index's own scan call
+        scan_entry("grouped_cluster_topk_gq_dblk's widths (query streamed "
+                   "through the ring, k <= 32: scan_*_kernel<..., kStream>; "
+                   "f32 past d = 960, a bf16 query past d = 1920, int8 x "
+                   "int8 past d = 3840)", "scan_wide",
+                   count("scan_wide", wide_counts, sift_counts, gist_counts,
+                         f32_counts, u8_counts, nsg_scan, sh_scans),
+                   wide_times["scan_wide"][1:],
+                   max(wide_times["scan_wide"][0],
+                       err("scan_wide", f32, i8, bf)),
+                   replaces=WIDE_REPLACES),
+        scan_entry("grouped_cluster_topk_gq_dblk's widths (query streamed "
+                   "through the ring, k > 32: scan_general_*_kernel<..., "
+                   "kStream>)", "scan_general_wide",
+                   count("scan_general_wide", wide_counts, sift_counts,
+                         gist_counts, f32_counts, u8_counts, nsg_scan,
+                         sh_scans),
+                   wide_times["scan_general_wide"][1:],
+                   max(wide_times["scan_general_wide"][0],
+                       err("scan_general_wide", f32, i8, bf)),
+                   replaces=WIDE_REPLACES),
     ]
     print(f"gist1m SQ8 scan at k=200 (scan_general_mma_kernel): "
           f"{g200[1]:.4f} ms, plain {g200[2]:.4f} ms, bound {g200[3][0]:.4f} "

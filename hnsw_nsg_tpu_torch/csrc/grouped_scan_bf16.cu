@@ -5,5 +5,5 @@
 #include "scan_pipeline.cuh"
 
 int launch_scan_bf16(bool general, const ScanArgs& a, cudaStream_t st) {
-  return launch_pipeline<__nv_bfloat16, __nv_bfloat16>(general, a, st);
+  return launch_pipeline<__nv_bfloat16, __nv_bfloat16, false>(general, a, st);
 }

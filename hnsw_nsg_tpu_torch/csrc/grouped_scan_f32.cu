@@ -2,9 +2,10 @@
 // ring pipeline of scan_pipeline.cuh with exact f32 FMAs on CUDA cores.
 // Replaces the Pallas kernels of hnsw_nsg_tpu/ops/pallas_scan.py for this
 // pair (_scan_kernel_gq :244, _scan_kernel_gq_dblk :354, _scan_kernel
-// :81; notes in grouped_scan.cu), up to d = max_d<float>() = 960; wider
-// f32 rows run grouped_scan.cu's CUDA-core kernels. Compiled apart from
-// the other pairs so that they build in parallel.
+// :81; notes in grouped_scan.cu): the query tile resident in shared
+// memory up to d = max_d<float>() = 960, streamed through the ring beside
+// the slab past it. Compiled apart from the other pairs so that they
+// build in parallel.
 //
 // What bounds it on the H100: at the sift1m bench shape (C = 1152 probed
 // slabs of maxc = 2056 rows, d = 128, 32 query rows a cluster) the slabs
@@ -34,5 +35,5 @@
 #include "scan_pipeline.cuh"
 
 int launch_scan_f32(bool general, const ScanArgs& a, cudaStream_t st) {
-  return launch_pipeline<float, float>(general, a, st);
+  return launch_pipeline<float, float, false>(general, a, st);
 }

@@ -5,8 +5,9 @@
 // _scan_kernel_gq_dblk :354, _scan_kernel :81; notes in grouped_scan.cu):
 // uint8 vectors stored shift-by-128 as int8 slabs, whose products the
 // reference sums exactly in s32 (pallas_scan.py:47-51). Up to d =
-// max_d<int8_t>() = 3840, the query tile's 123 KB; wider rows run
-// grouped_scan.cu's CUDA-core kernels. Compiled apart from the other
+// max_d<int8_t>() = 3840 the query tile (123 KB) stays in shared memory;
+// wider rows stream their d chunks through the ring beside the slab's
+// (the streamed mode, scan_pipeline.cuh). Compiled apart from the other
 // pairs so that they build in parallel.
 //
 // What bounds it on the H100: at the sift10m_u8 bench shape (C = 1152
@@ -34,5 +35,5 @@
 #include "scan_pipeline.cuh"
 
 int launch_scan_i8(bool general, const ScanArgs& a, cudaStream_t st) {
-  return launch_pipeline<int8_t, int8_t>(general, a, st);
+  return launch_pipeline<int8_t, int8_t, false>(general, a, st);
 }

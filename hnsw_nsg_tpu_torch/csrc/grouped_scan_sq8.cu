@@ -5,5 +5,5 @@
 #include "scan_pipeline.cuh"
 
 int launch_scan_sq8(bool general, const ScanArgs& a, cudaStream_t st) {
-  return launch_pipeline<__nv_bfloat16, int8_t>(general, a, st);
+  return launch_pipeline<__nv_bfloat16, int8_t, false>(general, a, st);
 }

@@ -30,11 +30,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16- and 4-byte async copies; the bytes past src_bytes (0: all of
+// 16-, 8- and 4-byte async copies; the bytes past src_bytes (0: all of
 // them) are filled with zeros
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -68,8 +73,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // c += a * b on int8: A [16 x 32] row-major in 4 words (4 int8 each: row
 // lane / 4, k (lane % 4) * 4 ..; row + 8; k + 16; both), B [32 x 8] in 2
 // (column lane / 4, k (lane % 4) * 4 .. and + 16), C the m16n8k16 f32
-// layout in s32. Exact: no product or sum of int8 rows up to d = 3840
-// leaves s32.
+// layout in s32. Exact: no product or sum of int8 rows up to d = 131071
+// (|x y| <= 2^14 a term) leaves s32.
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        uint32_t b0, uint32_t b1) {
   asm volatile(

@@ -9,15 +9,21 @@
 // A block takes one cluster and up to 32 of its query rows, so at
 // cap <= 32 a slab is read once. scan_products is the product warps'
 // pipeline:
-//   * The query rows are gathered by pointer into shared memory once per
-//     block (zero for pad slots and past d), where they stay for the whole
-//     run; a bf16 or int8 query at d <= 128 is also kept as mma A
-//     fragments in registers.
+//   * Up to d = max_d<QT>() (the resident mode) the query rows are
+//     gathered by pointer into shared memory once per block (zero for pad
+//     slots and past d), where they stay for the whole run; a bf16 or int8
+//     query at d <= 128 is also kept as mma A fragments in registers.
+//     Past max_d (the streamed mode) the 32 rows do not fit beside the
+//     ring: each ring stage carries the d chunk of the query rows beside
+//     the slab's, copied by the same cp.async group, so no width is out of
+//     reach. The query chunk is read again for every slab tile, from L2
+//     (a block's 32 rows); the HBM stream stays the slab's.
 //   * The slab streams through a cp.async ring of [64 rows x 256 bytes]
 //     stages (128 d of bf16, 64 d of f32; 128 d of int8 in 128 bytes),
 //     rows padded by 16 bytes so that a warp's shared loads hit distinct
-//     banks; 16-byte copies when every row starts on 16 bytes, else plain
-//     loads and stores; the tail of d is zero-filled.
+//     banks; 16-byte copies when every row starts on 16 bytes, else 8- or
+//     4-byte ones where the rows allow them, else plain loads and stores;
+//     the tail of d is zero-filled.
 //   * Four product warps take 16 slab rows of a 64-row tile each against
 //     the 32 query rows, summing over the d chunks of the tile:
 //     - bf16 slab: mma.sync m16n8k16 bf16 -> f32, f32 sums of exact
@@ -31,7 +37,8 @@
 //       slab rows (the mma accumulator layout) in fmaf, its operands read
 //       as float4 along d: 8 16-byte shared loads for 64 FMAs. Each sum
 //       runs in increasing d, one fmaf at a time from 0 (no TF32, no split
-//       sums: F-H1), so it equals the CUDA-core kernel's sum bit for bit.
+//       sums: F-H1), so it is one sum bit for bit in every mode and equals
+//       that of the CUDA-core kernels the pipeline replaced.
 // Two epilogues take a tile's distances: per-row heaps and a heap warp
 // (scan_heap_body, k <= 32) or select_topk.cuh's running buffers filled by
 // 8 top-k warps (scan_general_body, any k).
@@ -72,9 +79,9 @@ template <typename ST>
 __host__ __device__ constexpr int chunk_d() {
   return sizeof(ST) == 4 ? 64 : 128;
 }
-// The widest d the pipeline takes with a query of type QT: the query
+// The widest d of the resident mode with a query of type QT: the query
 // tile, 32 rows of up to 3,840 bytes (123 KB), must fit beside the ring
-// (f32: 960, bf16: 1920, int8: 3840).
+// (f32: 960, bf16: 1920, int8: 3840). Past it, the streamed mode.
 template <typename QT>
 __host__ __device__ constexpr int max_d() {
   return 3840 / static_cast<int>(sizeof(QT));
@@ -105,6 +112,16 @@ __host__ __device__ constexpr size_t q_tile_bytes(int n_dc) {
   return static_cast<size_t>(kRows) * q_ld<QT, ST>(n_dc) * sizeof(QT);
 }
 
+// A stage of the streamed mode: the slab's part, then the d chunk of the
+// 32 query rows, each padded by 16 bytes as q_ld pads them (bf16: 26,368
+// bytes in place of 17,664; SQ8 18,176; int8 x int8 14,080; f32 26,368).
+template <typename QT, typename ST, bool kStream>
+__host__ __device__ constexpr int ring_stage_bytes() {
+  return stage_bytes<ST>()
+         + (kStream ? kRows * q_ld<QT, ST>(1) * static_cast<int>(sizeof(QT))
+                    : 0);
+}
+
 // Ring stages and blocks an SM of the k <= 32 kernels. d <= 128: a small
 // query tile leaves room for several blocks an SM (bf16 and int8 slabs: 3
 // of 2 stages; f32: 2 of 3 stages), whose phases (wait, products,
@@ -112,34 +129,49 @@ __host__ __device__ constexpr size_t q_tile_bytes(int n_dc) {
 // more stages. int8 x int8 measured 1-2% faster at 3 blocks than at 4
 // (~52 KB each at k = 32; 5 do not fit), and 3 stages gained nothing.
 // Above, the query tile fills the SM's shared memory and the ring is all
-// the overlap there is. The general kernels are alone on their SM (their
-// rows' buffers fill it) and take 3 stages (bf16 and int8 slabs: 2 above
-// d = 128).
+// the overlap there is. The streamed mode holds no query tile: 2 blocks
+// of 3 stages (~106 KB each at k = 32), so that one block's epilogue
+// overlaps the other's products. The general kernels are alone on their
+// SM (their rows' buffers fill it) and take 3 stages (bf16 and int8
+// slabs: 2 in the resident mode above d = 128); 3 streamed stages leave
+// the rows' buffers shared memory up to k = 216 (bf16 and f32).
 template <typename ST>
-__host__ __device__ constexpr int ring_stages(bool narrow) {
-  return narrow ? (sizeof(ST) == 4 ? 3 : 2) : 4;
+__host__ __device__ constexpr int ring_stages(bool narrow, bool stream) {
+  return stream ? 3 : narrow ? (sizeof(ST) == 4 ? 3 : 2) : 4;
 }
 template <typename ST>
-__host__ __device__ constexpr int blocks_per_sm(bool narrow) {
-  return narrow ? (sizeof(ST) == 4 ? 2 : 3) : 1;
+__host__ __device__ constexpr int blocks_per_sm(bool narrow, bool stream) {
+  return stream ? 2 : narrow ? (sizeof(ST) == 4 ? 2 : 3) : 1;
 }
 template <typename ST>
-__host__ __device__ constexpr int general_ring_stages(bool narrow) {
-  return narrow || sizeof(ST) == 4 ? 3 : 2;
+__host__ __device__ constexpr int general_ring_stages(bool narrow,
+                                                      bool stream) {
+  return narrow || stream || sizeof(ST) == 4 ? 3 : 2;
 }
 
 // Copy 16 bytes of a row (8 bf16, 16 int8 or 4 f32) into shared memory;
 // elements at n_valid and past it (n_valid may be <= 0 or past the piece)
 // become zero. kAsync: 16-byte cp.async, which every row start must allow;
-// else plain element loads and stores.
+// else cp.async in pieces of gran bytes (8 or 4: what every row start
+// allows, row_granule), or plain element loads and stores (gran 0).
 template <bool kAsync, typename T>
 __device__ __forceinline__ void copy16(T* dst, const T* src, int n_valid,
-                                       const T* safe) {
+                                       const T* safe, int gran) {
   constexpr int kN = 16 / sizeof(T);
+  constexpr int kT = static_cast<int>(sizeof(T));
   if constexpr (kAsync) {
     const int nv = min(max(n_valid, 0), kN);
-    cp_async16(smem_addr(dst), nv > 0 ? src : safe,
-               nv * static_cast<int>(sizeof(T)));
+    cp_async16(smem_addr(dst), nv > 0 ? src : safe, nv * kT);
+  } else if (gran != 0) {
+    const uint32_t d0 = smem_addr(dst);
+    const char* s0 = reinterpret_cast<const char*>(src);
+    const int nb = min(max(n_valid, 0), kN) * kT;   // valid bytes
+    for (int o = 0; o < 16; o += gran) {
+      const int b = min(max(nb - o, 0), gran);
+      const void* from = b > 0 ? static_cast<const void*>(s0 + o) : safe;
+      if (gran == 8) cp_async8(d0 + o, from, b);
+      else cp_async4(d0 + o, from, b);
+    }
   } else {
     using Bits = std::conditional_t<
         sizeof(T) == 4, uint32_t,
@@ -149,6 +181,18 @@ __device__ __forceinline__ void copy16(T* dst, const T* src, int n_valid,
 #pragma unroll
     for (int u = 0; u < kN; ++u) o[u] = u < n_valid ? s[u] : Bits(0);
   }
+}
+
+// The widest granule (16, 8, 4 bytes, else 0) on which every row start of
+// qc and slabs lies: what copy16's cp.async may copy at a time.
+template <typename QT, typename ST>
+__host__ __device__ int row_granule(const void* qc, const void* slabs,
+                                    int d) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(qc) |
+                       reinterpret_cast<uintptr_t>(slabs) |
+                       static_cast<uintptr_t>(d) * sizeof(QT) |
+                       static_cast<uintptr_t>(d) * sizeof(ST);
+  return at % 16 == 0 ? 16 : at % 8 == 0 ? 8 : at % 4 == 0 ? 4 : 0;
 }
 
 // Four int8 (one word) as two bf16 pairs, exactly: every int8 is a bf16.
@@ -208,7 +252,9 @@ __device__ __forceinline__ void product_warps_sync() { named_sync(1, kPT); }
 //   * The block's 32 query rows (qrow_s: the gathered row, -1 for a pad)
 //     are copied into q_s, [rows][q_ld] of QT, zero for pad rows and past
 //     d. A bf16 or int8 query at d <= 128 (kNarrow) is kept as mma A
-//     fragments in registers for the whole run.
+//     fragments in registers for the whole run. kStream (d > max_d): no
+//     q_s; each stage carries its d chunk of the query rows, [rows][q_ld(1)]
+//     after the slab's part, and the A operands are read from there.
 //   * The slab (rows slab_row0 .. + maxc) streams through a cp.async ring
 //     of kRing stages of [64 rows x chunk_d] (bf16 and int8: 128 d; f32:
 //     64 d), the tail of d zero-filled.
@@ -232,13 +278,14 @@ __device__ __forceinline__ void product_warps_sync() { named_sync(1, kPT); }
 //     tile slot wn * 16 + ni * 8 + (lane % 4) * 2 + h, rounded as the plain
 //     version rounds bias - scale * dot (an s32 dot converted to f32 in
 //     one rounding); +inf past maxc.
-template <typename QT, typename ST, bool kAsync, bool kNarrow, int kRing,
-          typename Epi>
+template <typename QT, typename ST, bool kAsync, bool kNarrow, bool kStream,
+          int kRing, typename Epi>
 __device__ __forceinline__ void scan_products(
     QT* q_s, unsigned char* ring, const int* qrow_s,
     const QT* __restrict__ qc, const ST* __restrict__ slabs,
     const float* __restrict__ bias, long long slab_row0, int d, int maxc,
     float scale, int tid, Epi&& epi) {
+  static_assert(!(kNarrow && kStream), "the streamed mode is only wide");
   constexpr bool kI8 = sizeof(ST) == 1;
   constexpr bool kI8I8 = kI8 && sizeof(QT) == 1;   // s8 mma, s32 sums
   constexpr bool kF32 = sizeof(ST) == 4;
@@ -246,26 +293,32 @@ __device__ __forceinline__ void scan_products(
   constexpr int kKSteps = kI8I8 ? 4 : 8;      // mma k-steps a d chunk
   constexpr int kTD = chunk_d<ST>();
   constexpr int kRB = stage_row_bytes<ST>();
-  constexpr int kSB = stage_bytes<ST>();
+  constexpr int kSlabB = stage_bytes<ST>();   // a stage's slab part
+  constexpr int kSB = ring_stage_bytes<QT, ST, kStream>();
   constexpr int kEl = 16 / sizeof(ST);        // elements a 16-byte piece
   constexpr int kPieces = kTD / kEl;          // pieces a row of a d chunk
   constexpr int kRowsPass = kPT / kPieces;    // rows a pass of the threads
   constexpr int kQEl = 16 / sizeof(QT);
+  constexpr int kQPieces = kTD / kQEl;        // pieces a query row's chunk
   const int lane = tid & 31;
   const int wn = tid >> 5;   // slab rows wn * 16 .. + 15 of the tile
   const int n_dc = (d + kTD - 1) / kTD;
-  const int ldq = q_ld<QT, ST>(n_dc);
+  // the pitch of the A operand's rows: the query tile's, or a stage's
+  const int ldq = q_ld<QT, ST>(kStream ? 1 : n_dc);
   const int n_tiles = (maxc + kTN - 1) / kTN;
   const int steps = n_tiles * n_dc;
+  const int gran = kAsync ? 16 : row_granule<QT, ST>(qc, slabs, d);
 
   // the query tile: row r, kQEl elements from column kQEl * piece
-  const int q_pieces = n_dc * (kTD / kQEl);
-  for (int i = tid; i < kRows * q_pieces; i += kPT) {
-    const int row = i / q_pieces, col = (i - row * q_pieces) * kQEl;
-    const int qi = qrow_s[row];
-    copy16<kAsync>(q_s + row * ldq + col,
-                   qc + static_cast<long long>(qi < 0 ? 0 : qi) * d + col,
-                   qi < 0 ? 0 : d - col, qc);
+  if constexpr (!kStream) {
+    const int q_pieces = n_dc * kQPieces;
+    for (int i = tid; i < kRows * q_pieces; i += kPT) {
+      const int row = i / q_pieces, col = (i - row * q_pieces) * kQEl;
+      const int qi = qrow_s[row];
+      copy16<kAsync>(q_s + row * ldq + col,
+                     qc + static_cast<long long>(qi < 0 ? 0 : qi) * d + col,
+                     qi < 0 ? 0 : d - col, qc, gran);
+    }
   }
 
   // this thread's pieces of a slab tile: rows c_row + kRowsPass * p,
@@ -283,12 +336,28 @@ __device__ __forceinline__ void scan_products(
         const bool ok = m0 + row < maxc;
         copy16<kAsync>(reinterpret_cast<ST*>(st + row * kRB) + c_col,
                        slabs + (slab_row0 + (ok ? m0 + row : 0)) * d + col,
-                       ok ? d - col : 0, slabs);
+                       ok ? d - col : 0, slabs, gran);
       }
       if (l_dc == n_dc - 1 && tid < kTN) {   // the tile's bias, 0 past maxc
         const bool ok = m0 + tid < maxc;
         cp_async4(smem_addr(st + kTN * kRB) + tid * 4,
                   ok ? bias + slab_row0 + m0 + tid : bias, ok ? 4 : 0);
+      }
+      if constexpr (kStream) {
+        // the same d chunk of the query rows, zero for pad rows and past d
+        QT* sq = reinterpret_cast<QT*>(st + kSlabB);
+#pragma unroll
+        for (int j = 0; j < kRows * kQPieces / kPT; ++j) {
+          const int i = tid + j * kPT;
+          const int row = i / kQPieces;
+          const int qcol = (i - row * kQPieces) * kQEl;
+          const int qi = qrow_s[row];
+          const int gcol = l_dc * kTD + qcol;
+          copy16<kAsync>(sq + row * ldq + qcol,
+                         qc + static_cast<long long>(qi < 0 ? 0 : qi) * d
+                             + gcol,
+                         qi < 0 ? 0 : d - gcol, qc, gran);
+        }
       }
       if (++l_dc == n_dc) {
         l_dc = 0;
@@ -306,18 +375,18 @@ __device__ __forceinline__ void scan_products(
   uint32_t af[kAReg ? kKSteps : 1][2][4];   // the resident query
   // bf16: ldmatrix lane offsets: A rows lane % 16, columns (lane / 16) * 8;
   // B rows (lane / 16) * 8 + lane % 8, columns ((lane / 8) % 2) * 8
-  const uint32_t a_base = smem_addr(q_s + (lane & 15) * ldq
-                                    + (lane >> 4) * 8);
+  const int a_off = (lane & 15) * ldq + (lane >> 4) * 8;
   const int b_off = kF32  ? (wn * 16 + (lane & 3) * 2) * kRB
                     : kI8 ? (wn * 16 + (lane >> 2)) * kRB + (lane & 3) * 32
                           : (wn * 16 + ((lane >> 4) << 3) + (lane & 7)) * kRB
                                 + ((lane >> 3) & 1) * 16;
   // int8 slabs: the A words of a chunk for this thread, row mi * 16 +
-  // lane / 4 (+ 8), from column (lane % 4) * 32: SQ8's bf16 pairs of
-  // k-step kk at kk * 4 .. + 3; int8 x int8's words of k-steps 2 h and
-  // 2 h + 1 in the 16 bytes at h * 16
-  const QT* a8 = q_s + (lane >> 2) * ldq + (lane & 3) * 32;
-  auto load_a8 = [&](uint32_t (&a)[4], int mi, int col) {
+  // lane / 4 (+ 8), from column (lane % 4) * 32 of the A rows at qa:
+  // SQ8's bf16 pairs of k-step kk at kk * 4 .. + 3; int8 x int8's words
+  // of k-steps 2 h and 2 h + 1 in the 16 bytes at h * 16
+  const int a8_off = (lane >> 2) * ldq + (lane & 3) * 32;
+  auto load_a8 = [&](uint32_t (&a)[4], const QT* qa, int mi, int col) {
+    const QT* a8 = qa + a8_off;
     const uint2 lo = *reinterpret_cast<const uint2*>(a8 + mi * 16 * ldq
                                                      + col);
     const uint2 hi = *reinterpret_cast<const uint2*>(a8 + (mi * 16 + 8) * ldq
@@ -327,8 +396,9 @@ __device__ __forceinline__ void scan_products(
     a[2] = lo.y;
     a[3] = hi.y;
   };
-  auto load_a16 = [&](uint32_t (&a0)[4], uint32_t (&a1)[4], int mi,
-                      int col) {
+  auto load_a16 = [&](uint32_t (&a0)[4], uint32_t (&a1)[4], const QT* qa,
+                      int mi, int col) {
+    const QT* a8 = qa + a8_off;
     const uint4 lo = *reinterpret_cast<const uint4*>(a8 + mi * 16 * ldq
                                                      + col);
     const uint4 hi = *reinterpret_cast<const uint4*>(a8 + (mi * 16 + 8) * ldq
@@ -351,6 +421,10 @@ __device__ __forceinline__ void scan_products(
     issue();
 
     const unsigned char* st = ring + stage * kSB;
+    // the A rows of this d chunk: the query tile from column qcol, or the
+    // stage's query part
+    const QT* qa = kStream ? reinterpret_cast<const QT*>(st + kSlabB) : q_s;
+    const int qcol = kStream ? 0 : dc * kTD;
     if (dc == 0) {
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -363,7 +437,7 @@ __device__ __forceinline__ void scan_products(
       // the thread's query rows lane / 4 + 8 j and slab rows b_off / kRB
       // + {0, 1, 8, 9}, float4 steps up to the last that holds some of d
       // (its tail is zero on both sides)
-      const float* qp = q_s + (lane >> 2) * ldq + dc * kTD;
+      const float* qp = qa + (lane >> 2) * ldq + qcol;
       const unsigned char* sp = st + b_off;
       const int n4 = min(kTD / 4, (d - dc * kTD + 3) / 4);
 #pragma unroll 4
@@ -388,7 +462,7 @@ __device__ __forceinline__ void scan_products(
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi)
-              load_a16(af[2 * h][mi], af[2 * h + 1][mi], mi, h * 16);
+              load_a16(af[2 * h][mi], af[2 * h + 1][mi], q_s, mi, h * 16);
         }
       }
 #pragma unroll
@@ -407,7 +481,7 @@ __device__ __forceinline__ void scan_products(
               a[1][mi][j] = af[2 * h + 1][mi][j];
             }
           } else {
-            load_a16(a[0][mi], a[1][mi], mi, dc * kTD + h * 16);
+            load_a16(a[0][mi], a[1][mi], qa, mi, qcol + h * 16);
           }
         }
 #pragma unroll
@@ -429,7 +503,8 @@ __device__ __forceinline__ void scan_products(
 #pragma unroll
           for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi) load_a8(af[kk][mi], mi, kk * 4);
+            for (int mi = 0; mi < 2; ++mi)
+              load_a8(af[kk][mi], q_s, mi, kk * 4);
         }
       }
 #pragma unroll
@@ -453,7 +528,7 @@ __device__ __forceinline__ void scan_products(
 #pragma unroll
               for (int j = 0; j < 4; ++j) a[j] = af[kk][mi][j];
             } else {
-              load_a8(a, mi, dc * kTD + kk * 4);
+              load_a8(a, qa, mi, qcol + kk * 4);
             }
             mma_bf16(acc[mi][0], a, b[0][0], b[0][1]);
             mma_bf16(acc[mi][1], a, b[1][0], b[1][1]);
@@ -462,6 +537,7 @@ __device__ __forceinline__ void scan_products(
       }
     } else {
       const uint32_t b_base = smem_addr(st + b_off);
+      const uint32_t a_base = smem_addr(qa + a_off);
       const int ksteps = min(kTD / 16, d16 - dc * (kTD / 16));
       if constexpr (kAReg) {
         if (s == 0) {   // the query tile landed with the first stage
@@ -489,7 +565,7 @@ __device__ __forceinline__ void scan_products(
           uint32_t a[2][4], b[4];
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi)
-            ldmatrix_x4(a[mi], a_base + (mi * 16 * ldq + dc * kTD + kk * 16)
+            ldmatrix_x4(a[mi], a_base + (mi * 16 * ldq + qcol + kk * 16)
                                             * 2);
           ldmatrix_x4(b, b_base + kk * 32);
 #pragma unroll
@@ -540,10 +616,11 @@ __device__ __forceinline__ void scan_products(
 
 // ---- k <= 32: scan_heap_body ------------------------------------------------
 
-template <typename QT, typename ST>
-size_t scan_heap_smem_bytes(int n_dc, int k, int stages) {
-  return q_tile_bytes<QT, ST>(n_dc)                          // query tile
-         + static_cast<size_t>(stages) * stage_bytes<ST>()   // the ring
+template <typename QT, typename ST, bool kNarrow, bool kStream>
+size_t scan_heap_smem_bytes(int n_dc, int k) {
+  return (kStream ? 0 : q_tile_bytes<QT, ST>(n_dc))          // query tile
+         + static_cast<size_t>(ring_stages<ST>(kNarrow, kStream))
+               * ring_stage_bytes<QT, ST, kStream>()         // the ring
          + static_cast<size_t>(kRows) * k * 8                // the heaps
          + 2 * kTN * kRows * 5          // two candidate buffers: f32 + u8
          + kRows * 12;                  // query rows, 2 x candidate counts
@@ -551,18 +628,19 @@ size_t scan_heap_smem_bytes(int n_dc, int k, int stages) {
 
 // The body of the k <= 32 kernels (scan_mma_kernel, scan_i8_kernel,
 // scan_f32_kernel).
-template <typename QT, typename ST, bool kAsync, bool kNarrow>
+template <typename QT, typename ST, bool kAsync, bool kNarrow, bool kStream>
 __device__ __forceinline__ void scan_heap_body(
     const QT* __restrict__ qc, const int* __restrict__ qidx,
     const ST* __restrict__ slabs, const float* __restrict__ bias,
     float* __restrict__ vals, int* __restrict__ idx, int cap, int qn, int d,
     int maxc, int k, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRing = ring_stages<ST>(kNarrow);
+  constexpr int kRing = ring_stages<ST>(kNarrow, kStream);
   const int n_dc = (d + chunk_d<ST>() - 1) / chunk_d<ST>();
   QT* q_s = reinterpret_cast<QT*>(smem);
-  unsigned char* ring = smem + q_tile_bytes<QT, ST>(n_dc);
-  Key* heap = reinterpret_cast<Key*>(ring + kRing * stage_bytes<ST>());
+  unsigned char* ring = smem + (kStream ? 0 : q_tile_bytes<QT, ST>(n_dc));
+  Key* heap = reinterpret_cast<Key*>(
+      ring + kRing * ring_stage_bytes<QT, ST, kStream>());
   // survivors of a tile, two buffers: value [2][kTN][kRows] f32 and slot
   // within the tile [2][kTN][kRows] u8, counts [2][kRows]. Tile 0 sorts
   // its keys in the same bytes, as [kRows][kTN] keys.
@@ -618,7 +696,7 @@ __device__ __forceinline__ void scan_heap_body(
     }
   } else {
     const int wn = warp;
-    scan_products<QT, ST, kAsync, kNarrow, kRing>(
+    scan_products<QT, ST, kAsync, kNarrow, kStream, kRing>(
         q_s, ring, qrow_s, qc, slabs, bias, slab_row0, d, maxc, scale, tid,
         [&](int t, const float (&dist)[2][2][2][2]) {
           if (t == 0) {
@@ -757,13 +835,17 @@ constexpr int kGThreads = kPT + 32 * kGT;
 // product warps run up to kNB tiles ahead, through a row's selection
 constexpr int kNB = 4;
 
-// the kernel's own shared memory, beside the rows' buffers
+// the kernel's own shared memory, beside the rows' buffers; the mode
+// goes by d (narrow: d <= 128; streamed: d > max_d)
 template <typename QT, typename ST>
 size_t general_own_bytes(int d) {
   const int n_dc = (d + chunk_d<ST>() - 1) / chunk_d<ST>();
-  return q_tile_bytes<QT, ST>(n_dc)                          // query tile
-         + static_cast<size_t>(general_ring_stages<ST>(d <= kNarrowD))
-               * stage_bytes<ST>()                           // the ring
+  const bool stream = d > max_d<QT>();
+  return (stream ? 0 : q_tile_bytes<QT, ST>(n_dc))           // query tile
+         + static_cast<size_t>(general_ring_stages<ST>(d <= kNarrowD,
+                                                       stream))
+               * (stream ? ring_stage_bytes<QT, ST, true>()
+                         : stage_bytes<ST>())                // the ring
          + kNB * kRows * kTN * 4   // the survivor buffers' values
          + kNB * kRows * 8         // and masks
          + kRows * 16;             // bars, sizes, query rows
@@ -771,14 +853,14 @@ size_t general_own_bytes(int d) {
 
 // The body of the general kernels (scan_general_mma_kernel,
 // scan_general_i8_kernel, scan_general_f32_kernel).
-template <typename QT, typename ST, bool kAsync, bool kNarrow>
+template <typename QT, typename ST, bool kAsync, bool kNarrow, bool kStream>
 __device__ __forceinline__ void scan_general_body(
     const QT* __restrict__ qc, const int* __restrict__ qidx,
     const ST* __restrict__ slabs, const float* __restrict__ bias,
     float* __restrict__ vals, int* __restrict__ idx, Key* scratch, int cap,
     int qn, int d, int maxc, int k, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRing = general_ring_stages<ST>(kNarrow);
+  constexpr int kRing = general_ring_stages<ST>(kNarrow, kStream);
   constexpr int kR = kRows;
   constexpr int kNT = kGThreads;
   constexpr int kRTW = kR / kGT;                   // rows of a top-k warp
@@ -791,12 +873,13 @@ __device__ __forceinline__ void scan_general_body(
   unsigned char* own = smem + (scratch != nullptr ? 0
                                                   : topk_bufs_bytes(kR, k));
   QT* q_s = reinterpret_cast<QT*>(own);
-  unsigned char* ring = own + q_tile_bytes<QT, ST>(n_dc);
+  unsigned char* ring = own + (kStream ? 0 : q_tile_bytes<QT, ST>(n_dc));
   // survivors of a tile, kNB buffers: values [kNB][kR][kTN] and masks
   // [kNB][kR] (bit s: slot s of the tile), the mask as 4 u16, one a
   // product warp. Tile t goes to buffer t % kNB; named barriers 2 + b
   // (full) and 2 + kNB + b (empty) pass buffer b back and forth.
-  float* cand_v = reinterpret_cast<float*>(ring + kRing * stage_bytes<ST>());
+  float* cand_v = reinterpret_cast<float*>(
+      ring + kRing * ring_stage_bytes<QT, ST, kStream>());
   unsigned long long* cand_m =
       reinterpret_cast<unsigned long long*>(cand_v + kNB * kR * kTN);
   Key* bar_s = reinterpret_cast<Key*>(cand_m + kNB * kR);
@@ -858,7 +941,7 @@ __device__ __forceinline__ void scan_general_body(
       if (lane == 0) size_s[tw + kGT * j] = size[j];
   } else {
     const int wn = warp;
-    scan_products<QT, ST, kAsync, kNarrow, kRing>(
+    scan_products<QT, ST, kAsync, kNarrow, kStream, kRing>(
         q_s, ring, qrow_s, qc, slabs, bias, slab_row0, d, maxc, scale, tid,
         [&](int t, const float (&dist)[2][2][2][2]) {
           const int b = t % kNB;
@@ -914,21 +997,25 @@ __device__ __forceinline__ void scan_general_body(
 }
 
 // ---- the kernels and their launches ----------------------------------------
+//
+// Each kernel has three modes of its query rows, chosen by d alone:
+// kNarrow (d <= 128, A fragments in registers), resident (up to max_d)
+// and kStream (past max_d, the query's d chunks through the ring).
 
-// a bf16 query with a bf16 or an int8 slab, on tensor cores; kNarrow:
-// d <= 128, the query tile lives in registers as A fragments
-template <typename ST, bool kAsync, bool kNarrow>
-__global__ void __launch_bounds__(kPT + kHT, blocks_per_sm<ST>(kNarrow))
+// a bf16 query with a bf16 or an int8 slab, on tensor cores
+template <typename ST, bool kAsync, bool kNarrow, bool kStream>
+__global__ void __launch_bounds__(kPT + kHT,
+                                  blocks_per_sm<ST>(kNarrow, kStream))
 scan_mma_kernel(const __nv_bfloat16* __restrict__ qc,
                 const int* __restrict__ qidx, const ST* __restrict__ slabs,
                 const float* __restrict__ bias, float* __restrict__ vals,
                 int* __restrict__ idx, int cap, int qn, int d, int maxc,
                 int k, float scale) {
-  scan_heap_body<__nv_bfloat16, ST, kAsync, kNarrow>(
+  scan_heap_body<__nv_bfloat16, ST, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, cap, qn, d, maxc, k, scale);
 }
 
-template <typename ST, bool kAsync, bool kNarrow>
+template <typename ST, bool kAsync, bool kNarrow, bool kStream>
 __global__ void __launch_bounds__(kGThreads, 1)
 scan_general_mma_kernel(const __nv_bfloat16* __restrict__ qc,
                         const int* __restrict__ qidx,
@@ -937,24 +1024,25 @@ scan_general_mma_kernel(const __nv_bfloat16* __restrict__ qc,
                         float* __restrict__ vals, int* __restrict__ idx,
                         Key* scratch, int cap, int qn, int d, int maxc, int k,
                         float scale) {
-  scan_general_body<__nv_bfloat16, ST, kAsync, kNarrow>(
+  scan_general_body<__nv_bfloat16, ST, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, scratch, cap, qn, d, maxc, k, scale);
 }
 
 // int8 x int8 on s8 tensor cores, exact s32 sums (notes in
 // grouped_scan_i8.cu)
-template <bool kAsync, bool kNarrow>
-__global__ void __launch_bounds__(kPT + kHT, blocks_per_sm<int8_t>(kNarrow))
+template <bool kAsync, bool kNarrow, bool kStream>
+__global__ void __launch_bounds__(kPT + kHT,
+                                  blocks_per_sm<int8_t>(kNarrow, kStream))
 scan_i8_kernel(const int8_t* __restrict__ qc, const int* __restrict__ qidx,
                const int8_t* __restrict__ slabs,
                const float* __restrict__ bias, float* __restrict__ vals,
                int* __restrict__ idx, int cap, int qn, int d, int maxc, int k,
                float scale) {
-  scan_heap_body<int8_t, int8_t, kAsync, kNarrow>(
+  scan_heap_body<int8_t, int8_t, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, cap, qn, d, maxc, k, scale);
 }
 
-template <bool kAsync, bool kNarrow>
+template <bool kAsync, bool kNarrow, bool kStream>
 __global__ void __launch_bounds__(kGThreads, 1)
 scan_general_i8_kernel(const int8_t* __restrict__ qc,
                        const int* __restrict__ qidx,
@@ -963,23 +1051,24 @@ scan_general_i8_kernel(const int8_t* __restrict__ qc,
                        float* __restrict__ vals, int* __restrict__ idx,
                        Key* scratch, int cap, int qn, int d, int maxc, int k,
                        float scale) {
-  scan_general_body<int8_t, int8_t, kAsync, kNarrow>(
+  scan_general_body<int8_t, int8_t, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, scratch, cap, qn, d, maxc, k, scale);
 }
 
 // f32 x f32 in exact FMAs on CUDA cores (notes in grouped_scan_f32.cu)
-template <bool kAsync, bool kNarrow>
-__global__ void __launch_bounds__(kPT + kHT, blocks_per_sm<float>(kNarrow))
+template <bool kAsync, bool kNarrow, bool kStream>
+__global__ void __launch_bounds__(kPT + kHT,
+                                  blocks_per_sm<float>(kNarrow, kStream))
 scan_f32_kernel(const float* __restrict__ qc, const int* __restrict__ qidx,
                 const float* __restrict__ slabs,
                 const float* __restrict__ bias, float* __restrict__ vals,
                 int* __restrict__ idx, int cap, int qn, int d, int maxc,
                 int k, float scale) {
-  scan_heap_body<float, float, kAsync, kNarrow>(
+  scan_heap_body<float, float, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, cap, qn, d, maxc, k, scale);
 }
 
-template <bool kAsync, bool kNarrow>
+template <bool kAsync, bool kNarrow, bool kStream>
 __global__ void __launch_bounds__(kGThreads, 1)
 scan_general_f32_kernel(const float* __restrict__ qc,
                         const int* __restrict__ qidx,
@@ -988,39 +1077,36 @@ scan_general_f32_kernel(const float* __restrict__ qc,
                         float* __restrict__ vals, int* __restrict__ idx,
                         Key* scratch, int cap, int qn, int d, int maxc, int k,
                         float scale) {
-  scan_general_body<float, float, kAsync, kNarrow>(
+  scan_general_body<float, float, kAsync, kNarrow, kStream>(
       qc, qidx, slabs, bias, vals, idx, scratch, cap, qn, d, maxc, k, scale);
 }
 
-// 16-byte copies where every row start of qc and slabs allows them
-template <typename QT, typename ST>
-bool rows_allow_async(const void* qc, const void* slabs, int d) {
-  const uintptr_t at = reinterpret_cast<uintptr_t>(qc) |
-                       reinterpret_cast<uintptr_t>(slabs) |
-                       static_cast<uintptr_t>(d) * sizeof(QT) |
-                       static_cast<uintptr_t>(d) * sizeof(ST);
-  return at % 16 == 0;
-}
+
 
 // Launch the pair (QT, ST)'s heap kernel (general false: k <= 32) or its
 // general kernel (any k), the instantiation that 16-byte copies (every
-// row start on 16 bytes) and d <= 128 pick.
-template <typename QT, typename ST>
+// row start on 16 bytes) and the mode of d pick: narrow up to 128,
+// resident up to max_d<QT>(), streamed past it (kWide, compiled apart).
+template <typename QT, typename ST, bool kWide>
 int launch_pipeline(bool general, const ScanArgs& a, cudaStream_t st) {
-  const auto go = [&](auto async, auto narrow) {
+  if ((a.cap + kRows - 1) / kRows > 65535 ||   // the grid's y
+      kWide != (a.d > max_d<QT>()))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto go = [&](auto async, auto narrow, auto stream) {
     constexpr bool kA = decltype(async)::value, kN = decltype(narrow)::value;
+    constexpr bool kS = decltype(stream)::value;
     constexpr bool kF32 = std::is_same<QT, float>::value;
     constexpr bool kI8I8 = std::is_same<QT, int8_t>::value;
     // the pair's kernels: f32 and int8 x int8 have names of their own
     const auto heap = [] {
-      if constexpr (kF32) return scan_f32_kernel<kA, kN>;
-      else if constexpr (kI8I8) return scan_i8_kernel<kA, kN>;
-      else return scan_mma_kernel<ST, kA, kN>;
+      if constexpr (kF32) return scan_f32_kernel<kA, kN, kS>;
+      else if constexpr (kI8I8) return scan_i8_kernel<kA, kN, kS>;
+      else return scan_mma_kernel<ST, kA, kN, kS>;
     }();
     const auto gen = [] {
-      if constexpr (kF32) return scan_general_f32_kernel<kA, kN>;
-      else if constexpr (kI8I8) return scan_general_i8_kernel<kA, kN>;
-      else return scan_general_mma_kernel<ST, kA, kN>;
+      if constexpr (kF32) return scan_general_f32_kernel<kA, kN, kS>;
+      else if constexpr (kI8I8) return scan_general_i8_kernel<kA, kN, kS>;
+      else return scan_general_mma_kernel<ST, kA, kN, kS>;
     }();
     const dim3 grid(a.n_clusters, (a.cap + kRows - 1) / kRows);
     const auto qc = static_cast<const QT*>(a.qc);
@@ -1032,8 +1118,7 @@ int launch_pipeline(bool general, const ScanArgs& a, cudaStream_t st) {
     cudaError_t err;
     if (!general) {
       const int n_dc = (a.d + chunk_d<ST>() - 1) / chunk_d<ST>();
-      const size_t smem = scan_heap_smem_bytes<QT, ST>(
-          n_dc, a.k, ring_stages<ST>(kN));
+      const size_t smem = scan_heap_smem_bytes<QT, ST, kN, kS>(n_dc, a.k);
       err = cudaFuncSetAttribute(
           heap, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
@@ -1058,20 +1143,29 @@ int launch_pipeline(bool general, const ScanArgs& a, cudaStream_t st) {
   };
   using Y = std::true_type;
   using N = std::false_type;
-  const bool async = rows_allow_async<QT, ST>(a.qc, a.slabs, a.d);
+  const bool async = row_granule<QT, ST>(a.qc, a.slabs, a.d) == 16;
   cudaError_t err;
-  if (a.d <= kNarrowD) err = async ? go(Y{}, Y{}) : go(N{}, Y{});
-  else err = async ? go(Y{}, N{}) : go(N{}, N{});
+  if constexpr (kWide)
+    err = async ? go(Y{}, N{}, Y{}) : go(N{}, N{}, Y{});
+  else if (a.d <= kNarrowD)
+    err = async ? go(Y{}, Y{}, N{}) : go(N{}, Y{}, N{});
+  else
+    err = async ? go(Y{}, N{}, N{}) : go(N{}, N{}, N{});
   return static_cast<int>(err);
 }
 
 }  // namespace
 
-// One pair's launch_pipeline a file, so that the four compile in
-// parallel: grouped_scan_bf16.cu (a bf16 query with bf16 slabs),
-// grouped_scan_sq8.cu (a bf16 query with int8 slabs), grouped_scan_i8.cu
-// (int8 x int8), grouped_scan_f32.cu.
+// One pair's launch_pipeline a file, its streamed mode (d past max_d) in
+// a second one, so that the eight compile in parallel:
+// grouped_scan_bf16[_wide].cu (a bf16 query with bf16 slabs),
+// grouped_scan_sq8[_wide].cu (a bf16 query with int8 slabs),
+// grouped_scan_i8[_wide].cu (int8 x int8), grouped_scan_f32[_wide].cu.
 int launch_scan_bf16(bool general, const ScanArgs& a, cudaStream_t st);
 int launch_scan_sq8(bool general, const ScanArgs& a, cudaStream_t st);
 int launch_scan_i8(bool general, const ScanArgs& a, cudaStream_t st);
 int launch_scan_f32(bool general, const ScanArgs& a, cudaStream_t st);
+int launch_scan_bf16_wide(bool general, const ScanArgs& a, cudaStream_t st);
+int launch_scan_sq8_wide(bool general, const ScanArgs& a, cudaStream_t st);
+int launch_scan_i8_wide(bool general, const ScanArgs& a, cudaStream_t st);
+int launch_scan_f32_wide(bool general, const ScanArgs& a, cudaStream_t st);

@@ -18,9 +18,10 @@ Each returns (vals [C, cap, k] f32, idx [C, cap, k] int32 local slots).
 Dispatch is by the device of the tensors: CPU tensors take the plain
 PyTorch version beside each wrapper (``*_reference``); CUDA tensors launch
 the kernel, or the wrapper raises. Any 1 <= k <= maxc is taken, as by
-the JAX functions. The kernel goes by the dtype pair, d and k alone
-(``scan_kernel``), each pair of kernels one for k <= ``MAX_K`` = 32 and
-one above:
+the JAX functions. Every kernel runs on one ring pipeline (the slab
+streamed through a cp.async ring); the kernel goes by the dtype pair, d
+and k alone (``scan_kernel``), each pair of kernels one for k <=
+``MAX_K`` = 32 and one above:
 
   * a bf16 query with a bf16 or an int8 slab (SQ8) up to
     d = ``MAX_D_BF16`` = 1920 on bf16 tensor cores, ``scan_mma`` and
@@ -28,12 +29,13 @@ one above:
   * int8 x int8 (uint8 data stored shift-by-128) up to d = ``MAX_D_I8`` =
     3840 on s8 tensor cores, exact s32 sums, ``scan_i8`` and
     ``scan_general_i8``;
-  * f32 x f32 up to d = ``MAX_D_F32`` = 960 in exact FMAs on the same
-    pipeline (the 32 query rows of a block held in shared memory, the slab
-    streamed through a cp.async ring), ``scan_f32`` and
-    ``scan_general_f32``;
-  * the pairs above past those widths, on CUDA cores, ``grouped_scan``
-    and ``scan_general``.
+  * f32 x f32 up to d = ``MAX_D_F32`` = 960 in exact FMAs, ``scan_f32``
+    and ``scan_general_f32``;
+  * each pair past its width, ``scan_wide`` and ``scan_general_wide``: the
+    same kernels, whose 32 query rows no longer fit shared memory beside
+    the ring, so each ring stage carries their d chunk beside the slab's
+    (the streamed mode; the same arithmetic, so f32 keeps its bits and
+    int8 x int8 stays exact).
 
 The kernels for k > 32 (``CNNSIndex.search``'s default k = 100) keep each
 row's running k smallest in a buffer, in global scratch that the wrapper
@@ -84,8 +86,8 @@ _PAIRS = {
     (torch.bfloat16, torch.int8),
 }
 MAX_K = 32          # the heap kernels' k; the general kernels take any k
-# the widest d of the ring pipeline's kernels, whose query tile (32 rows
-# of up to 3,840 bytes) must fit shared memory; wider d: CUDA cores
+# the widest d whose query tile (32 rows of up to 3,840 bytes) stays in
+# shared memory; wider d streams it through the ring (the wide kernels)
 MAX_D_BF16 = 1920   # a bf16 query (bf16 or SQ8 int8 slabs), tensor cores
 MAX_D_I8 = 3840     # int8 x int8, s8 tensor cores
 MAX_D_F32 = 960     # f32 x f32, exact FMAs
@@ -102,8 +104,8 @@ def scan_kernel(q_dtype, s_dtype, d: int, k: int) -> str:
         names = ("scan_i8", "scan_general_i8")
     elif q_dtype == s_dtype == torch.float32 and d <= MAX_D_F32:
         names = ("scan_f32", "scan_general_f32")
-    else:
-        names = ("grouped_scan", "scan_general")
+    else:   # any pair past its width: the query streamed through the ring
+        names = ("scan_wide", "scan_general_wide")
     return names[k > MAX_K]
 
 

@@ -16,15 +16,20 @@ d=128, cap=32) in bf16 at k = 10, 20, 100 and 200, and with int8 slabs
 and a bf16 query (SQ8) at k = 10, 20 and 200 there and at d=960 (C=128,
 maxc=1024); the bf16 d=960 shape at k=10; f32 (query and slabs) at the
 bench shape at k = 10, 20 and 200 and at d=960 at k=10; int8 x int8 at
-the bench shape at k = 10, 20, 100 and 200 and at d=960 at k=10. The
-join runs at
+the bench shape at k = 10, 20, 100 and 200 and at d=960 at k=10; past
+each pair's resident query tile (the wide kernels, chip_smoke.py phase
+2's shapes): bf16 at d=1928 (C=64, maxc=512) at k = 10 and 100, SQ8
+there at k=10, f32 at d=1536 at k = 10 and 200, int8 x int8 at d=3848
+(C=16) at k=10. The join runs at
 the 1M build shape of ``chip_smoke.py`` phase 7 (the 1091 clusters that
 phase 6's build of the 1M data makes, slabs of 2112 rows, M=8, d=128):
 bf16 at k = 52, 102 and 202, f32 at k = 10, 52 and 102. Prints one JSON line per
 shape, each with ``digest``, a hash of the outputs' bytes, so that two
 trees' lines show whether their kernels give the same bits on the same
 inputs (the scan's on the rows that carry a result: pad rows are
-unspecified).
+unspecified; and of an +inf value only the value: the k <= 32 pipeline
+kernels give slot 0 there, the CUDA-core kernels they replaced the
+slot).
 """
 
 import argparse
@@ -97,6 +102,9 @@ def time_scan(smoke, cs, tree, card):
     bf, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     bench = (b["c"], b["maxc"], b["d"], b["cap"], b["qn"])
     d960 = (128, 1024, 960, 32, 2048)
+    wide = (64, 512, 1928, 32, 1024)
+    wide_f32 = (64, 512, 1536, 32, 1024)
+    wide_i8 = (16, 512, 3848, 32, 512)
     label = {(bf, bf): "bf16", (bf, i8): "SQ8", (f32, f32): "f32",
              (i8, i8): "int8xint8"}
     for name, (c, maxc, d, cap, qn), (qdt, sdt), ks in (
@@ -107,15 +115,20 @@ def time_scan(smoke, cs, tree, card):
             ("bench", bench, (f32, f32), (10, 20, 200)),
             ("d=960", d960, (f32, f32), (10,)),
             ("bench", bench, (i8, i8), (10, 20, 100, 200)),
-            ("d=960", d960, (i8, i8), (10,))):
+            ("d=960", d960, (i8, i8), (10,)),
+            ("wide", wide, (bf, bf), (10, 100)),
+            ("wide", wide, (bf, i8), (10,)),
+            ("wide", wide_f32, (f32, f32), (10, 200)),
+            ("wide", wide_i8, (i8, i8), (10,))):
         qc, qidx, slabs, bias, scale = smoke.make_case(
             gen, c, maxc, d, cap, qn, qdt, sdt, "l2")
         live = qidx >= 0
         for k in ks:
             t = smoke.cuda_ms(lambda: cs.grouped_cluster_topk_gq(
                 qc, qidx, slabs, bias, k, scale), reps=10)
-            out = digest(*(o[live] for o in cs.grouped_cluster_topk_gq(
-                qc, qidx, slabs, bias, k, scale)))
+            vals, idx = (o[live] for o in cs.grouped_cluster_topk_gq(
+                qc, qidx, slabs, bias, k, scale))
+            out = digest(vals, torch.where(torch.isinf(vals), 0, idx))
             print(json.dumps(dict(
                 kernel="grouped_cluster_topk_gq " + label[qdt, sdt],
                 tree=tree, shape=name, C=c, maxc=maxc, d=d, cap=cap,

@@ -185,30 +185,71 @@ def test_main_path_call_matches_pallas(qd, sd, metric):
     ("bf16", "bf16", 1920, 32, "scan_mma"),
     ("bf16", "bf16", 128, 200, "scan_general_mma"),
     ("bf16", "int8", 960, 200, "scan_general_mma"),
-    ("bf16", "bf16", 1928, 10, "grouped_scan"),     # past the query tile
-    ("bf16", "int8", 1928, 100, "scan_general"),
+    ("bf16", "bf16", 1928, 10, "scan_wide"),        # past the query tile
+    ("bf16", "int8", 1928, 100, "scan_general_wide"),
+    ("bf16", "bf16", 3072, 10, "scan_wide"),        # text-embedding-3-large
+    ("bf16", "bf16", 3072, 100, "scan_general_wide"),
+    ("bf16", "int8", 3072, 10, "scan_wide"),
+    ("bf16", "int8", 3072, 100, "scan_general_wide"),
     ("f32", "f32", 128, 10, "scan_f32"),
     ("f32", "f32", 128, 200, "scan_general_f32"),
     ("f32", "f32", 128, 32, "scan_f32"),
     ("f32", "f32", 128, 33, "scan_general_f32"),
     ("f32", "f32", 960, 10, "scan_f32"),            # d = MAX_D_F32
     ("f32", "f32", 960, 100, "scan_general_f32"),
-    ("f32", "f32", 968, 10, "grouped_scan"),        # past the query tile
-    ("f32", "f32", 968, 200, "scan_general"),
+    ("f32", "f32", 968, 10, "scan_wide"),           # past the query tile
+    ("f32", "f32", 968, 200, "scan_general_wide"),
+    ("f32", "f32", 1536, 10, "scan_wide"),          # ada-002
+    ("f32", "f32", 1536, 200, "scan_general_wide"),
     ("int8", "int8", 128, 32, "scan_i8"),
     ("int8", "int8", 128, 33, "scan_general_i8"),
     ("int8", "int8", 3840, 10, "scan_i8"),          # d = MAX_D_I8
     ("int8", "int8", 3840, 100, "scan_general_i8"),
-    ("int8", "int8", 3848, 10, "grouped_scan"),     # past the query tile
-    ("int8", "int8", 3848, 200, "scan_general"),
+    ("int8", "int8", 3848, 10, "scan_wide"),        # past the query tile
+    ("int8", "int8", 3848, 200, "scan_general_wide"),
 ])
 def test_scan_kernel_goes_by_dtypes_d_and_k(qd, sd, d, k, kernel):
     """The kernel a launch counts under: bf16 tensor cores for a bf16
     query with a bf16 or int8 slab up to d = 1920, s8 tensor cores for
     int8 x int8 up to d = 3840, exact f32 FMAs on the same ring pipeline
-    up to d = 960, the CUDA-core kernels for the rest; the heap kernels up
-    to k = 32, the general ones above."""
+    up to d = 960, and past each pair's width the wide kernels (the query
+    rows streamed through the ring); the heap kernels up to k = 32, the
+    general ones above."""
     assert cs.scan_kernel(_T[qd], _T[sd], d, k) == kernel
+
+
+@pytest.mark.parametrize("k", [10, 40])
+@pytest.mark.parametrize("qd,sd,d", [
+    ("bf16", "bf16", 1928),    # past MAX_D_BF16
+    ("bf16", "int8", 1928),    # SQ8 past MAX_D_BF16
+    ("f32", "f32", 968),       # past MAX_D_F32
+    ("int8", "int8", 3848),    # past MAX_D_I8
+])
+def test_gq_plain_matches_pallas_dblk_past_the_query_tile(qd, sd, d, k):
+    """The widths the wide kernels take on the card (each pair past the
+    d whose query tile fits shared memory): the port's gq entry point on
+    the CPU against the JAX package's d-blocked kernel, the one its CNNS
+    search takes at such d, in interpret mode, at k = 10 (the heap
+    kernel's range) and k = maxc = 40 (the general kernel's). vals
+    allclose (f32 sums in another order: rtol 1e-5, atol 1e-4), ids equal
+    in f32 and int8 x int8, a tie within that tolerance in bf16. int8 x
+    int8 is exact: every partial sum of these rows stays below 2^24, so
+    the JAX kernel's f32 sum over d blocks is exact too."""
+    qc, qidx, slabs, bias, scale = _case(40 + d, qd, sd, "l2", c=3, cap=8,
+                                         maxc=40, d=d, qn=20)
+    want = jps.grouped_cluster_topk_gq_dblk(
+        _to_j(qc, qd), jnp.asarray(qidx), _to_j(slabs, sd),
+        jnp.asarray(bias), k, scale, interpret=True)
+    got = cs.grouped_cluster_topk_gq(
+        _to_t(qc, qd), torch.from_numpy(qidx), _to_t(slabs, sd),
+        torch.from_numpy(bias), k, scale)
+    assert got[0].shape == (3, 8, k)
+    _compare(got, want, qidx, "bf16" in (qd, sd),
+             _full(qc, qidx, slabs, bias, scale))
+    if qd == sd == "int8":
+        live = qidx >= 0
+        np.testing.assert_array_equal(got[0].numpy()[live],
+                                      np.asarray(want[0])[live])
 
 
 def test_cpu_wrapper_takes_plain_path_and_counts_nothing():

@@ -116,7 +116,7 @@ def test_kernel_matches_plain_version(card, qdt, sdt, shape, metric):
 ])
 def test_scan_kernel_shapes(card, name, c, cap, maxc, d, qn, k, qdt, sdt):
     """The shapes the tensor-core kernels treat apart (and the same for
-    the other pairs, on the CUDA-core kernels), with a cluster that has
+    the other pairs, on the same pipeline), with a cluster that has
     fewer live rows than k, an all-pad cluster and an all-pad query list.
     vals within f32 summation order (rtol 1e-5, atol 1e-3; exact for
     int8 x int8; atol 0.5 at an int8 slab's |bias| ~ 7e5); a returned
@@ -210,14 +210,15 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(card):
                                    (torch.int8, 10), (torch.int8, 40)])
 def test_bf16_scan_past_the_tensor_core_width(card, sdt, k):
     """A bf16 query (with a bf16 or an int8 slab) with d above MAX_D_BF16
-    runs on the CUDA-core kernels (f32 sums of exact products in another
-    order: rtol 1e-5, atol 1e-2 at |bias| ~ 2d, 0.5 at an int8 slab's
-    |bias| ~ 7e5); a slot that differs scores its value."""
+    runs on the wide kernels, the query streamed through the ring (f32
+    sums of exact products in another order: rtol 1e-5, atol 1e-2 at
+    |bias| ~ 2d, 0.5 at an int8 slab's |bias| ~ 7e5); a slot that differs
+    scores its value."""
     d = cs.MAX_D_BF16 + 8
     qc, qidx, slabs, bias, scale = _case(41, torch.bfloat16, sdt,
                                          "l2", 4, 20, 96, d, 50)
     kern = cs.scan_kernel(torch.bfloat16, sdt, d, k)
-    assert kern == ("grouped_scan" if k <= cs.MAX_K else "scan_general")
+    assert kern == ("scan_wide" if k <= cs.MAX_K else "scan_general_wide")
     before = cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
@@ -797,7 +798,7 @@ def test_api_and_hybrid_default_to_the_card(card):
 def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
     """k > 32 runs a general kernel (on bf16 tensor cores for a bf16 query
     with a bf16 or int8 slab, on s8 tensor cores for int8 x int8, in exact
-    FMAs on the same pipeline for f32, else on the CUDA-core kernel): vals
+    FMAs on the same pipeline for f32): vals
     within f32 summation
     order (rtol 1e-5, atol 1e-3; exact for int8 x int8; atol 0.5 at an
     int8 slab's |bias| ~ 7e5); ids equal except where a near-tie swaps,
@@ -812,7 +813,7 @@ def test_general_scan_kernel_matches_plain(card, qdt, sdt, k):
                                                   scale)
     kern = cs.scan_kernel(qdt, sdt, d, k)
     assert kern in ("scan_general_mma", "scan_general_i8", "scan_general_f32",
-                    "scan_general")
+                    "scan_general_wide")
     before, k0 = cs.launches, cs.launches_by_kernel[kern]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
@@ -1229,15 +1230,15 @@ _EXACT_PAIRS = {torch.float32: ("MAX_D_F32", "scan_f32", "scan_general_f32"),
 
 def _check_exact(card, qc, qidx, slabs, bias, k, scale):
     """Launch an exact pair (f32 on integer data, or int8 x int8) on the
-    card and hold it to the plain version: the pipeline's kernels up to
-    the pair's widest d, the CUDA-core ones past it; torch.equal on vals
+    card and hold it to the plain version: the pair's kernels up to its
+    widest d, the wide ones (the query streamed) past it; torch.equal on vals
     and ids of every live row (the k <= 32 kernels give slot 0 in the
     +inf tail, the general ones the plain version's slots). Returns the
     plain version's vals on the live rows."""
     dt, d = qc.dtype, qc.shape[1]
     max_d, heap, general = _EXACT_PAIRS[dt]
     want_kern = ((heap, general) if d <= getattr(cs, max_d)
-                 else ("grouped_scan", "scan_general"))[k > cs.MAX_K]
+                 else ("scan_wide", "scan_general_wide"))[k > cs.MAX_K]
     kern = cs.scan_kernel(dt, dt, d, k)
     assert kern == want_kern
     before = cs.launches_by_kernel[kern]
@@ -1270,7 +1271,7 @@ def _check_exact(card, qc, qidx, slabs, bias, k, scale):
     ("d = 129, k = 33", 3, 32, 200, 129, 80, 33),
     ("d = 960 = MAX_D_F32", 2, 32, 150, 960, 40, 10),
     ("d = 960, k = maxc", 2, 32, 150, 960, 40, 150),
-    ("d = 968: the CUDA-core kernel", 2, 32, 150, 968, 40, 10),
+    ("d = 968: the streamed mode", 2, 32, 150, 968, 40, 10),
     ("cap = 80", 4, 80, 200, 64, 300, 32),
     ("cap = 80, k = 64", 4, 80, 200, 64, 300, 64),
     ("maxc < 64", 3, 32, 40, 16, 50, 10),
@@ -1283,7 +1284,7 @@ def _check_exact(card, qc, qidx, slabs, bias, k, scale):
 def test_f32_scan_equals_plain_on_integer_data(card, name, c, cap, maxc, d,
                                                qn, k):
     """f32 x f32 on the card launches scan_f32 (k <= 32) or
-    scan_general_f32 up to d = MAX_D_F32 and the CUDA-core kernels past it,
+    scan_general_f32 up to d = MAX_D_F32 and the wide kernels past it,
     and on integer-valued data gives the plain version's vals and ids,
     torch.equal on every live row; in the +inf tail the general kernels
     give the plain version's slots, the k <= 32 kernels slot 0."""
@@ -1337,8 +1338,8 @@ def test_f32_scan_unaligned_views(card, k):
     ("d = MAX_D_I8", 2, 32, 100, 3840, 40, 10, "l2"),
     ("d = MAX_D_I8, k = 33", 2, 32, 100, 3840, 40, 33, "l2"),
     ("d = MAX_D_I8, k = maxc", 2, 32, 100, 3840, 40, 100, "l2"),
-    ("d = MAX_D_I8 + 8: CUDA cores", 2, 32, 100, 3848, 40, 10, "l2"),
-    ("d = MAX_D_I8 + 8, k = 100: CUDA cores", 2, 32, 150, 3848, 40, 100,
+    ("d = MAX_D_I8 + 8: streamed", 2, 32, 100, 3848, 40, 10, "l2"),
+    ("d = MAX_D_I8 + 8, k = 100: streamed", 2, 32, 150, 3848, 40, 100,
      "l2"),
     ("cap = 80", 4, 80, 200, 128, 300, 10, "l2"),
     ("cap = 80, k = 32", 4, 80, 200, 128, 300, 32, "l2"),
@@ -1349,7 +1350,7 @@ def test_f32_scan_unaligned_views(card, k):
 ])
 def test_i8_scan_equals_plain(card, name, c, cap, maxc, d, qn, k, metric):
     """int8 x int8 on the card launches scan_i8 (k <= 32) or
-    scan_general_i8 up to d = MAX_D_I8 and the CUDA-core kernels past it,
+    scan_general_i8 up to d = MAX_D_I8 and the wide kernels past it,
     and gives the plain version's vals and ids, torch.equal on every live
     row: the s32 sums are exact in any order and each distance is rounded
     as the plain version rounds it."""
@@ -1381,42 +1382,124 @@ def test_i8_scan_exact_ties_go_to_the_lowest_slot(card, name, d, k, lo, hi,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("qdt,d,k,in_scratch", [
-    (torch.int8, cs.MAX_D_I8 + 8, 396, False),
-    (torch.int8, cs.MAX_D_I8 + 8, 397, True),
-    (torch.bfloat16, cs.MAX_D_BF16 + 8, 500, True),
+@pytest.mark.parametrize("qdt,sdt,d,k,in_scratch", [
+    # the streamed general kernel: 3 ring stages with the query's chunk
+    # beside the slab's leave the rows' buffers shared memory up to
+    # k = 288 (int8 x int8), 264 (SQ8), 216 (bf16 and f32)
+    (torch.int8, torch.int8, cs.MAX_D_I8 + 8, 288, False),
+    (torch.int8, torch.int8, cs.MAX_D_I8 + 8, 289, True),
+    (torch.bfloat16, torch.int8, cs.MAX_D_BF16 + 16, 264, False),
+    (torch.bfloat16, torch.int8, cs.MAX_D_BF16 + 16, 265, True),
+    (torch.bfloat16, torch.bfloat16, cs.MAX_D_BF16 + 8, 216, False),
+    (torch.bfloat16, torch.bfloat16, cs.MAX_D_BF16 + 8, 217, True),
+    (torch.bfloat16, torch.bfloat16, cs.MAX_D_BF16 + 8, 500, True),
+    (torch.float32, torch.float32, cs.MAX_D_F32 + 8, 216, False),
+    (torch.float32, torch.float32, cs.MAX_D_F32 + 8, 217, True),
 ])
-def test_cuda_core_scan_large_k_in_scratch(card, qdt, d, k, in_scratch):
-    """The CUDA-core general kernel (int8 x int8 past MAX_D_I8, a bf16
-    query past MAX_D_BF16) keeps its rows' buffers in shared memory up to
-    k = 396 and in global scratch past it; vals as the plain version's
-    (exact for int8 x int8), a returned slot scores its value."""
+def test_cuda_core_scan_large_k_in_scratch(card, qdt, sdt, d, k,
+                                           in_scratch):
+    """The general kernel past each pair's width (scan_general_wide, which
+    replaced the CUDA-core general kernel) keeps its rows' buffers in
+    shared memory while they fit beside its larger ring stages and in
+    global scratch past that; vals as the plain version's (exact for int8
+    x int8, rtol 1e-5 and atol 1e-2 at |bias| ~ 2d, 0.5 at an int8 slab's
+    |bias| ~ 7e5), a returned slot scores its value."""
     from hnsw_nsg_tpu_torch.ops._build import load_library
 
     c, cap, maxc, qn = 2, 40, 600, 60
-    qc, qidx, slabs, bias, scale = _case(91 + k, qdt, qdt, "l2", c, cap,
+    qc, qidx, slabs, bias, scale = _case(91 + k, qdt, sdt, "l2", c, cap,
                                          maxc, d, qn)
-    assert cs.scan_kernel(qdt, qdt, d, k) == "scan_general"
-    codes = (cs._DTYPE_CODE[qdt],) * 2
+    assert cs.scan_kernel(qdt, sdt, d, k) == "scan_general_wide"
+    codes = (cs._DTYPE_CODE[qdt], cs._DTYPE_CODE[sdt])
     assert (load_library().grouped_scan_general_scratch(
         c, cap, d, k, *codes) > 0) == in_scratch
-    before = cs.launches_by_kernel["scan_general"]
+    before = cs.launches_by_kernel["scan_general_wide"]
     kv, ki = cs.grouped_cluster_topk_gq(
         *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
     torch.cuda.synchronize()
-    assert cs.launches_by_kernel["scan_general"] == before + 1
+    assert cs.launches_by_kernel["scan_general_wide"] == before + 1
     rv, _ = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
                                                  scale)
     kv, ki = kv.cpu(), ki.cpu()
     live = (qidx >= 0)[:, :, None].expand_as(rv)
     fin = live & torch.isfinite(rv)
-    tol = (dict(rtol=0.0, atol=0.0) if qdt == torch.int8
-           else dict(rtol=1e-5, atol=1e-2))
+    tol = (dict(rtol=0.0, atol=0.0) if qdt == sdt == torch.int8
+           else dict(rtol=1e-5, atol=0.5 if sdt == torch.int8 else 1e-2))
     torch.testing.assert_close(kv[live], rv[live], **tol)
     full = bias[:, None, :] - scale * cs._dots_reference(
         cs._gather_queries(qc, qidx), slabs)
     torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
                                rv[fin], **tol)
+
+
+# the streamed mode of each pair, past its width: a d whose rows start on
+# 16 bytes (cp.async copies) and one whose rows do not (plain loads)
+_WIDE_D = {(torch.float32, torch.float32): (968, 961),
+           (torch.bfloat16, torch.bfloat16): (1928, 1930),
+           (torch.bfloat16, torch.int8): (1936, 1930),
+           (torch.int8, torch.int8): (3856, 3850)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt,sdt", PAIRS)
+@pytest.mark.parametrize("name,cap,maxc,k,aligned", [
+    ("k = 10", 32, 150, 10, True),
+    ("rows off 16 bytes", 32, 150, 10, False),
+    ("rows off 16 bytes, k = 100", 32, 150, 100, False),
+    ("cap > 32", 80, 150, 32, True),
+    ("cap > 32, k = 64", 80, 150, 64, True),
+    ("k = maxc", 32, 100, 100, True),
+    ("all-pad row blocks", 64, 150, 10, True),
+    ("all-pad row blocks, k = 33", 64, 150, 33, True),
+])
+def test_wide_scan_streams_the_query(card, qdt, sdt, name, cap, maxc, k,
+                                     aligned):
+    """Past each pair's width the wide kernels stream the query's d chunks
+    through the ring. f32 (on integer data) and int8 x int8 give the plain
+    version's vals and ids, torch.equal (_check_exact); a bf16 query with
+    a bf16 or int8 slab its vals within f32 summation order (rtol 1e-5,
+    atol 1e-2 at |bias| ~ 2d; 0.5 at an int8 slab's |bias| ~ 7e5), a slot
+    that differs scoring its value. Each case has an all-pad query list,
+    a cluster with 7 live slots and an all-pad cluster; the all-pad row
+    blocks case a whole block of 32 pad rows in cluster 1."""
+    d = _WIDE_D[qdt, sdt][0 if aligned else 1]
+    c, qn = 3, 100
+    exact = qdt == sdt and qdt != torch.bfloat16
+    if exact:
+        qc, qidx, slabs, bias, scale = _int_case(
+            d + k + cap, c, cap, maxc, d, qn, qdt,
+            *((-128, 128) if qdt == torch.int8 else (-6, 7)))
+    else:
+        qc, qidx, slabs, bias, scale = _case(d + k + cap, qdt, sdt, "l2", c,
+                                             cap, maxc, d, qn)
+        bias[1, 7:] = float("inf")
+        qidx[0, :] = -1
+    if "all-pad" in name:
+        qidx[1, 32:] = -1
+    if exact:
+        _check_exact(card, qc, qidx, slabs, bias, k, scale)
+        return
+    kern = cs.scan_kernel(qdt, sdt, d, k)
+    assert kern == ("scan_wide" if k <= cs.MAX_K else "scan_general_wide")
+    before = cs.launches_by_kernel[kern]
+    kv, ki = cs.grouped_cluster_topk_gq(
+        *(t.to(card) for t in (qc, qidx, slabs, bias)), k, scale)
+    torch.cuda.synchronize()
+    assert cs.launches_by_kernel[kern] == before + 1
+    rv, ri = cs.grouped_cluster_topk_gq_reference(qc, qidx, slabs, bias, k,
+                                                  scale)
+    kv, ki = kv.cpu(), ki.cpu()
+    live = (qidx >= 0)[:, :, None].expand_as(rv)
+    fin = live & torch.isfinite(rv)
+    assert torch.equal(torch.isinf(kv[live]), torch.isinf(rv[live]))
+    tol = dict(rtol=1e-5, atol=0.5 if sdt == torch.int8 else 1e-2)
+    torch.testing.assert_close(kv[fin], rv[fin], **tol)
+    full = bias[:, None, :] - scale * cs._dots_reference(
+        cs._gather_queries(qc, qidx), slabs)
+    torch.testing.assert_close(torch.gather(full, 2, ki.long())[fin],
+                               rv[fin], **tol)
+    print(f"{kern} {name} {qdt}x{sdt} d={d}: near-tie ids "
+          f"{int((ki[fin] != ri[fin]).sum())}/{int(fin.sum())}")
 
 
 @pytest.mark.cuda
