@@ -30,6 +30,14 @@ Local indexes (``build_cnns(local_index=...)``):
     arena (``local_hnsw_arena``; an ablation for small N), searched as
     ``"nsg"``.
 
+Observability: under a running ``torch.profiler`` a flat search opens
+the spans (``utils/metrics.py`` ``span``) ``cnns.search`` (the whole
+call), ``cnns.route`` (either router), ``cnns.pairs`` (each call of the
+grouped path), ``cnns.probe`` (the per-query path) and ``cnns.dedup``;
+with none running each is one flag check. ``pair_counts`` counts the
+grouped path's pairs, spilled pairs and dropped pairs, always, from
+numbers the host already holds.
+
 Differences from the JAX package, none of which changes a result:
   * the router takes an exact top-k where the TPU used ``approx_max_k``
     (which returns the exact top-k on the CPU, where the parity tests run);
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -62,6 +71,7 @@ from ..ops.distance import (
 )
 from ..ops.topk import topk_smallest
 from ..utils.device import resolve_device
+from ..utils.metrics import span
 from ..utils.params import CNNSConfig, HNSWConfig
 from .beam import beam_search_chunked
 from .hnsw import HNSWIndex
@@ -73,6 +83,12 @@ LOCAL_INDEXES = ("flat", "nsg", "hnsw")
 
 _NP_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
              torch.int8: "int8"}
+
+# the grouped path's (query, probe slot) pairs since the process started:
+# "pairs" every pair it was handed, "spilled" those past their cluster
+# list's capacity (scanned on the spill path), "dropped" the spilled
+# pairs past ``sp_budget`` (left out of the result)
+pair_counts: Counter = Counter()
 
 
 def _route_clusters(q, reps, nprobe: int, metric: str, rank_by="hits",
@@ -156,34 +172,35 @@ def _flat_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
     a loop over probe slots — gathered cluster slab x query product +
     running top-k merge. Rows are independent, so blocking changes no
     result."""
-    out_d, out_i = [], []
-    for s in range(0, q.shape[0], q_block):
-        qf = q[s : s + q_block].float()
-        vb = visit[s : s + q_block]
-        b = qf.shape[0]
-        qn = (squared_norms(qf) if metric == "l2"
-              else torch.zeros(b, device=q.device))
-        qc = _cast_q(qf, data_c.dtype, q_round)
-        best_d = torch.full((b, k), float(PAD_DIST), device=q.device)
-        best_i = torch.full((b, k), PAD_ID, dtype=ids_c.dtype,
-                            device=q.device)
-        for j in range(vb.shape[1]):
-            cid = vb[:, j]
-            ok = cid >= 0
-            safe = torch.where(ok, cid, 0)
-            ic = ids_c[safe]                                 # [B, maxc]
-            nrm = cnorms_c[safe] if metric == "l2" else None
-            d = _slab_dist(qc, data_c[safe], metric, nrm)
-            if metric == "l2":
-                d = d + qn[:, None]
-            valid = (ic >= 0) & ok[:, None]
-            d = torch.where(valid, d, PAD_DIST)
-            ic = torch.where(valid, ic, PAD_ID)
-            best_d, best_i = topk_smallest(
-                torch.cat([best_d, d], 1), torch.cat([best_i, ic], 1), k)
-        out_d.append(best_d)
-        out_i.append(best_i)
-    return torch.cat(out_d), torch.cat(out_i)
+    with span("cnns.probe"):
+        out_d, out_i = [], []
+        for s in range(0, q.shape[0], q_block):
+            qf = q[s : s + q_block].float()
+            vb = visit[s : s + q_block]
+            b = qf.shape[0]
+            qn = (squared_norms(qf) if metric == "l2"
+                  else torch.zeros(b, device=q.device))
+            qc = _cast_q(qf, data_c.dtype, q_round)
+            best_d = torch.full((b, k), float(PAD_DIST), device=q.device)
+            best_i = torch.full((b, k), PAD_ID, dtype=ids_c.dtype,
+                                device=q.device)
+            for j in range(vb.shape[1]):
+                cid = vb[:, j]
+                ok = cid >= 0
+                safe = torch.where(ok, cid, 0)
+                ic = ids_c[safe]                             # [B, maxc]
+                nrm = cnorms_c[safe] if metric == "l2" else None
+                d = _slab_dist(qc, data_c[safe], metric, nrm)
+                if metric == "l2":
+                    d = d + qn[:, None]
+                valid = (ic >= 0) & ok[:, None]
+                d = torch.where(valid, d, PAD_DIST)
+                ic = torch.where(valid, ic, PAD_ID)
+                best_d, best_i = topk_smallest(
+                    torch.cat([best_d, d], 1), torch.cat([best_i, ic], 1), k)
+            out_d.append(best_d)
+            out_i.append(best_i)
+        return torch.cat(out_d), torch.cat(out_i)
 
 
 def _invert_pairs(visit, c: int):
@@ -244,75 +261,82 @@ def _grouped_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
     per pair on the spill path, up to ``sp_budget`` pairs; beyond that
     they drop, as in the reference. FastL2 values merge across clusters
     because the ||q||^2 shift is constant within a query row."""
-    dev = q.device
-    qn = q.shape[0]
-    c, maxc = ids_c.shape
-    npr = visit.shape[1]
-    qf = q.float()
-    qc = _cast_q(qf, data_c.dtype, q_round)
+    with span("cnns.pairs"):
+        dev = q.device
+        qn = q.shape[0]
+        c, maxc = ids_c.shape
+        npr = visit.shape[1]
+        qf = q.float()
+        qc = _cast_q(qf, data_c.dtype, q_round)
 
-    # ---- invert: pairs sorted by (cluster, probe rank) -> [C, cap] lists
-    sq, scid, pos, slot = _invert_pairs(visit, c)
-    ok = (scid < c) & (pos < cap)
-    spilled = (scid < c) & (pos >= cap)
-    # Out-of-bounds scatter: JAX's .at[].set(mode="drop") silently drops
-    # the invalid pairs it aims at row c; torch raises (CPU) or
-    # device-asserts (CUDA), so every index_put_ here is filtered by its
-    # mask first
-    qidx = torch.full((c, cap), PAD_ID, dtype=torch.int32, device=dev)
-    qidx[scid[ok], pos[ok]] = sq[ok].to(torch.int32)
+        # ---- invert: pairs sorted by (cluster, probe rank) -> [C, cap] lists
+        sq, scid, pos, slot = _invert_pairs(visit, c)
+        ok = (scid < c) & (pos < cap)
+        spilled = (scid < c) & (pos >= cap)
+        # Out-of-bounds scatter: JAX's .at[].set(mode="drop") silently drops
+        # the invalid pairs it aims at row c; torch raises (CPU) or
+        # device-asserts (CUDA), so every index_put_ here is filtered by its
+        # mask first
+        qidx = torch.full((c, cap), PAD_ID, dtype=torch.int32, device=dev)
+        qidx[scid[ok], pos[ok]] = sq[ok].to(torch.int32)
 
-    # ---- contiguous slab sweep: the grouped scan kernel
-    bias, scale = _scan_bias(ids_c, cnorms_c, metric)
-    td, gi = _scan_lists(qc, qidx, data_c, ids_c, bias, k, scale)
+        # ---- contiguous slab sweep: the grouped scan kernel
+        bias, scale = _scan_bias(ids_c, cnorms_c, metric)
+        td, gi = _scan_lists(qc, qidx, data_c, ids_c, bias, k, scale)
 
-    # ---- route results back to (query, probe slot) cells
-    safe_cid = torch.where(ok, scid, 0)
-    safe_pos = torch.where(ok, pos, 0)
-    rd = torch.where(ok[:, None], td[safe_cid, safe_pos], PAD_DIST)
-    ri = torch.where(ok[:, None], gi[safe_cid, safe_pos], PAD_ID)
-    out_d = torch.full((qn, npr, k), float(PAD_DIST), device=dev)
-    out_i = torch.full((qn, npr, k), PAD_ID, dtype=ids_c.dtype, device=dev)
-    # (out-of-bounds scatter) invalid pairs aim at slot npr: filtered
-    real = slot < npr
-    out_d[sq[real], slot[real]] = rd[real]
-    out_i[sq[real], slot[real]] = ri[real]
-    qnorm = squared_norms(qf)
-    if metric == "l2":
-        out_d = torch.where(out_i >= 0, out_d + qnorm[:, None, None],
-                            PAD_DIST)
-
-    # ---- overflow pairs: each spilled pair's slab scanned directly, in
-    # pair-rank order, at most sp_budget of them
-    if sp_budget is None:
-        sp_budget = max(
-            256, min(1 << (int(qn * npr / 16)).bit_length(), 2048))
-    # F-R1: the JAX package sizes the multi-pass budget past the pair
-    # count (cnns.py:799) and its reshape into 512-pair blocks then fails
-    # (Q=3000); here the budget is clamped to the pair count
-    sp_budget = min(sp_budget, qn * npr)
-    sp = torch.nonzero(spilled).reshape(-1)[:sp_budget]
-    spb = 512
-    for s in range(0, sp.numel(), spb):
-        p = sp[s : s + spb]
-        pq, pc, ps = sq[p], scid[p], slot[p]
-        ic = ids_c[pc]
-        nrm = cnorms_c[pc] if metric == "l2" else None
-        dist = _slab_dist(qc[pq], data_c[pc], metric, nrm)
-        valid = ic >= 0
-        sp_d, sp_i = topk_smallest(torch.where(valid, dist, PAD_DIST),
-                                   torch.where(valid, ic, PAD_ID), k)
+        # ---- route results back to (query, probe slot) cells
+        safe_cid = torch.where(ok, scid, 0)
+        safe_pos = torch.where(ok, pos, 0)
+        rd = torch.where(ok[:, None], td[safe_cid, safe_pos], PAD_DIST)
+        ri = torch.where(ok[:, None], gi[safe_cid, safe_pos], PAD_ID)
+        out_d = torch.full((qn, npr, k), float(PAD_DIST), device=dev)
+        out_i = torch.full((qn, npr, k), PAD_ID, dtype=ids_c.dtype, device=dev)
+        # (out-of-bounds scatter) invalid pairs aim at slot npr: filtered
+        real = slot < npr
+        out_d[sq[real], slot[real]] = rd[real]
+        out_i[sq[real], slot[real]] = ri[real]
+        qnorm = squared_norms(qf)
         if metric == "l2":
-            sp_d = torch.where(sp_i >= 0, sp_d + qnorm[pq][:, None],
-                               PAD_DIST)
-        # spilled (q, slot) cells are empty in the grouped output
-        out_d[pq, ps] = sp_d
-        out_i[pq, ps] = sp_i
-    # k_out > k widens only this final cross-cluster merge (replicated
-    # indexes fetch 2k so id-dedup can still return k unique)
-    return topk_smallest(out_d.reshape(qn, npr * k),
-                         out_i.reshape(qn, npr * k),
-                         min(k_out or k, npr * k))
+            out_d = torch.where(out_i >= 0, out_d + qnorm[:, None, None],
+                                PAD_DIST)
+
+        # ---- overflow pairs: each spilled pair's slab scanned directly, in
+        # pair-rank order, at most sp_budget of them
+        if sp_budget is None:
+            sp_budget = max(
+                256, min(1 << (int(qn * npr / 16)).bit_length(), 2048))
+        # F-R1: the JAX package sizes the multi-pass budget past the pair
+        # count (cnns.py:799) and its reshape into 512-pair blocks then fails
+        # (Q=3000); here the budget is clamped to the pair count
+        sp_budget = min(sp_budget, qn * npr)
+        # nonzero syncs, so the spilled count is already on the host: the
+        # counts cost no further sync
+        sp = torch.nonzero(spilled).reshape(-1)
+        pair_counts["pairs"] += qn * npr
+        pair_counts["spilled"] += sp.numel()
+        pair_counts["dropped"] += max(0, sp.numel() - sp_budget)
+        sp = sp[:sp_budget]
+        spb = 512
+        for s in range(0, sp.numel(), spb):
+            p = sp[s : s + spb]
+            pq, pc, ps = sq[p], scid[p], slot[p]
+            ic = ids_c[pc]
+            nrm = cnorms_c[pc] if metric == "l2" else None
+            dist = _slab_dist(qc[pq], data_c[pc], metric, nrm)
+            valid = ic >= 0
+            sp_d, sp_i = topk_smallest(torch.where(valid, dist, PAD_DIST),
+                                       torch.where(valid, ic, PAD_ID), k)
+            if metric == "l2":
+                sp_d = torch.where(sp_i >= 0, sp_d + qnorm[pq][:, None],
+                                   PAD_DIST)
+            # spilled (q, slot) cells are empty in the grouped output
+            out_d[pq, ps] = sp_d
+            out_i[pq, ps] = sp_i
+        # k_out > k widens only this final cross-cluster merge (replicated
+        # indexes fetch 2k so id-dedup can still return k unique)
+        return topk_smallest(out_d.reshape(qn, npr * k),
+                             out_i.reshape(qn, npr * k),
+                             min(k_out or k, npr * k))
 
 
 def dedup_topk(d, i, k: int):
@@ -392,10 +416,11 @@ class CNNSIndex:
 
     def _route(self, q, nprobe: int, rank_by: str = "hits",
                route_m: int | None = None, router: str = "flat"):
-        if router == "hnsw":
-            return self._route_hnsw(q, nprobe, rank_by)
-        return _route_clusters(q, self.reps, nprobe, self.metric, rank_by,
-                               route_m, n_valid=self.n_real)
+        with span("cnns.route"):
+            if router == "hnsw":
+                return self._route_hnsw(q, nprobe, rank_by)
+            return _route_clusters(q, self.reps, nprobe, self.metric,
+                                   rank_by, route_m, n_valid=self.n_real)
 
     def build_router_hnsw(self, M: int = 32, ef_construction: int = 100):
         """HNSW over the real clusters' representatives, on the index's
@@ -437,15 +462,17 @@ class CNNSIndex:
         k) and the frontier nodes expanded a hop.
         router: "flat" (one GEMM over the representatives) or "hnsw" (a
         graph walk over them, the reference's faiss router)."""
-        d, i = self._search_impl(queries, k, nprobe, l_search, expand,
-                                 rank_by, group, route_m, router)
-        if self.replicated:
-            d, i = dedup_topk(d, i, k)
-        if self.qscale != 1.0:
-            # metric units; filled slots only — PAD_DIST sentinels would
-            # overflow to inf at qscale >= ~2 (F-R2)
-            d = torch.where(i >= 0, d * np.float32(self.qscale) ** 2, d)
-        return d, i
+        with span("cnns.search"):
+            d, i = self._search_impl(queries, k, nprobe, l_search, expand,
+                                     rank_by, group, route_m, router)
+            if self.replicated:
+                with span("cnns.dedup"):
+                    d, i = dedup_topk(d, i, k)
+            if self.qscale != 1.0:
+                # metric units; filled slots only — PAD_DIST sentinels
+                # would overflow to inf at qscale >= ~2 (F-R2)
+                d = torch.where(i >= 0, d * np.float32(self.qscale) ** 2, d)
+            return d, i
 
     def _search_impl(self, queries, k, nprobe, l_search, expand, rank_by,
                      group, route_m, router):

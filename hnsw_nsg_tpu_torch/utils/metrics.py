@@ -7,9 +7,10 @@ The reference's observability is homemade (SURVEY.md §5.1): a microsecond
 ``metric_hops`` / ``metric_distance_computations`` counters
 (hnswalg.h:65-66). Here: ``StopW`` (host wall clock; ``timed`` can wait
 for the devices of given tensors), ``device_memory_stats`` (device memory
-residency, the RSS analogue, from ``torch.cuda``) and ``trace`` around
-``torch.profiler``. Search counters live on ``BeamResult`` and the
-indexes' ``metric_*`` fields.
+residency, the RSS analogue, from ``torch.cuda``), ``trace`` around
+``torch.profiler`` and ``span``, the program's named stages inside such a
+trace. Search counters live on ``BeamResult`` and the indexes'
+``metric_*`` fields.
 """
 
 from __future__ import annotations
@@ -80,10 +81,26 @@ def device_memory_stats(device=None) -> dict:
     }
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as the stage ``name`` in a
+    running ``torch.profiler`` trace (a ``record_function`` range, on the
+    clock of the trace's device events). With no profiler running it is
+    one shared no-op: the flag is read on every call, and
+    ``record_function``, which costs microseconds a call even then, is
+    never entered."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """A ``torch.profiler`` timeline of the block (CPU and, where there is
-    a card, CUDA activity), written to ``log_dir`` for TensorBoard."""
+    a card, CUDA activity), written to ``log_dir`` for TensorBoard; the
+    program's ``span`` stages appear in it on the device events' clock."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
