@@ -31,6 +31,16 @@ Phases, each of which fails the run (non-zero exit) on its own:
      f32 up to d = 960, scan_wide or scan_general_wide past those widths,
      the same kernels with the query's d chunks streamed through the
      ring);
+ 2b. the flat router's kernel (``ops/route.py`` ``route_topk``:
+     route_topk_kernel, and route_merge_kernel over the column splits)
+     against its plain version on card tensors at the main paths' router
+     shapes (ROUTE_CASES: sift1m's 1152 x 5 reps at d=128 and n_rep 10,
+     40, 80 and at 512 queries, d=3072's 1280 x 5 with 976 clusters
+     real at n_rep 15 and 80): the same rep sets and order ties aside,
+     the same clusters visited in >= 99.9% of queries, both times, each
+     kernel's device time and bound. The router's launches by kernel are
+     read after each main path (``route_tally``) and go into the kernels
+     line;
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
@@ -208,8 +218,9 @@ Phases, each of which fails the run (non-zero exit) on its own:
      202, f32 at k=10, 52 and 102): both times, the rows a block, the id
      mismatches at near-ties, the bound (the products of the finite-bias
      slots only) and the kernel's share of it;
-  8. the kernels line (fifteen entries, the scan's nine by kernel and
-     slab type, the wide ones timed on phase 3e's own scan call: times,
+  8. the kernels line (seventeen entries, the scan's nine by kernel and
+     slab type, the wide ones timed on phase 3e's own scan call, the
+     router's two timed at sift1m's nprobe 2 call of phase 2b: times,
      launches, errors and each kernel's bound:
      the larger of its bytes over 3.35 TB/s and its operations over the
      peak of their type: 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s
@@ -283,6 +294,26 @@ PEAK_OPS = {(torch.float32, torch.float32): 67e12,
             (torch.bfloat16, torch.bfloat16): PEAK_BF16_FLOPS,
             (torch.int8, torch.int8): 1979e12,
             (torch.bfloat16, torch.int8): PEAK_BF16_FLOPS}
+
+
+# the flat router's kernels (ops/route.py), and their launches on the
+# main paths by kernel, gathered by route_tally
+ROUTE_SOURCE = "hnsw_nsg_tpu_torch/csrc/route.cu"
+ROUTE_LAUNCHES: Counter = Counter()
+# the router's calls on the main paths: (what, Q, C, real clusters, m1, d,
+# metric, nprobe); n_rep = nprobe m1. sift1m (phase 3 and the sift1m
+# cells, C = 1152, m = 4): nprobe 2 (the cells' call), 8 (the spill and
+# sharded phases) and 16 (the top of phase 3's sweep), and the batch512
+# cell's 512 queries; d = 3072 (phase 3e and the dbpedia cells: 976 of
+# 1280 clusters real): nprobe 3 (the cells' call) and 16
+ROUTE_CASES = (
+    ("sift1m nprobe 2", 8192, 1152, 1152, 5, 128, "l2", 2),
+    ("sift1m nprobe 8", 8192, 1152, 1152, 5, 128, "l2", 8),
+    ("sift1m nprobe 16", 8192, 1152, 1152, 5, 128, "l2", 16),
+    ("sift1m batch512", 512, 1152, 1152, 5, 128, "l2", 2),
+    ("d=3072 nprobe 3", 8192, 1280, 976, 5, 3072, "ip", 3),
+    ("d=3072 nprobe 16", 8192, 1280, 976, 5, 3072, "ip", 16),
+)
 
 
 def bound(n_bytes: float, flops: float = 0.0,
@@ -564,6 +595,136 @@ def scan_bound(qc, qidx, slabs, bias, out, qdt, sdt):
                  PEAK_OPS[(qdt, sdt)])
 
 
+def kernel_ms(fn, names, calls: int = 5):
+    """Device ms a call of each kernel whose name contains one of
+    ``names``: ``calls`` calls of fn() under torch.profiler, each kernel's
+    self device time over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in ev.key:
+                    out[name] += ev.self_device_time_total / 1e3 / calls
+    return out
+
+
+def phase_route(card):
+    """The flat router's kernel (``ops/route.py`` ``route_topk``: the
+    product on bf16 tensor cores and the top-n_rep in its epilogue, plus
+    ``route_merge`` over the column splits) against its plain version
+    (``route_topk_reference``: cuBLAS f32 product of the bf16 values, a
+    stable sort) on card tensors at the main paths' router shapes
+    (ROUTE_CASES), on Gaussian rows (unit rows for ip). Fails unless every
+    column that one takes and the other does not lies within
+    1e-5 |q| max |r| of the row's n_rep-th distance (float64: ties aside,
+    the same rep set), the two columns at each rank lie within 2e-5 |q|
+    max |r| of each other (ties aside, the same order), and the two route
+    to the same clusters in >= 99.9% of the queries. Prints, by case, the launches by kernel, the column
+    splits, the rows with another rep set or order, the largest gap
+    between the float64 distances of the two columns at a rank, both
+    times, each kernel's device time (torch.profiler) and the bounds.
+    Returns {what: dict}."""
+    from hnsw_nsg_tpu_torch.models.cnns import _rank_rep_hits, _route_operands
+    from hnsw_nsg_tpu_torch.ops import route
+    from hnsw_nsg_tpu_torch.ops._build import load_library
+
+    route_tally()        # launches before here are the main paths'
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    out = {}
+    for what, qn, c, real, m1, d, metric, nprobe in ROUTE_CASES:
+        q = torch.randn((qn, d), generator=gen, device="cuda")
+        reps = torch.randn((c, m1, d), generator=gen, device="cuda")
+        if metric == "ip":
+            q = q / q.norm(dim=1, keepdim=True)
+            reps = reps / reps.norm(dim=2, keepdim=True)
+        flat, bias, scale = _route_operands(reps, metric, None)
+        n_rep, n_real = nprobe * m1, real * m1
+        qb = q.to(torch.bfloat16)
+        args = (qb, flat, bias, n_rep, n_real, scale)
+        before = dict(route.launches_by_kernel)
+        got = route.route_topk(*args)
+        launched = {k: v - before.get(k, 0)
+                    for k, v in route.launches_by_kernel.items()
+                    if v != before.get(k, 0)}
+        want = route.route_topk_reference(*args)
+        splits = load_library().route_topk_splits(
+            qn, min(c * m1, n_real + n_rep), sms)
+        if launched != ({"route_topk": 1, "route_merge": 1} if splits > 1
+                        else {"route_topk": 1}):
+            raise AssertionError(f"route {what}: launched {launched} with "
+                                 f"{splits} splits")
+        qd, fd = qb.double(), flat[:n_real].double()
+        exact = bias[:n_real].double()[None] - scale * (qd @ fd.T)
+        g_d, w_d = torch.gather(exact, 1, got), torch.gather(exact, 1, want)
+        gap = (g_d - w_d).abs().max(1).values
+        err = float(gap.max())
+        tol_q = 1e-5 * qd.norm(dim=1) * fd.norm(dim=1).max()
+        if not bool((gap <= 2 * tol_q).all()):
+            raise AssertionError(f"route {what}: a column out of order by "
+                                 f"{err} (more than 2e-5 |q| |r|)")
+        other_order = int((got != want).any(1).sum())
+        rows = (~(got.sort(1).values == want.sort(1).values).all(1)
+                ).nonzero()[:, 0]
+        if rows.numel():
+            kth = w_d[rows].max(1).values[:, None]
+            tol = tol_q[rows][:, None]
+            for a, b, a_d in ((got[rows], want[rows], g_d[rows]),
+                              (want[rows], got[rows], w_d[rows])):
+                only = ~(a[:, :, None] == b[:, None, :]).any(2)
+                if not bool(((a_d - kth).abs() <= tol)[only].all()):
+                    raise AssertionError(
+                        f"route {what}: a rep off the n_rep-th distance "
+                        f"by more than 1e-5 |q| |r|")
+        same = (_rank_rep_hits(got, m1, nprobe, "hits")
+                == _rank_rep_hits(want, m1, nprobe, "hits")
+                ).all(1).float().mean().item()
+        if same < 0.999:
+            raise AssertionError(f"route {what}: equal visits in {same}")
+        del exact, g_d, w_d, qd, fd, gap, tol_q
+        k_ms = cuda_ms(lambda: route.route_topk(*args), reps=20)
+        p_ms = cuda_ms(lambda: route.route_topk_reference(*args), reps=5)
+        by_kernel = kernel_ms(lambda: route.route_topk(*args),
+                              ("route_topk_kernel", "route_merge_kernel"))
+        n_cols = min(c * m1, n_real + n_rep)
+        b_k = bound(2 * (qn + n_cols) * d + 4 * n_cols + 8 * qn * n_rep,
+                    2 * qn * n_real * d)
+        b_m = bound(8 * qn * n_rep * (splits + 1)) if splits > 1 else None
+        out[what] = dict(n_rep=n_rep, splits=splits, err=err,
+                         rows_other_set=int(rows.numel()),
+                         rows_other_order=other_order, visits_equal=same,
+                         ms=k_ms, plain_ms=p_ms,
+                         topk_ms=by_kernel["route_topk_kernel"],
+                         merge_ms=by_kernel["route_merge_kernel"],
+                         bound=b_k, merge_bound=b_m)
+        print(f"route {what} (Q={qn}, {c * m1} columns, {n_real} real, "
+              f"d={d}, {metric}, n_rep={n_rep}, {splits} splits): launched "
+              f"{launched}; {int(rows.numel())} rows with another rep set, "
+              f"{other_order} with another order, largest gap at a rank "
+              f"{err:.3e}, visits equal in {same:.5f}; kernel {k_ms:.4f} ms "
+              f"(route_topk_kernel {by_kernel['route_topk_kernel']:.4f}, "
+              f"route_merge_kernel {by_kernel['route_merge_kernel']:.4f}), "
+              f"plain {p_ms:.4f} ms; bound {b_k[0]:.4f} ms ({b_k[1]}), "
+              f"route_topk_kernel at "
+              f"{b_k[0] / max(by_kernel['route_topk_kernel'], 1e-9):.1%} "
+              f"of it [{card}]")
+        del q, reps, flat, bias, qb, args, got, want
+        torch.cuda.empty_cache()
+    route.launches = 0            # the checks' own, not a main path's
+    route.launches_by_kernel.clear()
+    return out
+
+
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
     """The main path; smaller ``n``/``nq`` and ``device="cpu"`` rehearse it
     without a card."""
@@ -642,7 +803,7 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
                              f"recall@10 {r10} against {sweep[-1]['recall']}")
     if not bool(torch.isfinite(d100).all()):
         raise AssertionError("non-finite distances at k=100")
-    counts = scan_counts(cs, "build + sweep + k=100", device)
+    counts = scan_counts(cs, "build + sweep + k=100", device, routed=True)
     if device == "cuda" and set(counts) != {"scan_mma", "scan_general_mma"}:
         raise AssertionError(f"the bf16 search ran other scan kernels than "
                              f"scan_mma and scan_general_mma: {counts}")
@@ -703,7 +864,8 @@ def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
     if rec[10] < bf16_recall - 0.005 or abs(rec[100] - rec[10]) > 0.002:
         raise AssertionError(f"f32 slabs: recall@10 {rec} against the bf16 "
                              f"index's {bf16_recall}")
-    counts = scan_counts(cs, "f32 slabs, build + k=10 + k=100", device)
+    counts = scan_counts(cs, "f32 slabs, build + k=10 + k=100", device,
+                          routed=True)
     if device == "cuda" and set(counts) != {"scan_f32", "scan_general_f32"}:
         raise AssertionError(f"the f32 search ran other scan kernels than "
                              f"scan_f32 and scan_general_f32: {counts}")
@@ -790,7 +952,8 @@ def phase_gist(card, n=1_000_000, d=960, nq=8192, device="cuda",
     if tuple(i100h.shape) != (nq, 100) or abs(r10 - sweep[reached]) > 0.002:
         raise AssertionError(f"gist1m k=100: shape {tuple(i100h.shape)}, "
                              f"recall@10 {r10} against {sweep[reached]}")
-    counts = scan_counts(cs, "gist1m build + sweep + k=100", device)
+    counts = scan_counts(cs, "gist1m build + sweep + k=100", device,
+                          routed=True)
     if device == "cuda" and set(counts) != {"scan_mma", "scan_general_mma"}:
         raise AssertionError(f"the SQ8 search ran other scan kernels than "
                              f"scan_mma and scan_general_mma: {counts}")
@@ -948,7 +1111,7 @@ def phase_wide(card, n=1_000_000, d=3072, nq=8192, device="cuda",
         print(f"wide {what}: distances within {err:.2e} of exact ones")
 
     def wide_counts(what):
-        counts = scan_counts(cs, what, device)
+        counts = scan_counts(cs, what, device, routed=True)
         if on_card and set(counts) != WIDE_KERNELS:
             raise AssertionError(f"wide {what}: scan kernels {counts}, not "
                                  f"{sorted(WIDE_KERNELS)} only")
@@ -1177,7 +1340,8 @@ def phase_sift10m_u8(card, n=10_000_000, nq=8192, device="cuda"):
             or abs(r10 - sweep[reached][0]) > 0.002):
         raise AssertionError(f"sift10m_u8 k=100: shape {tuple(i100.shape)}, "
                              f"recall@10 {r10} against {sweep[reached][0]}")
-    counts = scan_counts(cs, "sift10m_u8 sweep + k=100", device)
+    counts = scan_counts(cs, "sift10m_u8 sweep + k=100", device,
+                          routed=True)
     if on_card and set(counts) != {"scan_i8", "scan_general_i8"}:
         raise AssertionError(f"the uint8 search ran other scan kernels than "
                              f"scan_i8 and scan_general_i8: {counts}")
@@ -1374,20 +1538,43 @@ def phase_spill(card, sp, qd, gt, resident, copy_s, index_bytes,
     return out
 
 
+def route_tally():
+    """The flat router's launches (``ops/route.py``) since the last call,
+    by kernel, added to ROUTE_LAUNCHES and set to 0 there; fails unless
+    they add up."""
+    from hnsw_nsg_tpu_torch.ops import route
+
+    got = dict(route.launches_by_kernel)
+    if sum(got.values()) != route.launches:
+        raise AssertionError(f"route launches by kernel: {got}, all "
+                             f"{route.launches}")
+    ROUTE_LAUNCHES.update(got)
+    route.launches = 0
+    route.launches_by_kernel.clear()
+    return got
+
+
 def reset_scan_counts(cs):
+    route_tally()
     cs.launches = 0
     cs.launches_by_kernel.clear()
 
 
-def scan_counts(cs, what, device="cuda"):
+def scan_counts(cs, what, device="cuda", routed=False):
     """The scan's launches since reset_scan_counts, by kernel; fails
-    unless they add up (and, on the card, unless there are some)."""
+    unless they add up (and, on the card, unless there are some). Prints
+    the flat router's launches since the last count, and on the card
+    fails unless a ``routed`` path launched its kernel."""
     counts = dict(cs.launches_by_kernel)
     print(f"scan kernel launches, {what}: {cs.launches}, by kernel {counts}")
     if sum(counts.values()) != cs.launches or (
             device == "cuda" and not cs.launches):
         raise AssertionError(f"scan launches by kernel: {counts}, all "
                              f"{cs.launches}")
+    routes = route_tally()
+    print(f"route kernel launches, {what}: {routes}")
+    if routed and device == "cuda" and not routes.get("route_topk"):
+        raise AssertionError(f"{what}: the flat router launched no kernel")
     return counts
 
 
@@ -3077,7 +3264,7 @@ def phase_sharded(card, x, queries, gt, flat_idx, tally, device="cuda",
     print(f"(e) MultiSliceCNNSIndex on a {msi.mesh.shape} mesh, nprobe=4: "
           f"equal to a two-shard index row for row; evals by slice and "
           f"shard {em.cpu().tolist()} [{card}]")
-    scans = scan_counts(cs, "sharded CNNS (d) + (e)", device)
+    scans = scan_counts(cs, "sharded CNNS (d) + (e)", device, routed=True)
     if on_card and (scans.get("scan_f32", 0) <= 0
                     or set(scans) - {"scan_f32", "scan_general_f32"}):
         raise AssertionError(f"the sharded CNNS ran other scans: {scans}")
@@ -3300,6 +3487,9 @@ def main() -> int:
     print("grouped scan kernels vs plain PyTorch version:")
     scan_err, scan_times = phase_kernels(gen)
 
+    print("the flat router's kernel vs its plain version:")
+    route_checks = phase_route(card)
+
     sift_counts, f32_counts, flat_idx = phase_main_path(card)
     gist_counts, gist_times = phase_gist(card)
     u8_counts, u8_times, spill_in = phase_sift10m_u8(card)
@@ -3515,6 +3705,36 @@ def main() -> int:
         "ms": jf32[1], "plain_ms": jf32[2],
         "bound_ms": jf32[3][0], "bound_by": jf32[3][1], "library_ms": None,
     }]
+    # the flat router: timed at the sift1m cells' call (nprobe 2), its
+    # error the largest over ROUTE_CASES; launches over every main path
+    route_tally()
+    if min(ROUTE_LAUNCHES["route_topk"], ROUTE_LAUNCHES["route_merge"]) <= 0:
+        raise AssertionError(f"a route kernel did not run on the main "
+                             f"paths: {dict(ROUTE_LAUNCHES)}")
+    rc = route_checks["sift1m nprobe 2"]
+    r_err = max(r["err"] for r in route_checks.values())
+    kernels += [{
+        "name": "route_topk (flat router: bf16 tensor cores, the "
+                "top-n_rep in the epilogue: route_topk_kernel)",
+        "route": "cuda", "source": ROUTE_SOURCE,
+        "replaces": "hnsw_nsg_tpu/models/cnns.py:79",
+        "launches": ROUTE_LAUNCHES["route_topk"], "max_abs_err": r_err,
+        "ms": rc["topk_ms"], "plain_ms": rc["plain_ms"],
+        "bound_ms": rc["bound"][0], "bound_by": rc["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "route_topk (the column splits' lists merged: "
+                "route_merge_kernel)",
+        "route": "cuda", "source": ROUTE_SOURCE,
+        "replaces": "hnsw_nsg_tpu/models/cnns.py:79",
+        "launches": ROUTE_LAUNCHES["route_merge"], "max_abs_err": r_err,
+        "ms": rc["merge_ms"], "plain_ms": None,
+        "bound_ms": rc["merge_bound"][0], "bound_by": rc["merge_bound"][1],
+        "library_ms": None,
+    }]
+    print(f"route launches on the main paths: {dict(ROUTE_LAUNCHES)}; "
+          f"sift1m nprobe 2: the call {rc['ms']:.4f} ms against plain "
+          f"{rc['plain_ms']:.4f} ms [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -63,12 +63,14 @@ from collections import Counter
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..ops.cluster_scan import grouped_cluster_topk_gq
 from ..ops.distance import (
-    PAD_DIST, PAD_ID, as_f32_queries, f32_dots, pairwise_dists,
-    squared_norms,
+    PAD_DIST, PAD_ID, VALID_METRICS, as_f32_queries, f32_dots,
+    pairwise_dists, squared_norms,
 )
+from ..ops.route import route_topk
 from ..ops.topk import topk_smallest
 from ..utils.device import resolve_device
 from ..utils.metrics import span
@@ -89,6 +91,40 @@ _NP_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 # list's capacity (scanned on the spill path), "dropped" the spilled
 # pairs past ``sp_budget`` (left out of the result)
 pair_counts: Counter = Counter()
+# the flat router's calls on the CPU (``ops/route.py``'s plain version)
+# since the process started, "plain", and the query rows routed on either
+# device, "queries"; the card's routes are ``ops/route.py``'s
+# ``launches_by_kernel["route_topk"]``
+route_counts: Counter = Counter()
+# the router kernel's operands of each reps tensor, by (route_m, metric)
+_operands = WeakIdKeyDictionary()
+
+
+def _route_operands(reps, metric: str, route_m):
+    """The router's flat bf16 representatives [C*m1, d], bias [C*m1] and
+    scale for ``reps[:, :route_m]``, by the expressions of
+    ``pairwise_dists`` on the bf16-rounded reps (FastL2: their f32
+    squared norms, scale 2; ip and cosine: bias 1, scale 1). Made once
+    per reps tensor, route_m and metric, and kept while the tensor
+    lives."""
+    if metric not in VALID_METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    kept = _operands.setdefault(reps, {})
+    hit = kept.get((route_m, metric))
+    if hit is not None:
+        return hit
+    r = reps if route_m is None else reps[:, :route_m]
+    c, m1, d = r.shape
+    # a copy, never a view of reps: a value that holds its key alive
+    # would keep the entry for good
+    rep_flat = r.reshape(c * m1, d).to(torch.bfloat16, copy=True)
+    rep_flat = rep_flat.contiguous()
+    if metric in ("ip", "cosine"):
+        bias, scale = torch.ones(c * m1, device=reps.device), 1.0
+    else:
+        bias, scale = squared_norms(rep_flat), 2.0
+    kept[(route_m, metric)] = (rep_flat, bias, scale)
+    return rep_flat, bias, scale
 
 
 def _route_clusters(q, reps, nprobe: int, metric: str, rank_by="hits",
@@ -96,26 +132,25 @@ def _route_clusters(q, reps, nprobe: int, metric: str, rank_by="hits",
     """Rank clusters for probing: representative hit count (ties broken by
     best rep rank), or pure closest-representative order
     (rank_by="min_dist"). Returns visit [Q, nprobe] cluster ids (PAD_ID
-    padded), int64."""
-    if route_m is not None:
-        reps = reps[:, :route_m]
-    c, m1, d = reps.shape
-    rep_flat = reps.reshape(c * m1, d)
-    # bf16-rounded operands, f32 products: routing is rank selection at
-    # cluster granularity
-    rd = pairwise_dists(
-        q.to(torch.bfloat16), rep_flat.to(torch.bfloat16), metric,
-        exact=False,
-    )
-    if n_valid is not None and n_valid < c:
-        # F-H2: padded sentinel reps cannot be excluded by value alone (a
-        # huge-magnitude vector has a huge |inner product| too and would
-        # WIN ip routing), so padded clusters are masked by index
-        col_cid = torch.arange(c * m1, device=q.device) // m1
-        rd = torch.where(col_cid[None, :] >= n_valid, PAD_DIST, rd)
+    padded), int64.
+
+    The representatives' distances are bf16-rounded operands with f32
+    products (routing is rank selection at cluster granularity), their
+    n_rep best kept by ``ops/route.py`` ``route_topk``: one kernel on the
+    card, the plain product and stable sort on the CPU. Its operands are
+    made once per reps tensor and route_m (``_route_operands``)."""
+    c, m1, _ = (reps if route_m is None else reps[:, :route_m]).shape
     n_rep = min(nprobe * m1, c * m1)
-    ids = torch.arange(c * m1, device=q.device).expand(rd.shape[0], -1)
-    _, rep_idx = topk_smallest(rd, ids, n_rep)
+    # F-H2: padded sentinel reps cannot be excluded by value alone (a
+    # huge-magnitude vector has a huge |inner product| too and would WIN
+    # ip routing), so the columns of padded clusters are masked by index
+    n_real = c * m1 if n_valid is None else max(0, min(n_valid, c)) * m1
+    rep_flat, bias, scale = _route_operands(reps, metric, route_m)
+    if q.device.type != "cuda":
+        route_counts["plain"] += 1
+    route_counts["queries"] += q.shape[0]
+    rep_idx = route_topk(q.to(torch.bfloat16).contiguous(), rep_flat, bias,
+                         n_rep, n_real, scale)
     return _rank_rep_hits(rep_idx, m1, nprobe, rank_by)
 
 

@@ -151,6 +151,16 @@ def load_library() -> ctypes.CDLL:
     lib.cluster_join_scratch.restype = ctypes.c_longlong     # k, dtype
     lib.cluster_join_rows.argtypes = [ci, ci, ci]             # d, k, dtype
     lib.cluster_join_rows.restype = ci
+    lib.route_topk.argtypes = [
+        vp, vp, vp, vp, vp,              # q, reps, bias, out, scratch
+        ci, ci, ci, ci, ci, ci,          # Q, d, n_real, n_cols, n_rep, splits
+        cf, vp,                          # scale, stream
+    ]
+    lib.route_topk.restype = ci
+    lib.route_topk_splits.argtypes = [ci, ci, ci]     # Q, n_cols, SMs
+    lib.route_topk_splits.restype = ci
+    lib.route_topk_scratch.argtypes = [ci, ci, ci, ci]  # Q, n_cols, n_rep,
+    lib.route_topk_scratch.restype = ctypes.c_longlong  # splits
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

@@ -23,7 +23,14 @@ there at k=10, f32 at d=1536 at k = 10 and 200, int8 x int8 at d=3848
 (C=16) at k=10. The join runs at
 the 1M build shape of ``chip_smoke.py`` phase 7 (the 1091 clusters that
 phase 6's build of the 1M data makes, slabs of 2112 rows, M=8, d=128):
-bf16 at k = 52, 102 and 202, f32 at k = 10, 52 and 102. Prints one JSON line per
+bf16 at k = 52, 102 and 202, f32 at k = 10, 52 and 102. The router
+(``ops/route.py``) runs at the benchmark's two router shapes: 8,192
+queries x 5,760 reps x d=128, l2, n_rep 10 (sift1m), and 8,192 x 6,400 x
+3,072, ip, n_rep 15 with 976 of 1,280 clusters real (dbpedia), and at
+n_rep 40 and 80 (nprobe 8 and 16: the selection past 32 columns) at
+the first and 40 at the second, each line
+with its plain version's time (cuBLAS f32 product and stable sort, the
+router before the kernel) and its bound. Prints one JSON line per
 shape, each with ``digest``, a hash of the outputs' bytes, so that two
 trees' lines show whether their kernels give the same bits on the same
 inputs (the scan's on the rows that carry a result: pad rows are
@@ -58,8 +65,9 @@ def digest(*ts) -> str:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--only", nargs="+", choices=("merge", "scan", "join"),
-                    default=("merge", "scan", "join"))
+    ap.add_argument("--only", nargs="+",
+                    choices=("merge", "scan", "join", "route"),
+                    default=("merge", "scan", "join", "route"))
     args = ap.parse_args()
     sys.path.insert(0, args.tree)   # the package under test
     import torch
@@ -89,6 +97,8 @@ def main():
         time_scan(smoke, cs, args.tree, card)
     if "join" in args.only:
         time_join(smoke, cs, args.tree, card)
+    if "route" in args.only:
+        time_route(smoke, args.tree, card)
 
 
 def time_scan(smoke, cs, tree, card):
@@ -169,6 +179,53 @@ def time_join(smoke, cs, tree, card):
         print(json.dumps(dict(kernel="cluster_join_topk f32",
                               tree=tree, C=c, maxc=maxc, M=probes, d=d,
                               k=k, ms=t, digest=out, card=card)))
+        torch.cuda.empty_cache()
+
+
+def time_route(smoke, tree, card):
+    """The router's kernel and its plain version on Gaussian rows at the
+    benchmark's router shapes. Bound: the larger of 2 Q n_real d over the
+    bf16 peak and the operands' bytes (each read once, the columns written
+    once) over the HBM rate. A tree without the kernel prints nothing."""
+    import torch
+
+    try:
+        from hnsw_nsg_tpu_torch.ops import route
+    except ImportError:
+        return
+    from hnsw_nsg_tpu_torch.models.cnns import _route_operands
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for name, qn, c, d, n_rep, n_valid, metric in (
+            ("sift1m", 8192, 1152, 128, 10, 1152, "l2"),
+            ("sift1m", 8192, 1152, 128, 40, 1152, "l2"),
+            ("sift1m", 8192, 1152, 128, 80, 1152, "l2"),
+            ("dbpedia", 8192, 1280, 3072, 15, 976, "ip"),
+            ("dbpedia", 8192, 1280, 3072, 40, 976, "ip")):
+        q = torch.randn((qn, d), generator=gen, device="cuda")
+        reps = torch.randn((c, 5, d), generator=gen, device="cuda")
+        flat, bias, scale = _route_operands(reps, metric, None)
+        qb = q.to(torch.bfloat16)
+        n_real = n_valid * 5
+        args = (qb, flat, bias, n_rep, n_real, scale)
+        t = smoke.cuda_ms(lambda: route.route_topk(*args), reps=20)
+        t_plain = smoke.cuda_ms(
+            lambda: route.route_topk_reference(*args), reps=5)
+        out = route.route_topk(*args)
+        flops = 2 * qn * n_real * d
+        nbytes = 2 * (qn + n_real) * d + 4 * n_real + 8 * qn * n_rep
+        bound = 1e3 * max(flops / smoke.PEAK_BF16_FLOPS,
+                         nbytes / smoke.PEAK_BYTES)
+        print(json.dumps(dict(
+            kernel="route_topk", tree=tree, shape=name, Q=qn,
+            columns=c * 5, real=n_real, d=d, n_rep=n_rep, metric=metric,
+            ms=t, plain_ms=t_plain, bound_ms=bound,
+            tflops=flops / t / 1e9, digest=digest(out),
+            rows_equal_to_plain=(out == route.route_topk_reference(*args)
+                                 ).all(1).float().mean().item(),
+            card=card)), flush=True)
+        del q, reps, flat, bias, qb, args, out
         torch.cuda.empty_cache()
 
 

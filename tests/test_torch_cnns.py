@@ -17,7 +17,9 @@ from hnsw_nsg_tpu.models import cnns as jc  # noqa: E402
 from hnsw_nsg_tpu.utils.params import CNNSConfig  # noqa: E402
 from hnsw_nsg_tpu_torch.models import cnns as tc  # noqa: E402
 from hnsw_nsg_tpu_torch.ops import PAD_DIST, brute_force_topk, recall  # noqa: E402
-from hnsw_nsg_tpu_torch.ops import cluster_scan  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import cluster_scan, route  # noqa: E402
+from hnsw_nsg_tpu_torch.ops import pairwise_dists, squared_norms  # noqa: E402
+from hnsw_nsg_tpu_torch.ops.topk import topk_smallest  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-4)   # f32 sums in another order
 # bf16 slabs and SQ8 (bf16 query x int8 slab): the same f32 products of
@@ -252,7 +254,127 @@ def test_unported_local_indexes_raise(jax_indexes, monkeypatch):
 
 
 def test_search_on_cpu_launches_no_kernel(jax_indexes):
+    """A CPU search takes the plain versions: no scan and no route kernel
+    launches, and the router counts a plain route of its queries."""
     _, q, _, _, ti = jax_indexes["bf16_l2_rep"]
     before = cluster_scan.launches
+    counts = dict(tc.route_counts)
     ti.search(torch.from_numpy(q), k=10, nprobe=4, group=True)
     assert cluster_scan.launches == before == 0
+    assert route.launches == 0 and not route.launches_by_kernel
+    assert tc.route_counts["plain"] == counts.get("plain", 0) + 1
+    assert tc.route_counts["queries"] == counts.get("queries", 0) + len(q)
+
+
+def _plain_route(q, reps, nprobe, metric, rank_by="hits", route_m=None,
+                 n_valid=None):
+    """The router's plain path as it stood before the route kernel: the
+    product over the bf16-rounded reps (pairwise_dists), the padded
+    clusters masked by index, a stable sort of every column."""
+    if route_m is not None:
+        reps = reps[:, :route_m]
+    c, m1, d = reps.shape
+    rd = pairwise_dists(q.to(torch.bfloat16),
+                        reps.reshape(c * m1, d).to(torch.bfloat16), metric,
+                        exact=False)
+    if n_valid is not None and n_valid < c:
+        col_cid = torch.arange(c * m1) // m1
+        rd = torch.where(col_cid[None, :] >= n_valid, PAD_DIST, rd)
+    ids = torch.arange(c * m1).expand(rd.shape[0], -1)
+    _, rep_idx = topk_smallest(rd, ids, min(nprobe * m1, c * m1))
+    return tc._rank_rep_hits(rep_idx, m1, nprobe, rank_by)
+
+
+@pytest.mark.parametrize("name", ["f32_l2_rep", "f32_ip", "bf16_l2_rep",
+                                  "u8"])
+@pytest.mark.parametrize("nprobe,route_m,n_valid,rank_by", [
+    (4, None, None, "hits"), (3, 2, None, "hits"), (5, None, 10, "hits"),
+    (4, None, 12, "min_dist"), (20, None, 3, "hits")])
+def test_cpu_route_is_the_plain_path(jax_indexes, name, nprobe, route_m,
+                                     n_valid, rank_by):
+    """On the CPU _route_clusters gives the visits of the plain path the
+    router had before its kernel, on the index's own reps and queries: the
+    route_m ablation, padded clusters (n_valid, with nprobe past the real
+    ones so the padding columns come back) and rank_by="min_dist"."""
+    _, q, _, _, ti = jax_indexes[name]
+    qt = torch.from_numpy(q)
+    got = tc._route_clusters(qt, ti.reps, nprobe, ti.metric, rank_by,
+                             route_m, n_valid)
+    want = _plain_route(qt, ti.reps, nprobe, ti.metric, rank_by, route_m,
+                        n_valid)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("n_rep,n_valid", [(1, None), (15, None), (33, 9),
+                                           (60, 3)])
+def test_route_kernel_plain_version_is_the_plain_route(metric, n_rep,
+                                                       n_valid):
+    """route_topk on CPU tensors (the plain version the card is held to)
+    on _route_operands' operands gives the plain path's rep columns, ties
+    and padding columns included."""
+    rng = np.random.default_rng(n_rep)
+    q = torch.from_numpy(rng.integers(-4, 5, (40, 24)).astype(np.float32))
+    reps = torch.from_numpy(rng.standard_normal((12, 5, 24)).astype(
+        np.float32))
+    reps[3, 1] = reps[0, 2]                 # a tie: the lower column first
+    c, m1, d = reps.shape
+    flat, bias, scale = tc._route_operands(reps, metric, None)
+    n_real = c * m1 if n_valid is None else n_valid * m1
+    got = route.route_topk(q.to(torch.bfloat16), flat, bias, n_rep, n_real,
+                           scale)
+    rd = pairwise_dists(q.to(torch.bfloat16), flat, metric, exact=False)
+    if n_valid is not None:
+        rd = torch.where(torch.arange(c * m1)[None, :] >= n_real, PAD_DIST,
+                         rd)
+    _, want = topk_smallest(rd, torch.arange(c * m1).expand(40, -1), n_rep)
+    assert torch.equal(got, want)
+
+
+def test_route_operands_made_once_per_reps_and_route_m():
+    """The kernel's operands come from the plain path's expressions (the
+    bf16-rounded reps and their f32 squared norms for l2, ones for ip),
+    are kept by route_m and metric while the reps tensor lives, are made
+    anew for other reps, and go with their reps tensor."""
+    import gc
+    import weakref
+
+    reps = torch.randn(6, 3, 8, generator=torch.Generator().manual_seed(1))
+    flat, bias, scale = tc._route_operands(reps, "l2", None)
+    assert flat.dtype == torch.bfloat16 and flat.shape == (18, 8)
+    assert torch.equal(bias, squared_norms(reps.reshape(18, 8).to(
+        torch.bfloat16))) and scale == 2.0
+    again = tc._route_operands(reps, "l2", None)
+    assert again[0] is flat and again[1] is bias
+    flat2, bias2, _ = tc._route_operands(reps, "l2", 2)
+    assert flat2.shape == (12, 8)
+    flat_ip, bias_ip, scale_ip = tc._route_operands(reps, "ip", None)
+    assert torch.equal(bias_ip, torch.ones(18)) and scale_ip == 1.0
+    assert sorted(tc._operands[reps], key=str) == [
+        (2, "l2"), (None, "ip"), (None, "l2")]
+    other = reps.clone()
+    assert tc._route_operands(other, "l2", None)[0] is not flat
+    # bf16 reps: the operands are a copy, never a view that keeps the
+    # reps alive
+    b16 = reps.to(torch.bfloat16)
+    assert tc._route_operands(b16, "l2", None)[0].data_ptr() != \
+        b16.data_ptr()
+    gone = [weakref.ref(t) for t in (reps, other, b16)]
+    del reps, other, b16
+    gc.collect()
+    assert all(r() is None for r in gone)
+    assert flat.shape == (18, 8)          # the operands outlive their reps
+
+
+def test_route_wrapper_checks_its_inputs_on_the_cpu():
+    q = torch.zeros((4, 16), dtype=torch.bfloat16)
+    reps = torch.zeros((10, 16), dtype=torch.bfloat16)
+    bias = torch.zeros(10)
+    for args, err in (((q.float(), reps, bias, 3, 10), TypeError),
+                      ((q, reps, bias.double(), 3, 10), TypeError),
+                      ((q, reps[:, :8], bias, 3, 10), ValueError),
+                      ((q, reps, bias, 11, 10), ValueError),
+                      ((q, reps, bias, 3, -1), ValueError)):
+        with pytest.raises(err):
+            route.route_topk(*args, 1.0)

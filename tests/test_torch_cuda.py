@@ -1704,3 +1704,181 @@ def test_entry_dryrun_and_metrics_on_card(card, tmp_path):
     with metrics.timed(sync=d_gpu) as t:
         fn(*args)
     assert t.elapsed > 0
+
+
+# ---- the flat router's kernel (ops/route.py, csrc/route.cu) ---------------
+
+def _route_ints(seed, qn, c, m1, d, dups=True):
+    """Integer-valued bf16 queries [qn, d] and reps [c, m1, d] with |x| <= 8:
+    every product and f32 sum is exact in any order, so the kernel's
+    distances are the plain version's bit for bit. Some reps repeat an
+    earlier one (equal distances at two columns: the lower must win) and
+    one query row is NaN (every distance NaN: columns in order after the
+    padding ones)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-8, 9, (qn, d)).astype(np.float32)
+    reps = rng.integers(-8, 9, (c, m1, d)).astype(np.float32)
+    if dups:
+        flat = reps.reshape(c * m1, d)
+        src = rng.integers(0, c * m1, c * m1 // 4)
+        dst = rng.integers(0, c * m1, c * m1 // 4)
+        flat[dst] = flat[src]
+        q[: qn // 8] = flat[rng.integers(0, c * m1, qn // 8)]   # exact hits
+    q[min(7, qn - 1), 0] = np.nan
+    return torch.from_numpy(q), torch.from_numpy(reps)
+
+
+def _route_kernel_vs_plain(card, q, reps, metric, n_rep, n_valid=None,
+                           route_m=None):
+    """rep columns of route_topk on the card and of the plain version on
+    the CPU, on _route_operands' operands; asserts the launches."""
+    from hnsw_nsg_tpu_torch.ops import route
+
+    full = reps
+    if route_m is not None:
+        reps = reps[:, :route_m]
+    c, m1, _ = reps.shape
+    n_real = c * m1 if n_valid is None else n_valid * m1
+    flat, bias, scale = cnns._route_operands(full, metric, route_m)
+    qb = q.to(torch.bfloat16)
+    want = route.route_topk(qb, flat, bias, n_rep, n_real, scale)
+    before, by = route.launches, dict(route.launches_by_kernel)
+    got = route.route_topk(qb.to(card), flat.to(card), bias.to(card), n_rep,
+                           n_real, scale)
+    torch.cuda.synchronize()
+    assert route.launches_by_kernel["route_topk"] == by.get("route_topk",
+                                                            0) + 1
+    assert route.launches - before in (1, 2)
+    return got.cpu(), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [100, 128, 960, 3072])
+@pytest.mark.parametrize("n_rep", [1, 10, 15, 32, 33, 100])
+def test_route_kernel_equals_plain_on_integers(card, metric, d, n_rep):
+    """Exact distances: the kernel's columns equal the plain version's
+    bit for bit, ties to the lower column, NaN rows after the padding
+    columns; 300 queries (not a multiple of the 128-row tile), several
+    column splits and their merge, 6 of 140 clusters padding."""
+    q, reps = _route_ints(d + n_rep, 300, 140, 5, d)
+    got, want = _route_kernel_vs_plain(card, q, reps, metric, n_rep,
+                                       n_valid=134)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("name,qn,c,m1,d,n_rep,n_valid,route_m", [
+    ("padding returned", 200, 20, 5, 64, 33, 3, None),   # 15 real columns
+    ("padding, heaps", 130, 20, 5, 128, 25, 4, None),    # 20 real columns
+    ("no real column", 50, 8, 5, 32, 12, 0, None),
+    ("one tile, one split", 1000, 20, 5, 128, 10, None, None),
+    ("route_m", 260, 40, 5, 128, 6, 37, 2),
+    ("d = 8", 129, 300, 5, 8, 15, None, None),
+    ("odd d", 257, 60, 3, 37, 40, 55, None),
+    ("one query", 1, 50, 5, 200, 10, 48, None),
+])
+def test_route_kernel_shapes(card, metric, name, qn, c, m1, d, n_rep,
+                             n_valid, route_m):
+    got, want = _route_kernel_vs_plain(card, *_route_ints(qn + d, qn, c,
+                                                          m1, d),
+                                       metric, n_rep, n_valid, route_m)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("n_valid,route_m,rank_by", [
+    (None, None, "hits"), (37, None, "hits"), (37, 3, "hits"),
+    (37, None, "min_dist")])
+def test_route_on_card_equals_cpu_route(card, metric, n_valid, route_m,
+                                        rank_by):
+    """_route_clusters on the card (the kernel, on operands made once per
+    reps tensor) and on the CPU (the plain path) visit the same clusters
+    on integer-valued data, a second call reusing the kept operands."""
+    from hnsw_nsg_tpu_torch.ops import route
+
+    q, reps = _route_ints(5, 700, 40, 5, 96)
+    q[7] = 0.0                      # no NaN row: _rank_rep_hits takes any
+    cpu = cnns._route_clusters(q, reps, 6, metric, rank_by, route_m,
+                               n_valid)
+    before = dict(cnns.route_counts)
+    kernels = route.launches_by_kernel["route_topk"]
+    q_card, reps_card = q.to(card), reps.to(card)
+    for _ in range(2):
+        got = cnns._route_clusters(q_card, reps_card, 6, metric, rank_by,
+                                   route_m, n_valid)
+        assert torch.equal(got.cpu(), cpu)
+    assert list(cnns._operands[reps_card]) == [(route_m, metric)]
+    assert route.launches_by_kernel["route_topk"] == kernels + 2
+    assert cnns.route_counts["plain"] == before.get("plain", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,qn,c,d,n_rep,n_valid,nprobe,metric", [
+    ("sift1m batch8k", 8192, 1152, 128, 10, 1152, 2, "l2"),
+    ("dbpedia batch8k", 8192, 1280, 3072, 15, 976, 3, "ip"),
+])
+def test_route_kernel_at_the_bench_shapes(card, name, qn, c, d, n_rep,
+                                          n_valid, nprobe, metric):
+    """Gaussian data at the benchmark's router shapes: the kernel (f32
+    sums of exact bf16 products in the tensor cores' order) against the
+    plain version on the card (cuBLAS f32): equal visits in >= 99.9% of
+    queries, and every rep that one of them takes and the other does not
+    lies within 1e-5 |q| |r| of the n_rep-th distance (float64)."""
+    from hnsw_nsg_tpu_torch.ops import route
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(21)
+    q = torch.randn((qn, d), generator=gen, device=card)
+    reps = torch.randn((c, 5, d), generator=gen, device=card)
+    if metric == "ip":
+        q = q / q.norm(dim=1, keepdim=True)
+        reps = reps / reps.norm(dim=2, keepdim=True)
+    flat, bias, scale = cnns._route_operands(reps, metric, None)
+    qb = q.to(torch.bfloat16)
+    got = route.route_topk(qb, flat, bias, n_rep, n_valid * 5, scale)
+    want = route.route_topk_reference(qb, flat, bias, n_rep, n_valid * 5,
+                                      scale)
+    visit_k = cnns._rank_rep_hits(got, 5, nprobe, "hits")
+    visit_p = cnns._rank_rep_hits(want, 5, nprobe, "hits")
+    same = (visit_k == visit_p).all(1).float().mean().item()
+    assert same >= 0.999, same
+    rows = (~(got.sort(1).values == want.sort(1).values).all(1)
+            ).nonzero()[:, 0]
+    if rows.numel():
+        g, w = got[rows], want[rows]
+        qd, fd = qb[rows].double(), flat.double()
+        exact = bias.double()[None] - scale * (qd @ fd.T)
+        kth = torch.gather(exact, 1, w).max(1).values
+        tol = (1e-5 * qd.norm(dim=1) * fd.norm(dim=1).max())[:, None]
+        for a, b in ((g, w), (w, g)):
+            only = ~(a[:, :, None] == b[:, None, :]).any(2)
+            off = (torch.gather(exact, 1, a) - kth[:, None]).abs()
+            assert bool((off <= tol)[only].all())
+    print(f"route {name}: {same:.5f} equal visits, {rows.numel()} rows "
+          f"with another rep set")
+
+
+@pytest.mark.cuda
+def test_route_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from hnsw_nsg_tpu_torch.ops import route
+
+    q = torch.zeros((4, 16), dtype=torch.bfloat16, device=card)
+    reps = torch.zeros((10, 16), dtype=torch.bfloat16, device=card)
+    bias = torch.zeros(10, device=card)
+    for args, err in (
+            ((q.float(), reps, bias, 3, 10), TypeError),
+            ((q, reps.float(), bias, 3, 10), TypeError),
+            ((q, reps, bias.double(), 3, 10), TypeError),
+            ((q[:, :8], reps, bias, 3, 10), ValueError),
+            ((q, reps, bias[:9], 3, 10), ValueError),
+            ((q, reps, bias, 0, 10), ValueError),
+            ((q, reps, bias, 11, 10), ValueError),
+            ((q, reps, bias, 3, 11), ValueError),
+            ((q.cpu(), reps, bias, 3, 10), ValueError),
+            ((q.t().contiguous().t(), reps, bias, 3, 10), ValueError),
+            ((q[None], reps, bias, 3, 10), ValueError)):
+        with pytest.raises(err):
+            route.route_topk(*args, 1.0)
