@@ -33,15 +33,15 @@ q = np.clip(
     + rng.normal(0, 18, (100, 64)), 0, 255,
 ).round().astype(np.uint8)
 
-# build with int8 slabs: pass the uint8 data as float (0..255-valued)
+# build with int8 slabs: the uint8 rows go to the card as they are
 idx = build_cnns(
-    x.astype(np.float32),
-    CNNSConfig(n_clusters=48, m=4, kmeans_iters=10),
+    x, CNNSConfig(n_clusters=48, m=4, kmeans_iters=10),
     slab_dtype=torch.int8, device=device,
 )
 assert idx.data_c.dtype == torch.int8 and idx.qshift == 128.0
 
-dists, ids = idx.search(q.astype(np.float32), k=10, nprobe=6)
+# uint8 queries are taken as their values
+dists, ids = idx.search(q, k=10, nprobe=6)
 _, gt = brute_force_topk(torch.from_numpy(q).float().to(device),
                          torch.from_numpy(x).float().to(device), 10)
 r = recall(ids, gt)

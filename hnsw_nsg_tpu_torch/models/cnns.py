@@ -57,6 +57,7 @@ Differences from the JAX package, none of which changes a result:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import Counter
@@ -489,6 +490,9 @@ class CNNSIndex:
                router: str = "flat"):
         """Returns (dists [Q, k] exact f32, global ids [Q, k]) on the
         index's device.
+
+        queries: [Q, d] (or [d]), a tensor or a host array of any real
+        dtype (``uint8`` included), taken as its f32 values.
 
         group (flat locals): use the cluster-major grouped scan (each
         probed slab read once per batch) instead of the per-query slot
@@ -1003,6 +1007,29 @@ def local_hnsw_arena(
     return torch.from_numpy(flat_adj).to(dev), eps_flat
 
 
+def _uint8_rows(data):
+    """``data`` as a uint8 tensor where it comes as uint8 rows (a numpy
+    array or a tensor, on any device), else None."""
+    if isinstance(data, torch.Tensor):
+        return data if data.dtype == torch.uint8 else None
+    if isinstance(data, np.ndarray) and data.dtype == np.uint8:
+        return torch.from_numpy(np.ascontiguousarray(data))
+    return None
+
+
+@contextlib.contextmanager
+def _stage(name: str, stage_seconds: dict | None, sync):
+    """The block as the build stage ``name``: the span
+    ``cnns.build.<name>`` and, when ``stage_seconds`` is a dict, its wall
+    seconds up to ``sync()`` of the card at its end."""
+    t0 = time.perf_counter()
+    with span(f"cnns.build.{name}"):
+        yield
+        sync()
+    if stage_seconds is not None:
+        stage_seconds[name] = time.perf_counter() - t0
+
+
 def _fill_device_slabs(data_c, slab_dtype, metric, device, chunk: int = 64):
     """Device slabs filled from host f32 slabs in chunks (peak: the slab
     bytes plus one f32 chunk), with norms of the f32 rows before the
@@ -1045,9 +1072,22 @@ def build_cnns(
     per-dim shift and a global scale. The same seed draws the same
     initial centroids and representatives as the JAX package.
 
-    When ``stage_seconds`` is a dict, the wall seconds of ``kmeans`` and,
-    for "nsg", of the arena's stages (``pools_prune``, ``interinsert``,
-    ``repair``) are written into it."""
+    data: [n, d] rows, a host array or a tensor. uint8 rows (a numpy
+    ``uint8`` array or a ``torch.uint8`` tensor) are a uint8 space: flat
+    locals take them to the card as uint8 and widen them there, with no
+    f32 copy on the host, and int8 slabs hold them shifted by 128 by
+    their dtype alone. The index equals the one built from the same values
+    as f32 rows.
+
+    When ``stage_seconds`` is a dict, the wall seconds of these stages are
+    written into it, each up to a sync of the card: ``upload`` (the rows'
+    copy to the device), ``kmeans`` (the upload, the Lloyd iterations and
+    the assignment's copy to the host), ``slabs`` (from there to the
+    return: the layout, the representatives, the arena or the replica
+    fill, the slab pack) and, for "nsg", the arena's stages
+    (``pools_prune``, ``interinsert``, ``repair``). ``upload`` and
+    ``slabs`` are also the spans ``cnns.build.upload`` and
+    ``cnns.build.slabs``."""
     if local_index not in LOCAL_INDEXES:
         raise ValueError(f"unknown local_index {local_index!r}: one of "
                          f"{LOCAL_INDEXES}")
@@ -1062,13 +1102,22 @@ def build_cnns(
         raise TypeError(f"unsupported slab dtype {slab_dtype}")
     sync = ((lambda: torch.cuda.synchronize(device))
             if device.type == "cuda" else (lambda: None))
-    data_np = np.asarray(data, np.float32)
-    n, d = data_np.shape
-    rng = np.random.default_rng(seed)
     flat = local_index == "flat"
+    u8 = _uint8_rows(data)
+    if u8 is not None and flat:
+        # uint8 rows go to the card as they are: each stage widens the rows
+        # it reads (k-means, the replica fill, the pack)
+        data_np = None
+        n, d = u8.shape
+    else:
+        data_np = np.asarray(data if u8 is None else u8.cpu(), np.float32)
+        n, d = data_np.shape
+    rng = np.random.default_rng(seed)
 
     t0 = time.perf_counter()
-    data_dev = torch.from_numpy(data_np).to(device)
+    with _stage("upload", stage_seconds, sync):
+        data_dev = (u8 if data_np is None
+                    else torch.from_numpy(data_np)).to(device)
     centroids, assign = kmeans(data_dev, cfg.n_clusters,
                                iters=cfg.kmeans_iters, seed=seed,
                                verbose=verbose)
@@ -1083,140 +1132,149 @@ def build_cnns(
     if stage_seconds is not None:
         stage_seconds["kmeans"] = time.perf_counter() - t0
 
-    # slab layout: oversized clusters split into several slabs so the pad
-    # width maxc stays ~2x the mean cluster size; a cluster of size s
-    # becomes ceil(s/maxc) slabs, every sorted point gets (slab, slot)
-    order = np.argsort(assign, kind="stable")
-    sizes0 = np.bincount(assign, minlength=k0)
-    target = max(int(np.ceil(n / k0)), 8)
-    maxc = int(((2 * target + 7) // 8) * 8)
-    n_slabs0 = np.maximum(-(-sizes0 // maxc), 1)
-    slab_base = np.concatenate([[0], np.cumsum(n_slabs0)])
-    c = int(slab_base[-1])
-    cluster_of_point = np.repeat(np.arange(k0), sizes0)
-    starts = np.concatenate([[0], np.cumsum(sizes0)])
-    off_in_cluster = np.arange(n) - starts[cluster_of_point]
-    slab_row = slab_base[cluster_of_point] + off_in_cluster // maxc
-    slot = off_in_cluster % maxc
+    with _stage("slabs", stage_seconds, sync):
+        # slab layout: oversized clusters split into several slabs so the
+        # pad width maxc stays ~2x the mean cluster size; a cluster of size
+        # s becomes ceil(s/maxc) slabs, every sorted point gets (slab, slot)
+        order = np.argsort(assign, kind="stable")
+        sizes0 = np.bincount(assign, minlength=k0)
+        target = max(int(np.ceil(n / k0)), 8)
+        maxc = int(((2 * target + 7) // 8) * 8)
+        n_slabs0 = np.maximum(-(-sizes0 // maxc), 1)
+        slab_base = np.concatenate([[0], np.cumsum(n_slabs0)])
+        c = int(slab_base[-1])
+        cluster_of_point = np.repeat(np.arange(k0), sizes0)
+        starts = np.concatenate([[0], np.cumsum(sizes0)])
+        off_in_cluster = np.arange(n) - starts[cluster_of_point]
+        slab_row = slab_base[cluster_of_point] + off_in_cluster // maxc
+        slot = off_in_cluster % maxc
 
-    ids_c = np.full((c, maxc), PAD_ID, np.int32)
-    ids_c[slab_row, slot] = order
-    sizes = (ids_c >= 0).sum(axis=1)
-    # the slab count padded to a multiple of 64 (the grouped scan's block
-    # rule); padded slabs have far-away reps (never probed), PAD ids
-    n_real = c
-    c_pad = -(-c // 64) * 64
+        ids_c = np.full((c, maxc), PAD_ID, np.int32)
+        ids_c[slab_row, slot] = order
+        sizes = (ids_c >= 0).sum(axis=1)
+        # the slab count padded to a multiple of 64 (the grouped scan's
+        # block rule); padded slabs have far-away reps (never probed), PAD
+        # ids
+        n_real = c
+        c_pad = -(-c // 64) * 64
 
-    # representatives: centroid (slab mean) + m random members — the JAX
-    # package's draw from the same rng. Flat locals: the centroid row is
-    # filled from the device pack's slab means below.
-    reps = np.zeros((c, cfg.m + 1, d), np.float32)
-    safe_sz = np.maximum(sizes, 1)
-    data_c = None
-    if not flat:
-        # host f32 slabs, allocated at the padded slab count (zero pads)
-        data_c = np.zeros((c_pad, maxc, d), np.float32)
-        valid = ids_c >= 0
-        data_c[:c][valid] = data_np[ids_c[valid]]
-        reps[:, 0] = data_c[:c].sum(axis=1) / safe_sz[:, None]
-        reps[sizes == 0, 0] = data_np[0]
-    pick = (rng.random((c, cfg.m)) * safe_sz[:, None]).astype(np.int64)
-    member_gids = np.take_along_axis(ids_c, pick, axis=1)
-    member_gids = np.where(member_gids >= 0, member_gids, 0)
-    reps[:, 1:] = data_np[member_gids]
-
-    flat_adj = eps_flat = None
-    if local_index == "nsg":
-        flat_adj, eps_flat = local_nsg_arena(
-            data_c[:c], sizes, cfg.nsg, metric, verbose=verbose,
-            device=device, stage_seconds=stage_seconds)
-    elif local_index == "hnsw":
-        flat_adj, eps_flat = local_hnsw_arena(
-            data_c[:c], sizes, metric, verbose=verbose, device=device)
-
-    if c_pad != c:
-        pad = c_pad - c
-        reps = np.concatenate(
-            [reps, np.full((pad, cfg.m + 1, d), 1e15, np.float32)])
-        ids_c = np.concatenate(
-            [ids_c, np.full((pad, maxc), PAD_ID, np.int32)])
-        sizes = np.concatenate([sizes, np.zeros(pad, sizes.dtype)])
-        if flat_adj is not None:
-            flat_adj = torch.cat([flat_adj, torch.full(
-                (pad * maxc, flat_adj.shape[1]), PAD_ID, dtype=torch.int32,
-                device=device)])
-            eps_flat = np.concatenate([eps_flat,
-                                       np.zeros(pad, eps_flat.dtype)])
-        c = c_pad
-
-    qshift = 0.0
-    qscale = 1.0
-    if slab_dtype == torch.int8:
-        if metric != "l2":
-            raise ValueError("int8 slabs support the l2 metric only")
-        if (data_np.min() >= 0.0 and data_np.max() <= 255.0
-                and all(np.array_equal(a, np.round(a))
-                        for a in np.array_split(data_np, max(1, n >> 19)))):
-            # uint8 space: store x-128 as int8 — L2 is shift-invariant and
-            # the int8 x int8 scan is exact integer math
-            qshift = 128.0
-            if data_c is not None:
-                # (pad slots too, as in the JAX package: they hold -128)
-                data_c -= np.float32(qshift)
+        # representatives: centroid (slab mean) + m random members — the
+        # JAX package's draw from the same rng. Flat locals: the centroid
+        # row is filled from the device pack's slab means below.
+        reps = np.zeros((c, cfg.m + 1, d), np.float32)
+        safe_sz = np.maximum(sizes, 1)
+        data_c = None
+        if not flat:
+            # host f32 slabs, allocated at the padded slab count (zero pads)
+            data_c = np.zeros((c_pad, maxc, d), np.float32)
+            valid = ids_c >= 0
+            data_c[:c][valid] = data_np[ids_c[valid]]
+            reps[:, 0] = data_c[:c].sum(axis=1) / safe_sz[:, None]
+            reps[sizes == 0, 0] = data_np[0]
+        pick = (rng.random((c, cfg.m)) * safe_sz[:, None]).astype(np.int64)
+        member_gids = np.take_along_axis(ids_c, pick, axis=1)
+        member_gids = np.where(member_gids >= 0, member_gids, 0)
+        if data_np is None:
+            reps[:, 1:] = data_dev[torch.from_numpy(member_gids).to(
+                device)].float().cpu().numpy()
         else:
-            # SQ8: per-dim shift + global symmetric scale into [-127, 127];
-            # distances are rescaled by qscale^2 on return
-            qshift = data_np.mean(axis=0).astype(np.float32)
-            mx = max(float(np.abs(data_np[s : s + (1 << 19)] - qshift).max())
-                     for s in range(0, n, 1 << 19))
-            qscale = (mx / 127.0) or 1.0
-            if data_c is not None:
-                for s2 in range(0, len(data_c), 64):   # in place, chunked
-                    blk = data_c[s2 : s2 + 64]
-                    blk -= qshift
-                    blk /= np.float32(qscale)
-                    np.round(blk, out=blk)
-                data_c[ids_c < 0] = 0.0   # pads would overflow int8
-        reps = (reps - qshift) / np.float32(qscale)
+            reps[:, 1:] = data_np[member_gids]
 
-    if flat:
-        shift = torch.as_tensor(np.asarray(qshift, np.float32),
-                                device=data_dev.device)
-        inv = np.float32(1.0 / qscale)
-        ids_dev = torch.from_numpy(ids_c).to(device)
-        if cfg.replicate:
-            # routing reps = means of the ORIGINAL members, computed
-            # before replicas land in the pad slots
-            cents0 = _slab_means(data_dev, ids_dev, shift, inv)
-            home = np.empty(n, np.int64)
-            home[order] = slab_row
-            ids_c = _replica_fill_ids(data_dev, ids_c, sizes, home, cents0,
-                                      shift, inv, metric, n_real)
+        flat_adj = eps_flat = None
+        if local_index == "nsg":
+            flat_adj, eps_flat = local_nsg_arena(
+                data_c[:c], sizes, cfg.nsg, metric, verbose=verbose,
+                device=device, stage_seconds=stage_seconds)
+        elif local_index == "hnsw":
+            flat_adj, eps_flat = local_hnsw_arena(
+                data_c[:c], sizes, metric, verbose=verbose, device=device)
+
+        if c_pad != c:
+            pad = c_pad - c
+            reps = np.concatenate(
+                [reps, np.full((pad, cfg.m + 1, d), 1e15, np.float32)])
+            ids_c = np.concatenate(
+                [ids_c, np.full((pad, maxc), PAD_ID, np.int32)])
+            sizes = np.concatenate([sizes, np.zeros(pad, sizes.dtype)])
+            if flat_adj is not None:
+                flat_adj = torch.cat([flat_adj, torch.full(
+                    (pad * maxc, flat_adj.shape[1]), PAD_ID,
+                    dtype=torch.int32, device=device)])
+                eps_flat = np.concatenate([eps_flat,
+                                           np.zeros(pad, eps_flat.dtype)])
+            c = c_pad
+
+        qshift = 0.0
+        qscale = 1.0
+        if slab_dtype == torch.int8:
+            if metric != "l2":
+                raise ValueError("int8 slabs support the l2 metric only")
+            if u8 is not None or (
+                    data_np.min() >= 0.0 and data_np.max() <= 255.0
+                    and all(np.array_equal(a, np.round(a)) for a in
+                            np.array_split(data_np, max(1, n >> 19)))):
+                # uint8 space (by the dtype, or found in f32 rows): store
+                # x-128 as int8 — L2 is shift-invariant and the int8 x int8
+                # scan is exact integer math
+                qshift = 128.0
+                if data_c is not None:
+                    # (pad slots too, as in the JAX package: -128)
+                    data_c -= np.float32(qshift)
+            else:
+                # SQ8: per-dim shift + global symmetric scale into
+                # [-127, 127]; distances are rescaled by qscale^2 on return
+                qshift = data_np.mean(axis=0).astype(np.float32)
+                mx = max(float(np.abs(data_np[s : s + (1 << 19)]
+                                      - qshift).max())
+                         for s in range(0, n, 1 << 19))
+                qscale = (mx / 127.0) or 1.0
+                if data_c is not None:
+                    for s2 in range(0, len(data_c), 64):  # in place
+                        blk = data_c[s2 : s2 + 64]
+                        blk -= qshift
+                        blk /= np.float32(qscale)
+                        np.round(blk, out=blk)
+                    data_c[ids_c < 0] = 0.0   # pads would overflow int8
+            reps = (reps - qshift) / np.float32(qscale)
+
+        if flat:
+            shift = torch.as_tensor(np.asarray(qshift, np.float32),
+                                    device=data_dev.device)
+            inv = np.float32(1.0 / qscale)
             ids_dev = torch.from_numpy(ids_c).to(device)
-        slabs, cnorms, cents = _pack_device_slabs(
-            data_dev, ids_dev, shift, inv, slab_dtype, metric)
-        del data_dev
-        reps[:, 0] = (cents0 if cfg.replicate else cents).cpu().numpy()
-        empty = np.nonzero(sizes == 0)[0]
-        empty = empty[empty < n_real]
-        reps[empty, 0] = reps[empty, 1]
-    else:
-        ids_dev = torch.from_numpy(ids_c).to(device)
-        slabs, cnorms = _fill_device_slabs(data_c, slab_dtype, metric,
-                                           device)
-        del data_c
-    return CNNSIndex(
-        qshift=qshift,
-        qscale=qscale,
-        n_real=n_real,
-        reps=torch.from_numpy(reps).to(device),
-        data_c=slabs,
-        ids_c=ids_dev,
-        sizes=sizes,
-        metric=metric,
-        local_index=local_index,
-        replicated=bool(cfg.replicate),
-        flat_adj=flat_adj,
-        eps_flat=eps_flat,
-        cnorms_c=cnorms,
-    )
+            if cfg.replicate:
+                # routing reps = means of the ORIGINAL members, computed
+                # before replicas land in the pad slots
+                cents0 = _slab_means(data_dev, ids_dev, shift, inv)
+                home = np.empty(n, np.int64)
+                home[order] = slab_row
+                ids_c = _replica_fill_ids(data_dev, ids_c, sizes, home,
+                                          cents0, shift, inv, metric, n_real)
+                ids_dev = torch.from_numpy(ids_c).to(device)
+            slabs, cnorms, cents = _pack_device_slabs(
+                data_dev, ids_dev, shift, inv, slab_dtype, metric)
+            del data_dev
+            reps[:, 0] = (cents0 if cfg.replicate else cents).cpu().numpy()
+            empty = np.nonzero(sizes == 0)[0]
+            empty = empty[empty < n_real]
+            reps[empty, 0] = reps[empty, 1]
+        else:
+            ids_dev = torch.from_numpy(ids_c).to(device)
+            slabs, cnorms = _fill_device_slabs(data_c, slab_dtype, metric,
+                                               device)
+            del data_c
+        return CNNSIndex(
+            qshift=qshift,
+            qscale=qscale,
+            n_real=n_real,
+            reps=torch.from_numpy(reps).to(device),
+            data_c=slabs,
+            ids_c=ids_dev,
+            sizes=sizes,
+            metric=metric,
+            local_index=local_index,
+            replicated=bool(cfg.replicate),
+            flat_adj=flat_adj,
+            eps_flat=eps_flat,
+            cnorms_c=cnorms,
+        )

@@ -74,8 +74,9 @@ def kmeans(
     verbose: bool = False,
 ):
     """Returns (centroids [k, d] f32, assignments [N] int64), on the
-    device of ``data`` (a tensor; numpy input goes to the CPU). The
-    initial centroids are the rows ``np.random.default_rng(seed).choice(
+    device of ``data`` (a tensor; numpy input goes to the CPU). Integer
+    rows (uint8) stay as they are: each read widens its chunk, so the
+    result is that of the same values as f32. The initial centroids are the rows ``np.random.default_rng(seed).choice(
     n, k, replace=False)``, the JAX package's draw."""
     data = torch.as_tensor(data)
     n, d = data.shape

@@ -124,3 +124,49 @@ def test_pair_counts_count_the_grouped_path_alone(index):
     assert dict(tc.pair_counts) == before
     idx.search(q, k=10, nprobe=4, group=True)
     assert tc.pair_counts["pairs"] - before.get("pairs", 0) == q.shape[0] * 4
+
+
+# the build's stages: (rows, slab dtype, local index)
+BUILDS = {
+    "f32_flat": ("f32", torch.bfloat16, "flat"),
+    "uint8_flat": ("uint8", torch.int8, "flat"),
+    "uint8_nsg": ("uint8", torch.int8, "nsg"),
+}
+
+
+def _stage_build(kind):
+    rows, sdt, local = BUILDS[kind]
+    rng = np.random.default_rng(3)
+    x = rng.integers(0, 256, (1500, 16)).astype(np.uint8)
+    stages = {}
+    tc.build_cnns(x if rows == "uint8" else x.astype(np.float32),
+                  CNNSConfig(n_clusters=8, m=2, kmeans_iters=2,
+                             replicate=local == "flat"),
+                  local_index=local, slab_dtype=sdt, device="cpu",
+                  stage_seconds=stages)
+    return stages
+
+
+@pytest.mark.parametrize("kind", sorted(BUILDS))
+def test_every_build_writes_its_upload_and_slabs_stages(kind):
+    stages = _stage_build(kind)
+    assert {"upload", "kmeans", "slabs"} <= set(stages)
+    assert all(v >= 0 for v in stages.values())
+    assert stages["upload"] <= stages["kmeans"]
+
+
+@pytest.mark.parametrize("kind", sorted(BUILDS))
+def test_the_build_stages_are_spans_under_a_cpu_profiler(kind):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _stage_build(kind)
+    got = {}
+    for e in prof.events():
+        if e.name.startswith("cnns.build."):
+            got.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    assert set(got) == {"cnns.build.upload", "cnns.build.slabs"}
+    assert all(len(v) == 1 for v in got.values())
+    (u0, u1), = got["cnns.build.upload"]
+    (s0, s1), = got["cnns.build.slabs"]
+    assert u0 <= u1 <= s0 <= s1
