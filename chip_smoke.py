@@ -41,6 +41,15 @@ Phases, each of which fails the run (non-zero exit) on its own:
      kernel's device time and bound. The router's launches by kernel are
      read after each main path (``route_tally``) and go into the kernels
      line;
+  2c. the per-query probe path's kernel (``ops/probe_scan.py``
+     ``probe_topk``: probe_scan_kernel, then probe_merge_kernel) against
+     its plain version on card tensors at the batch512 cells' shapes
+     (PROBE_CASES: 512 queries, sift1m's 1152 slabs of 2056 x 128 at
+     npr 2, l2, and d=3072's 1280 slabs of 2056 x 3072 at npr 3, ip;
+     kk = 20): every distance within 1e-5 |q| |x| of its float64 value,
+     ids equal but among near-ties (counted), both times, each kernel's
+     device time and the bytes bound (each distinct slab read once, as the
+     call needs; each pair's read once beside it);
   3. the CNNS flat path at full size: 1M x 128 clustered synthetic data
      (seed 0), the f32 brute-force ground truth, ``build_cnns`` with bf16
      slabs and boundary replication, and an nprobe sweep of
@@ -50,7 +59,13 @@ Phases, each of which fails the run (non-zero exit) on its own:
      with recall@100 and its batch time; the scan's launches by kernel
      are read around it (scan_mma and scan_general_mma only). Then the
      same index with f32 slabs at that nprobe, k=10 and k=100, which runs
-     the f32 kernels (scan_f32 and scan_general_f32 only);
+     the f32 kernels (scan_f32 and scan_general_f32 only). On the bf16
+     index, the batch512 cells' call (512 queries, k=10, nprobe 2: fewer
+     pairs than 2 C, the per-query path) with the probe kernels' launches
+     zeroed just before and read right after (``probe_main_call``): one
+     probe_scan and one probe_merge launch, every pair counted "kernel",
+     and the result held against the same call with the plain version;
+     these launches go into the kernels line;
  3b. gist1m as bench.py runs it: 1M x 960 L2 data (seed 0), an SQ8 index
      (``build_cnns(..., slab_dtype=torch.int8)`` on non-integral data,
      976 clusters), the exact f32 ground truth, an nprobe sweep (1..16)
@@ -725,6 +740,203 @@ def phase_route(card):
     return out
 
 
+PROBE_SOURCE = "hnsw_nsg_tpu_torch/csrc/probe_scan.cu"
+# the per-query path's calls in the benchmark's batch512 cells: (what, Q,
+# C, maxc, d, npr, metric, kk); kk = 2k, the slabs being replicated
+PROBE_CASES = (
+    ("sift1m batch512", 512, 1152, 2056, 128, 2, "l2", 20),
+    ("dbpedia batch512", 512, 1280, 2056, 3072, 3, "ip", 20),
+)
+
+
+def probe_case(gen, qn, c, maxc, d, npr, metric, kk):
+    """probe_topk's arguments on the card: Gaussian slabs (unit rows for
+    ip) made a chunk of clusters at a time, 7 dead rows a slab, each
+    query's npr clusters drawn without repeats."""
+    from hnsw_nsg_tpu_torch.ops.distance import squared_norms
+
+    data_c = torch.empty((c, maxc, d), dtype=torch.bfloat16, device="cuda")
+    for s in range(0, c, 64):
+        x = torch.randn((min(64, c - s), maxc, d), generator=gen,
+                        device="cuda")
+        if metric == "ip":
+            x = x / x.norm(dim=2, keepdim=True)
+        data_c[s : s + 64] = x.to(torch.bfloat16)
+        del x
+    q = torch.randn((qn, d), generator=gen, device="cuda")
+    if metric == "ip":
+        q = q / q.norm(dim=1, keepdim=True)
+    ids_c = torch.arange(c * maxc, dtype=torch.int32,
+                         device="cuda").reshape(c, maxc)
+    ids_c[:, -7:] = -1
+    visit = torch.rand((qn, c), generator=gen, device="cuda").argsort(1)[
+        :, :npr].contiguous()
+    l2 = metric == "l2"
+    return (q.to(torch.bfloat16), visit, data_c, ids_c,
+            squared_norms(data_c) if l2 else None,
+            squared_norms(q) if l2 else None, kk, metric), q
+
+
+def probe_bounds(args):
+    """The bytes bound of a probe_topk call in ms: each pair's slab, ids
+    and norms read once (and, the second, each distinct cluster's once),
+    the query rows read and the [Q, kk] outputs written once."""
+    qc, visit, data_c, ids_c, cn, qn, kk, _ = args
+    _, maxc, d = data_c.shape
+    row = 2 * d + 4 + (4 if cn is not None else 0)
+    fixed = nbytes(qc) + 8 * visit.numel() + 8 * qc.shape[0] * kk
+    live = int((visit >= 0).sum())
+    distinct = int(torch.unique(visit[visit >= 0]).numel())
+    return (bound(fixed + live * maxc * row),
+            bound(fixed + distinct * maxc * row))
+
+
+def phase_probe(card, cases=PROBE_CASES):
+    """The per-query probe path's kernel (``ops/probe_scan.py``
+    ``probe_topk``: probe_scan_kernel scores each (pair, row split) where
+    the slab lies, probe_merge_kernel folds each query's lists) against
+    its plain version (``probe_topk_reference``: a gather of each probe
+    slot's slabs, their f32 upcast, a batched f32 product, a stable running
+    merge) at the batch512 cells' shapes (PROBE_CASES). Fails unless every
+    returned distance of either lies within 1e-5 |q| max |x| (l2: + |q|^2
+    + max |x|^2) of its float64 value, the two agree there where they
+    return one id, and every id that one returns and the other does not
+    lies within twice that of the kk-th distance (a near-tie). Prints the
+    near-ties, the launches, both times, each kernel's device time
+    (torch.profiler) and the two bytes bounds; the kernel's share is of
+    the bound that reads each distinct slab once, which is all the call
+    needs. Returns {what: dict}."""
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    out = {}
+    for what, qn, c, maxc, d, npr, metric, kk in cases:
+        args, q = probe_case(gen, qn, c, maxc, d, npr, metric, kk)
+        before = dict(probe_scan.launches_by_kernel)
+        gd, gi = probe_scan.probe_topk(*args)
+        launched = {k: v - before.get(k, 0)
+                    for k, v in probe_scan.launches_by_kernel.items()
+                    if v != before.get(k, 0)}
+        if launched != {"probe_scan": 1, "probe_merge": 1}:
+            raise AssertionError(f"probe {what}: launched {launched}")
+        wd, wi = probe_scan.probe_topk_reference(*args)
+        qc, visit, data_c = args[:3]
+        flat = data_c.reshape(-1, d)
+        qd = qc.double()
+        qnrm = qd.norm(dim=1)[:, None]
+        xnrm = max(float(data_c[s : s + 64].float().norm(dim=2).max())
+                   for s in range(0, c, 64))
+        l2 = metric == "l2"
+        tol = 1e-5 * (qnrm * xnrm + (qnrm ** 2 + xnrm ** 2 if l2 else 0))
+
+        def exact(ids):
+            xs = flat[ids.long().clamp(min=0)].double()
+            dots = (xs * qd[:, None, :]).sum(2)
+            if l2:
+                return ((xs * xs).sum(2) - 2 * dots
+                        + (q.double() ** 2).sum(1)[:, None])
+            return 1 - dots
+
+        err = max(float((gd - exact(gi)).abs().max()),
+                  float((wd - exact(wi)).abs().max()))
+        if not (bool(((gd - exact(gi)).abs() <= tol).all())
+                and bool(((wd - exact(wi)).abs() <= tol).all())):
+            raise AssertionError(f"probe {what}: a distance off its float64 "
+                                 f"value by {err:.3e}")
+        same = gi == wi
+        if not bool(((gd - wd).abs() <= 2 * tol)[same].all()):
+            raise AssertionError(f"probe {what}: one id, two distances")
+        kth = torch.maximum(gd[:, -1], wd[:, -1])[:, None]
+        for a, b, ad in ((gi, wi, gd), (wi, gi, wd)):
+            only = ~(a[:, :, None] == b[:, None, :]).any(2)
+            if not bool(((kth - ad).abs() <= 2 * tol)[only].all()):
+                raise AssertionError(f"probe {what}: an id off the kk-th "
+                                     f"distance (not a near-tie)")
+        near = int((~same).sum())
+        k_ms = cuda_ms(lambda: probe_scan.probe_topk(*args), reps=20)
+        p_ms = cuda_ms(lambda: probe_scan.probe_topk_reference(*args),
+                       reps=3, warmup=1)
+        by_kernel = kernel_ms(lambda: probe_scan.probe_topk(*args),
+                              ("probe_scan_kernel", "probe_merge_kernel"))
+        b_pairs, b_distinct = probe_bounds(args)
+        s_ms = by_kernel["probe_scan_kernel"]
+        out[what] = dict(err=err, near_ties=near, ms=k_ms, plain_ms=p_ms,
+                         scan_ms=s_ms,
+                         merge_ms=by_kernel["probe_merge_kernel"],
+                         bound=b_distinct, bound_per_pair=b_pairs)
+        print(f"probe {what} (Q={qn}, C={c}, maxc={maxc}, d={d}, npr={npr}, "
+              f"{metric}, kk={kk}): launched {launched}; {near} ids at "
+              f"another place (near-ties), largest distance error "
+              f"{err:.3e}; kernel {k_ms:.4f} ms (probe_scan_kernel "
+              f"{s_ms:.4f}, probe_merge_kernel "
+              f"{by_kernel['probe_merge_kernel']:.4f}), plain {p_ms:.4f} ms; "
+              f"bound {b_distinct[0]:.4f} ms ({b_distinct[1]}, each "
+              f"distinct slab read once; {b_pairs[0]:.4f} reading it once "
+              f"a pair), probe_scan_kernel at "
+              f"{b_distinct[0] / max(s_ms, 1e-9):.1%} of it [{card}]",
+              flush=True)
+        del args, q, gd, gi, wd, wi, flat, qd
+        torch.cuda.empty_cache()
+    return out
+
+
+def probe_main_call(card, idx, q, k, nprobe, device="cuda"):
+    """The batch512 cells' call on a main path's bf16 index:
+    ``idx.search(q, k, nprobe)`` with fewer pairs than 2 C, so
+    ``_flat_probe_search`` answers it. The probe kernels' launches are
+    zeroed just before and read right after; then the same call runs with
+    the plain version (``probe_topk_reference``) in ``probe_topk``'s
+    place. Fails unless, on the card, it launched probe_scan and
+    probe_merge once each and counted every pair "kernel" (on the CPU:
+    "plain", no launch), and the two results agree: where they return one
+    id, distances within 1e-5 (|q| max |x| + |q|^2 + max |x|^2); every id
+    one returns and the other does not within twice that of the k-th
+    distance (a near-tie). Returns the launches by kernel."""
+    from unittest import mock
+
+    from hnsw_nsg_tpu_torch.models import cnns
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    qn = q.shape[0]
+    probe_scan.launches_by_kernel.clear()
+    before = dict(cnns.probe_counts)
+    gd, gi = idx.search(q, k=k, nprobe=nprobe)
+    launched = dict(probe_scan.launches_by_kernel)
+    pairs = {key: cnns.probe_counts[key] - before.get(key, 0)
+             for key in ("kernel", "plain")}
+    on_card = device == "cuda"
+    want_pairs = {"kernel": qn * nprobe if on_card else 0,
+                  "plain": 0 if on_card else qn * nprobe}
+    want_launched = ({"probe_scan": 1, "probe_merge": 1} if on_card
+                     else {})
+    if launched != want_launched or pairs != want_pairs:
+        raise AssertionError(f"batch512 call: launched {launched}, pairs "
+                             f"{pairs}; want {want_launched}, {want_pairs}")
+    with mock.patch.object(cnns, "probe_topk",
+                           probe_scan.probe_topk_reference):
+        wd, wi = idx.search(q, k=k, nprobe=nprobe)
+    qnrm = q.double().norm(dim=1)[:, None]
+    xnrm = max(float(idx.data_c[s : s + 64].float().norm(dim=2).max())
+               for s in range(0, idx.data_c.shape[0], 64))
+    tol = 1e-5 * (qnrm * xnrm + qnrm ** 2 + xnrm ** 2)
+    same = gi == wi
+    if not bool(((gd - wd).abs() <= 2 * tol)[same].all()):
+        raise AssertionError("batch512 call: one id, two distances")
+    kth = torch.maximum(gd[:, -1], wd[:, -1])[:, None]
+    for a, b, ad in ((gi, wi, gd), (wi, gi, wd)):
+        only = ~(a[:, :, None] == b[:, None, :]).any(2)
+        if not bool(((kth - ad).abs() <= 2 * tol)[only].all()):
+            raise AssertionError("batch512 call: an id off the k-th "
+                                 "distance (not a near-tie)")
+    print(f"batch512 call (Q={qn}, k={k}, nprobe={nprobe}): launched "
+          f"{launched}, pairs {pairs}; {int((~same).sum())} ids of "
+          f"{same.numel()} at another place than the plain version's "
+          f"(near-ties) [{card}]")
+    probe_scan.launches_by_kernel.clear()
+    return launched
+
+
 def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
     """The main path; smaller ``n``/``nq`` and ``device="cpu"`` rehearse it
     without a card."""
@@ -825,10 +1037,11 @@ def phase_main_path(card, n=1_000_000, nq=8192, device="cuda"):
     if not torch.allclose(ddh[:256], ex, rtol=1e-2, atol=1e-1):
         raise AssertionError("returned distances disagree with exact ones")
     del dd, d100, i100
+    probe_launches = probe_main_call(card, idx, qd[:512], k, 2, device)
     f32_counts = phase_f32_search(card, x, qd, gt, reached,
                                   sweep[-1]["recall"], device)
     # the index stays for phase 6b's HNSW router
-    return counts, f32_counts, idx
+    return counts, f32_counts, idx, probe_launches
 
 
 def phase_f32_search(card, x, qd, gt, nprobe, bf16_recall, device="cuda"):
@@ -3489,8 +3702,10 @@ def main() -> int:
 
     print("the flat router's kernel vs its plain version:")
     route_checks = phase_route(card)
+    print("the per-query probe path's kernel vs its plain version:")
+    probe_checks = phase_probe(card)
 
-    sift_counts, f32_counts, flat_idx = phase_main_path(card)
+    sift_counts, f32_counts, flat_idx, probe_launches = phase_main_path(card)
     gist_counts, gist_times = phase_gist(card)
     u8_counts, u8_times, spill_in = phase_sift10m_u8(card)
     phase_spill(card, **spill_in)
@@ -3731,6 +3946,32 @@ def main() -> int:
         "ms": rc["merge_ms"], "plain_ms": None,
         "bound_ms": rc["merge_bound"][0], "bound_by": rc["merge_bound"][1],
         "library_ms": None,
+    }]
+    # the per-query path: timed at the dbpedia batch512 cell's call; its
+    # launches those of phase 3's batch512 call
+    if min(probe_launches.get("probe_scan", 0),
+           probe_launches.get("probe_merge", 0)) <= 0:
+        raise AssertionError(f"a probe kernel did not run on the main "
+                             f"path: {probe_launches}")
+    pc = probe_checks["dbpedia batch512"]
+    p_err = max(r["err"] for r in probe_checks.values())
+    kernels += [{
+        "name": "probe_topk (per-query probe path, bf16 slabs scored in "
+                "place: probe_scan_kernel)",
+        "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": "hnsw_nsg_tpu/models/cnns.py:170",
+        "launches": probe_launches["probe_scan"], "max_abs_err": p_err,
+        "ms": pc["scan_ms"], "plain_ms": pc["plain_ms"],
+        "bound_ms": pc["bound"][0], "bound_by": pc["bound"][1],
+        "library_ms": None,
+    }, {
+        "name": "probe_topk (each query's item lists merged: "
+                "probe_merge_kernel)",
+        "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": "hnsw_nsg_tpu/models/cnns.py:170",
+        "launches": probe_launches["probe_merge"], "max_abs_err": p_err,
+        "ms": pc["merge_ms"], "plain_ms": None, "bound_ms": None,
+        "bound_by": None, "library_ms": None,
     }]
     print(f"route launches on the main paths: {dict(ROUTE_LAUNCHES)}; "
           f"sift1m nprobe 2: the call {rc['ms']:.4f} ms against plain "

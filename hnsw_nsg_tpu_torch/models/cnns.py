@@ -13,8 +13,10 @@ Routers (``CNNSIndex.search(router=...)``):
 
 Local indexes (``build_cnns(local_index=...)``):
   * ``"flat"``: the probed slabs are scanned exactly, per query
-    (``_flat_probe_search``: each query gathers its probed slabs, one
-    probe slot at a time) or cluster-major (``_grouped_probe_search``:
+    (``_flat_probe_search``: every (query, probe slot) pair scores its
+    slab, ``ops/probe_scan.py``; on the card bf16 slabs are read in place
+    by one kernel, other slabs gathered a probe slot at a time) or
+    cluster-major (``_grouped_probe_search``:
     (query, probe) pairs are inverted into per-cluster query lists and
     every probed slab is read once per batch by the grouped scan kernel,
     ``ops/cluster_scan.py``; pairs beyond a list's capacity are scanned
@@ -36,7 +38,8 @@ call), ``cnns.route`` (either router), ``cnns.pairs`` (each call of the
 grouped path), ``cnns.probe`` (the per-query path) and ``cnns.dedup``;
 with none running each is one flag check. ``pair_counts`` counts the
 grouped path's pairs, spilled pairs and dropped pairs, always, from
-numbers the host already holds.
+numbers the host already holds, and ``probe_counts`` the per-query
+path's pairs by the way they were scored.
 
 Differences from the JAX package, none of which changes a result:
   * the router takes an exact top-k where the TPU used ``approx_max_k``
@@ -71,6 +74,7 @@ from ..ops.distance import (
     PAD_DIST, PAD_ID, VALID_METRICS, as_f32_queries, f32_dots,
     pairwise_dists, squared_norms,
 )
+from ..ops.probe_scan import on_kernel, probe_topk, slab_dist
 from ..ops.route import route_topk
 from ..ops.topk import topk_smallest
 from ..utils.device import resolve_device
@@ -92,6 +96,10 @@ _NP_DTYPE = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 # list's capacity (scanned on the spill path), "dropped" the spilled
 # pairs past ``sp_budget`` (left out of the result)
 pair_counts: Counter = Counter()
+# the per-query path's (query, probe slot) pairs since the process
+# started: "kernel" scored by ops/probe_scan.py's kernel (bf16 slabs on the
+# card), "plain" by its plain version (the CPU, f32 and int8 slabs)
+probe_counts: Counter = Counter()
 # the flat router's calls on the CPU (``ops/route.py``'s plain version)
 # since the process started, "plain", and the query rows routed on either
 # device, "queries"; the card's routes are ``ops/route.py``'s
@@ -191,51 +199,30 @@ def _cast_q(qf, slab_dtype, q_round: bool = True):
     return qf.to(slab_dtype)
 
 
-def _slab_dist(qe, xe, metric, nrm=None):
-    """Per-row distances of qe [B, d] to its own slab xe [B, maxc, d]:
-    FastL2 (``nrm - 2 dots``) or ``1 - dots``. Operands upcast to f32
-    (exact for int8 and bf16 values), product in f32 without TF32, as the
-    JAX package's einsum with an f32 result (``_einsum_operands``)."""
-    dots = f32_dots(qe[:, None, :], xe)[:, 0, :]
-    if metric in ("ip", "cosine"):
-        return 1.0 - dots
-    return nrm - 2.0 * dots
-
-
 def _flat_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
                        q_block: int = 2048, q_round: bool = True):
-    """Exact search of each query's probed clusters: per block of queries,
-    a loop over probe slots — gathered cluster slab x query product +
-    running top-k merge. Rows are independent, so blocking changes no
+    """Exact search of each query's probed clusters, per block of
+    queries: every (query, probe slot) pair's slab scored and each query's
+    k best kept (``ops/probe_scan.py``). bf16 slabs on the card take the
+    kernel, which reads each slab where it lies; other slabs, and the CPU,
+    the plain version (a gathered slab x query product a probe slot, a
+    running top-k merge). Rows are independent, so blocking changes no
     result."""
     with span("cnns.probe"):
+        probe_counts["kernel" if on_kernel(data_c) else "plain"] += (
+            visit.numel())
+        l2 = metric == "l2"
         out_d, out_i = [], []
         for s in range(0, q.shape[0], q_block):
             qf = q[s : s + q_block].float()
-            vb = visit[s : s + q_block]
-            b = qf.shape[0]
-            qn = (squared_norms(qf) if metric == "l2"
-                  else torch.zeros(b, device=q.device))
-            qc = _cast_q(qf, data_c.dtype, q_round)
-            best_d = torch.full((b, k), float(PAD_DIST), device=q.device)
-            best_i = torch.full((b, k), PAD_ID, dtype=ids_c.dtype,
-                                device=q.device)
-            for j in range(vb.shape[1]):
-                cid = vb[:, j]
-                ok = cid >= 0
-                safe = torch.where(ok, cid, 0)
-                ic = ids_c[safe]                             # [B, maxc]
-                nrm = cnorms_c[safe] if metric == "l2" else None
-                d = _slab_dist(qc, data_c[safe], metric, nrm)
-                if metric == "l2":
-                    d = d + qn[:, None]
-                valid = (ic >= 0) & ok[:, None]
-                d = torch.where(valid, d, PAD_DIST)
-                ic = torch.where(valid, ic, PAD_ID)
-                best_d, best_i = topk_smallest(
-                    torch.cat([best_d, d], 1), torch.cat([best_i, ic], 1), k)
-            out_d.append(best_d)
-            out_i.append(best_i)
+            d, i = probe_topk(_cast_q(qf, data_c.dtype, q_round),
+                              visit[s : s + q_block], data_c, ids_c,
+                              cnorms_c if l2 else None,
+                              squared_norms(qf) if l2 else None, k, metric)
+            out_d.append(d)
+            out_i.append(i)
+        if len(out_d) == 1:
+            return out_d[0], out_i[0]
         return torch.cat(out_d), torch.cat(out_i)
 
 
@@ -358,7 +345,7 @@ def _grouped_probe_search(q, visit, data_c, ids_c, cnorms_c, k, metric,
             pq, pc, ps = sq[p], scid[p], slot[p]
             ic = ids_c[pc]
             nrm = cnorms_c[pc] if metric == "l2" else None
-            dist = _slab_dist(qc[pq], data_c[pc], metric, nrm)
+            dist = slab_dist(qc[pq], data_c[pc], metric, nrm)
             valid = ic >= 0
             sp_d, sp_i = topk_smallest(torch.where(valid, dist, PAD_DIST),
                                        torch.where(valid, ic, PAD_ID), k)

@@ -161,6 +161,17 @@ def load_library() -> ctypes.CDLL:
     lib.route_topk_splits.restype = ci
     lib.route_topk_scratch.argtypes = [ci, ci, ci, ci]  # Q, n_cols, n_rep,
     lib.route_topk_scratch.restype = ctypes.c_longlong  # splits
+    lib.probe_scan.argtypes = [
+        vp, vp, vp, vp, vp,              # q, qnorm, visit, order, slabs
+        vp, vp, vp, vp, vp,              # ids, cnorms, out_d, out_i, scratch
+        ci, ci, ci, ci, ci, ci, ci,      # Q, npr, C, maxc, d, k, rows
+        cf, vp,                          # scale, stream
+    ]
+    lib.probe_scan.restype = ci
+    lib.probe_scan_rows.argtypes = [ci, ci, ci, ci]   # pairs, maxc, d, SMs
+    lib.probe_scan_rows.restype = ci
+    lib.probe_scan_scratch.argtypes = [ci, ci, ci, ci, ci]  # Q, npr, maxc,
+    lib.probe_scan_scratch.restype = ctypes.c_longlong      # k, rows
     build_seconds = time.perf_counter() - t0
     _lib = lib
     return lib

@@ -6,7 +6,7 @@ CUDA card.
 
 ``--tree`` is the root of a checkout of this repository (default: the one
 this script is in) whose ``hnsw_nsg_tpu_torch`` is built and timed;
-``--only`` times some of the three kinds (merge, scan, join). The
+``--only`` times some of the kinds (merge, scan, join, route, probe). The
 inputs, their seeds, the repetitions and the timer (``cuda_ms``: CUDA
 events around one launch queued behind a device sleep) are those of this
 checkout's ``chip_smoke.py``, so two checkouts can be timed one after the
@@ -30,7 +30,11 @@ queries x 5,760 reps x d=128, l2, n_rep 10 (sift1m), and 8,192 x 6,400 x
 n_rep 40 and 80 (nprobe 8 and 16: the selection past 32 columns) at
 the first and 40 at the second, each line
 with its plain version's time (cuBLAS f32 product and stable sort, the
-router before the kernel) and its bound. Prints one JSON line per
+router before the kernel) and its bound. The per-query probe path's
+kernel (``ops/probe_scan.py``) runs at the batch512 cells' shapes
+(``chip_smoke.PROBE_CASES``: 512 queries, kk = 20, sift1m's slabs at npr
+2 and d=3072's at npr 3) beside its plain version (gather, f32 upcast,
+batched product, running merge) and its bytes bounds. Prints one JSON line per
 shape, each with ``digest``, a hash of the outputs' bytes, so that two
 trees' lines show whether their kernels give the same bits on the same
 inputs (the scan's on the rows that carry a result: pad rows are
@@ -66,8 +70,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
     ap.add_argument("--only", nargs="+",
-                    choices=("merge", "scan", "join", "route"),
-                    default=("merge", "scan", "join", "route"))
+                    choices=("merge", "scan", "join", "route", "probe"),
+                    default=("merge", "scan", "join", "route", "probe"))
     args = ap.parse_args()
     sys.path.insert(0, args.tree)   # the package under test
     import torch
@@ -99,6 +103,8 @@ def main():
         time_join(smoke, cs, args.tree, card)
     if "route" in args.only:
         time_route(smoke, args.tree, card)
+    if "probe" in args.only:
+        time_probe(smoke, args.tree, card)
 
 
 def time_scan(smoke, cs, tree, card):
@@ -226,6 +232,42 @@ def time_route(smoke, tree, card):
                                  ).all(1).float().mean().item(),
             card=card)), flush=True)
         del q, reps, flat, bias, qb, args, out
+        torch.cuda.empty_cache()
+
+
+def time_probe(smoke, tree, card):
+    """The per-query probe path's kernel and its plain version at the
+    batch512 cells' shapes (chip_smoke.PROBE_CASES, its inputs), with the
+    bytes bounds of chip_smoke.probe_bounds: ``bound_ms`` reads each
+    distinct slab once, as the call needs, ``bound_per_pair_ms`` once a
+    pair. A tree without the kernel
+    prints nothing."""
+    import torch
+
+    try:
+        from hnsw_nsg_tpu_torch.ops import probe_scan
+    except ImportError:
+        return
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    for what, qn, c, maxc, d, npr, metric, kk in smoke.PROBE_CASES:
+        args, _ = smoke.probe_case(gen, qn, c, maxc, d, npr, metric, kk)
+        t = smoke.cuda_ms(lambda: probe_scan.probe_topk(*args), reps=20)
+        t_plain = smoke.cuda_ms(
+            lambda: probe_scan.probe_topk_reference(*args), reps=3,
+            warmup=1)
+        got = probe_scan.probe_topk(*args)
+        want = probe_scan.probe_topk_reference(*args)
+        b_pairs, b_distinct = smoke.probe_bounds(args)
+        print(json.dumps(dict(
+            kernel="probe_topk", tree=tree, shape=what, Q=qn, C=c,
+            maxc=maxc, d=d, npr=npr, metric=metric, kk=kk, ms=t,
+            plain_ms=t_plain, bound_ms=b_distinct[0],
+            bound_per_pair_ms=b_pairs[0],
+            share_of_bound=b_distinct[0] / t, digest=digest(*got),
+            ids_equal_to_plain=(got[1] == want[1]).float().mean().item(),
+            card=card)), flush=True)
+        del args, got, want
         torch.cuda.empty_cache()
 
 

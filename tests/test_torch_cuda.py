@@ -8,6 +8,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
         tests/test_torch_cuda.py
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -1882,3 +1884,260 @@ def test_route_wrapper_raises_on_what_the_kernel_does_not_take(card):
             ((q[None], reps, bias, 3, 10), ValueError)):
         with pytest.raises(err):
             route.route_topk(*args, 1.0)
+
+
+# ---- the per-query probe path's kernel (ops/probe_scan.py,
+# csrc/probe_scan.cu) ----------------------------------------------------
+
+def _probe_ints(seed, qn, c, maxc, d, npr, metric, vmax=4):
+    """Integer-valued bf16 slabs [c, maxc, d] and queries [qn, d] with
+    |x| <= vmax, so that every product, sum and norm is exact in any
+    order and the kernel's distances are the plain version's bit for bit;
+    dead rows and an all-dead cluster, PAD slots, a query with no live
+    slot, a query that probes one cluster twice, and repeated rows within
+    and across slabs (exact ties). Returns probe_topk's arguments but k,
+    on the CPU."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-vmax, vmax + 1, (c, maxc, d)).astype(np.float32)
+    q = rng.integers(-vmax, vmax + 1, (qn, d)).astype(np.float32)
+    x[1 % c, min(3, maxc - 1)] = x[0, 0]
+    x[:, maxc // 2] = x[0, 0]
+    q[min(2, qn - 1)] = x[0, 0]               # exact hits
+    data_c = torch.from_numpy(x).to(torch.bfloat16)
+    ids = rng.permutation(c * maxc).reshape(c, maxc).astype(np.int32)
+    ids[rng.random((c, maxc)) < 0.15] = -1
+    ids[c - 1] = -1
+    visit = torch.from_numpy(np.stack(
+        [rng.permutation(c)[:npr] for _ in range(qn)])).long()
+    visit[rng.random((qn, npr)) < 0.15] = -1
+    visit[0] = -1
+    if npr > 1 and qn > 1:
+        visit[1, :2] = 0
+    qc = torch.from_numpy(q).to(torch.bfloat16)
+    l2 = metric == "l2"
+    return (qc, visit, data_c, torch.from_numpy(ids),
+            cnns.squared_norms(data_c) if l2 else None,
+            cnns.squared_norms(torch.from_numpy(q)) if l2 else None)
+
+
+def _probe_kernel_vs_plain(card, args, k, metric):
+    """probe_topk on the card and the plain version on the CPU; asserts
+    the two launches."""
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    want = probe_scan.probe_topk_reference(*args, k, metric)
+    before = dict(probe_scan.launches_by_kernel)
+    got = probe_scan.probe_topk(*(None if t is None else t.to(card)
+                                  for t in args), k, metric)
+    torch.cuda.synchronize()
+    for name in ("probe_scan", "probe_merge"):
+        assert probe_scan.launches_by_kernel[name] == before.get(name, 0) + 1
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    return (got[0].cpu(), got[1].cpu()), want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("k", [1, 10, 20, 200])
+@pytest.mark.parametrize("d,npr", [(128, 1), (128, 2), (3072, 3), (37, 4),
+                                   (8, 2)])
+def test_probe_kernel_equals_plain_on_integers(card, metric, k, d, npr):
+    """Exact distances: the kernel's dists and ids equal the plain
+    version's bit for bit, ties by (probe slot, row), a repeated cluster's
+    rows twice, PAD past the live rows; 37 queries, every d chunk, row
+    split and top-k kind (a list at k <= 32, buffers above)."""
+    args = _probe_ints(d + k + npr, 37, 12, 300 if d < 3072 else 96, d, npr,
+                       metric)
+    (gd, gi), (wd, wi) = _probe_kernel_vs_plain(card, args, k, metric)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    assert torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,qn,c,maxc,d,npr,k,metric", [
+    ("odd d: plain loads", 33, 9, 70, 37, 3, 10, "l2"),
+    ("rows on 8 bytes", 20, 7, 64, 100, 2, 33, "ip"),
+    ("two d chunks, rows on 4 bytes", 9, 5, 40, 1030, 2, 5, "l2"),
+    ("d chunk of 1000", 17, 6, 50, 1000, 3, 12, "ip"),
+    ("k past every row", 11, 6, 9, 64, 3, 40, "l2"),
+    ("k past every row, a list", 11, 6, 9, 64, 2, 25, "ip"),
+    ("one row a slab", 15, 8, 1, 16, 4, 3, "l2"),
+    ("one query", 1, 30, 500, 128, 4, 10, "ip"),
+    ("maxc past 1024 rows an item", 6, 4, 3000, 64, 2, 20, "l2"),
+    ("k = 1000", 5, 4, 3000, 32, 3, 1000, "l2"),
+    ("k = maxc npr", 7, 5, 40, 24, 3, 120, "ip"),
+])
+def test_probe_kernel_shapes(card, name, qn, c, maxc, d, npr, k, metric):
+    args = _probe_ints(qn + d + k, qn, c, maxc, d, npr, metric)
+    (gd, gi), (wd, wi) = _probe_kernel_vs_plain(card, args, k, metric)
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32)), name
+    assert torch.equal(gi, wi), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [10, 40])
+def test_probe_kernel_long_runs_of_one_cluster(card, k):
+    """Every query probes the same clusters, one of them twice: runs of
+    70 and 140 pairs, read a pass for every 4 pairs, and one run of 3."""
+    qc, visit, data_c, ids_c, cn, qn = _probe_ints(4, 70, 9, 130, 96, 4,
+                                                   "ip")
+    visit[:] = torch.tensor([5, 2, 5, 7])
+    visit[:3, 3] = 1
+    args = (qc, visit, data_c, ids_c, cn, qn)
+    (gd, gi), (wd, wi) = _probe_kernel_vs_plain(card, args, k, "ip")
+    assert torch.equal(gd.view(torch.int32), wd.view(torch.int32))
+    assert torch.equal(gi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric,k", [(m, k) for m in ("l2", "ip")
+                                      for k in (1, 10, 32, 200)])
+def test_probe_kernel_equals_the_jax_packages_flat_probe_search(card, metric,
+                                                                k):
+    """On the integer inputs of tests/data/probe_jax_ref.npz,
+    _flat_probe_search on the card (bf16 slabs: the kernel, launched once)
+    returns the JAX package's _flat_probe_search's distances and ids bit
+    for bit, as the file holds them; tests/test_torch_probe_scan.py holds
+    the file to the JAX package on the CPU (this machine needs no JAX)."""
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    f = np.load(pathlib.Path(__file__).parent / "data" / "probe_jax_ref.npz")
+    data_c = torch.from_numpy(f["slabs"].astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    before = dict(probe_scan.launches_by_kernel)
+    gd, gi = cnns._flat_probe_search(
+        torch.from_numpy(f["q"]).to(card),
+        torch.from_numpy(f["visit"]).to(card), data_c,
+        torch.from_numpy(f["ids"]).to(card), cnns.squared_norms(data_c), k,
+        metric)
+    for name in ("probe_scan", "probe_merge"):
+        assert probe_scan.launches_by_kernel[name] == before.get(name, 0) + 1
+    want_d, want_i = f[f"d_{metric}_{k}"], f[f"i_{metric}_{k}"]
+    assert np.array_equal(gd.cpu().numpy().view(np.int32),
+                          want_d.view(np.int32))
+    assert np.array_equal(gi.cpu().numpy(), want_i)
+
+
+@pytest.mark.cuda
+def test_probe_kernel_takes_int32_visits_and_all_pad(card):
+    qc, visit, data_c, ids_c, cn, qn = _probe_ints(3, 10, 6, 50, 32, 3,
+                                                   "l2")
+    visit[4:] = -1
+    args = (qc, visit.int(), data_c, ids_c, cn, qn)
+    (gd, gi), (wd, wi) = _probe_kernel_vs_plain(card, args, 10, "l2")
+    assert torch.equal(gd, wd) and torch.equal(gi, wi)
+    assert bool((gi[4:] == -1).all()) and bool((gd[4:] == cnns.PAD_DIST).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c,d,npr,metric", [
+    ("sift1m batch512", 40, 128, 2, "l2"),
+    ("dbpedia batch512", 24, 3072, 3, "ip"),
+])
+def test_probe_kernel_at_the_bench_shapes(card, name, c, d, npr, metric):
+    """Gaussian data at the benchmark's per-query shapes (512 queries,
+    slabs of 2056 rows, kk = 20; fewer clusters): the kernel (f32 sums of
+    exact bf16 products, another order) against the plain version on the
+    card (cuBLAS f32): distances within 1e-5 |q| |x| (l2: + |q|^2 +
+    |x|^2, the norms' own sums) of the exact float64 ones and of each
+    other, ids equal but where the two took another of near-tied rows,
+    each such row within twice that of the 20th distance. The near-ties
+    are counted and printed."""
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(23)
+    qn, maxc, k = 512, 2056, 20
+    x = torch.randn((c, maxc, d), generator=gen, device=card)
+    q = torch.randn((qn, d), generator=gen, device=card)
+    if metric == "ip":
+        x = x / x.norm(dim=2, keepdim=True)
+        q = q / q.norm(dim=1, keepdim=True)
+    data_c, qc = x.to(torch.bfloat16), q.to(torch.bfloat16)
+    del x
+    ids_c = torch.arange(c * maxc, device=card, dtype=torch.int32).reshape(
+        c, maxc)
+    ids_c[:, -7:] = -1
+    visit = torch.rand((qn, c), generator=gen, device=card).argsort(1)[
+        :, :npr]
+    l2 = metric == "l2"
+    cn = cnns.squared_norms(data_c) if l2 else None
+    qn2 = cnns.squared_norms(q) if l2 else None
+    args = (qc, visit, data_c, ids_c, cn, qn2, k, metric)
+    gd, gi = probe_scan.probe_topk(*args)
+    wd, wi = probe_scan.probe_topk_reference(*args)
+    # the exact distance of every returned id, float64
+    flat = data_c.reshape(c * maxc, d).double()
+    qd = qc.double()
+
+    def exact(ids):
+        xs = flat[ids.long().clamp(min=0)]
+        dots = (xs * qd[:, None, :]).sum(2)
+        if l2:
+            return (xs * xs).sum(2) - 2 * dots + (q.double() ** 2).sum(1)[
+                :, None]
+        return 1 - dots
+
+    qnrm, xnrm = qd.norm(dim=1)[:, None], flat.norm(dim=1).max()
+    scale = qnrm * xnrm + (qnrm ** 2 + xnrm ** 2 if l2 else 0)
+    tol = 1e-5 * scale
+    assert bool(((gd - exact(gi)).abs() <= tol).all())
+    assert bool(((wd - exact(wi)).abs() <= tol).all())
+    same = gi == wi
+    assert bool(((gd - wd).abs()[same] <= 2 * tol.expand_as(same)[same]).all())
+    rows = (~same).any(1).nonzero()[:, 0]
+    kth = torch.maximum(gd[:, -1], wd[:, -1])[:, None]
+    for a, b, ad in ((gi, wi, gd), (wi, gi, wd)):
+        only = ~(a[:, :, None] == b[:, None, :]).any(2)
+        assert bool(((kth - ad).abs() <= 2 * tol)[only].all())
+    print(f"probe {name}: {int((~same).sum())} ids of {same.numel()} in "
+          f"{rows.numel()} queries at another place (near-ties)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_dtype", [torch.bfloat16, torch.float32,
+                                        torch.int8])
+def test_flat_probe_search_on_card_takes_the_kernel_for_bf16(card,
+                                                             slab_dtype):
+    """_flat_probe_search on the card: bf16 slabs launch the kernel (two
+    launches a block of queries, the pairs counted "kernel"), f32 and
+    int8 slabs the plain version (counted "plain", no launch); the search
+    equals the CPU's within near-ties."""
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    args = _probe_ints(9, 50, 8, 120, 64, 3, "l2")
+    qf = args[0].float()
+    data_c = args[2].to(slab_dtype)
+    cn = cnns.squared_norms(data_c)
+    before = dict(cnns.probe_counts)
+    launched = dict(probe_scan.launches_by_kernel)
+    got = cnns._flat_probe_search(qf.to(card), args[1].to(card),
+                                  data_c.to(card), args[3].to(card),
+                                  cn.to(card), 10, "l2", q_block=32)
+    kernel = slab_dtype == torch.bfloat16
+    key = "kernel" if kernel else "plain"
+    assert cnns.probe_counts[key] == before.get(key, 0) + 150
+    assert probe_scan.launches_by_kernel["probe_scan"] == launched.get(
+        "probe_scan", 0) + (2 if kernel else 0)
+    want = cnns._flat_probe_search(qf, args[1], data_c, args[3], cn, 10,
+                                   "l2", q_block=32)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+def test_probe_wrapper_raises_on_what_the_kernel_does_not_take(card):
+    from hnsw_nsg_tpu_torch.ops import probe_scan
+
+    qc, visit, data_c, ids_c, cn, qn = (
+        t.to(card) for t in _probe_ints(1, 8, 4, 16, 32, 2, "l2"))
+    ok = dict(qc=qc, visit=visit, data_c=data_c, ids_c=ids_c, cnorms=cn,
+              qnorm=qn, k=5, metric="l2")
+    for bad, err in ((dict(qc=qc.t().contiguous().t()), ValueError),
+                     (dict(data_c=data_c.transpose(0, 1).contiguous()
+                           .transpose(0, 1)), ValueError),
+                     (dict(visit=visit.cpu()), ValueError),
+                     (dict(qc=qc.float()), TypeError),
+                     (dict(data_c=data_c.float()), TypeError)):
+        with pytest.raises(err):
+            probe_scan.probe_topk(**{**ok, **bad})
